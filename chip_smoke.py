@@ -2,25 +2,42 @@
 """Smoke run of demuxalot_tpu_torch on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
-CUDA card, ``nvcc`` and ``nvidia-smi``, and neither jax nor pandas. Phases,
-one line each (any failed check raises and the exit code is non-zero):
+CUDA card, ``nvcc``, ``g++`` with zlib's headers, ``nvidia-smi``, pandas and
+pyarrow (for the CLI run of phase 6), and no jax. Phases, one line each
+(any failed check raises and the exit code is non-zero):
 
-1. device: name, count, versions, nvidia-smi's name and power limit, and
-   whether pandas and pyarrow are importable;
-2. build: nvcc builds ``demuxalot_tpu_torch/csrc/*.cu``; seconds and
-   ptxas' registers/spills per kernel;
+1. device: name, count, versions, nvidia-smi's name and power limit,
+   whether pandas, pyarrow and joblib are importable, and whether g++ finds
+   ``zlib.h`` for the BAM scanner;
+2. build: nvcc builds ``demuxalot_tpu_torch/csrc/*.cu`` while g++ builds
+   the BAM scanner and the host ops (``demuxalot_tpu_torch.native``);
+   seconds of each and ptxas' registers/spills per kernel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at edge shapes, the padding no-op, and ``tests/oracle.py`` (float64
-   accumulation) at a small shape;
+   at edge shapes, the padding no-op, barcodes that span several staged
+   tiles of calls (also against ``tests/oracle.py``, float64 accumulation),
+   and the oracle at a small shape;
 4. main path at the bench shape (32 donors, 65,536 SNPs, 65,536 barcodes,
    64 calls per barcode, 20% doublets, seed 0): ``learn_genotypes_core``
    (5 iterations, doublet prior 0.35) then ``predict_posteriors_core``,
    with launch counters, output checks and truth accuracy, then the same
    run through the plain versions on the card for comparison;
 5. timing with CUDA events: E-step, M-step and a full EM iteration,
-   kernel and plain in turns (plain, kernel, kernel, plain).
+   kernel and plain in turns (plain, kernel, kernel, plain);
+6. the BAM path at the end-to-end shape of ``benchmarks/end_to_end.py``
+   (32 donors, 65,536 barcodes x 20 reads, 8 chromosomes x 20,000 bp,
+   mutation 0.003, 20% doublets, seed 0): ``sim.generate_bam_file``,
+   ``count_snps(native=True)``, ``pack_dataset`` on the native host ops,
+   ``learn_genotypes_core(damping="auto")`` and
+   ``predict_posteriors_compact``, with launch counts over the last two,
+   the native paths held against the Python/numpy ones, the compact
+   result against the full frame, truth accuracy, the same flow through
+   ``python -m demuxalot_tpu_torch demux --compact``, and last the same
+   learn + predict through the plain versions on the card (phase 4's
+   bars). Host-clock seconds per stage.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel
+(``launches`` sums the runs of phases 4 and 6, ``launches_by_path`` keeps
+them apart); the line before it is nvidia-smi's name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -28,7 +45,9 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,6 +68,12 @@ LOGITS_TOL = dict(rtol=1e-4, atol=5e-3)
 POSTERIOR_ATOL = 3e-5
 ADDITION_TOL = dict(rtol=1e-4, atol=1e-5)
 BETAS_TOL = dict(rtol=1e-4, atol=1e-2)
+# phase 6: benchmarks/end_to_end.py:94-96 (its default shape), seed 0
+E2E_FIXTURE = dict(
+    n_genotypes=32, n_barcodes=65_536, n_reads_per_barcode=20, mutation_prob=0.003,
+    doublets_fraction=0.2, chromosome2length={f"chr{i}": 20_000 for i in range(1, 9)},
+)
+E2E_TOPK = 4
 
 
 def say(phase: str, **fields) -> None:
@@ -82,8 +107,12 @@ def phase_device() -> dict:
 
     require(torch.cuda.is_available(), "torch.cuda.is_available()")
     report = device_report()
-    report["pandas"] = importlib.util.find_spec("pandas") is not None
-    report["pyarrow"] = importlib.util.find_spec("pyarrow") is not None
+    for module in ("pandas", "pyarrow", "joblib"):
+        report[module] = importlib.util.find_spec(module) is not None
+    # the BAM scanner (demuxalot_tpu/native/scanner.cpp) includes zlib.h
+    zlib = subprocess.run(["g++", "-E", "-x", "c++", "-"], input="#include <zlib.h>\n",
+                          capture_output=True, text=True)
+    report["zlib_h"] = zlib.returncode == 0
     torch.backends.cuda.matmul.allow_tf32 = False  # plain path in full f32
     torch.backends.cudnn.allow_tf32 = False
     report["allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
@@ -92,11 +121,24 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """nvcc builds the kernels while g++ builds the BAM scanner and the host ops."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from demuxalot_tpu_torch import native
     from demuxalot_tpu_torch.ops import _cuda
 
+    def timed(build):
+        t0 = time.perf_counter()
+        build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = {name: pool.submit(timed, build) for name, build in (
+            ("nvcc", _cuda.build), ("scanner", native.load_library), ("hostops", native.load_host_library))}
+        seconds = {name: future.result() for name, future in futures.items()}
     result = _cuda.build()
     _cuda.library()
-    say("build", seconds=round(result.seconds, 3), library=result.path.name)
+    say("build", seconds=seconds, library=result.path.name)
     for line in result.log.splitlines():
         if any(key in line for key in ("Compiling entry", "registers", "spill")):
             print("  ptxas: " + line.strip(), flush=True)
@@ -174,6 +216,28 @@ def phase_kernels() -> None:
     require(torch.equal(base, with_pad), "padding calls must leave the E-step logits bit-equal")
     say("kernels", kernel="estep_logits", padding_noop="bit-equal", pad_calls=pad)
 
+    # twenty barcodes of ~400 calls each span four staged tiles (128 calls at
+    # D = 32 and 65). Over that many calls the plain version's own f32 sums
+    # drift from float64 by about the posterior bar, so the kernel is held to
+    # the float64 oracle at both bars and to the plain version at the logits bar
+    for n_donors in (32, 65):
+        p = _estep_inputs(n_donors, 0.35, seed=11, n_barcodes=60)
+        args = _estep_tensors(p, cuda)
+        got, want = estep_logits(*args), estep_logits_plain(*args)
+        torch.cuda.synchronize()
+        ref, _ = oracle_barcode_logits([f"D{i}" for i in range(n_donors)], args[0].cpu().numpy(), p["vid"],
+                                       p["cb"], p["q"], p["n_barcodes"], 0.35)
+        ref = torch.from_numpy(ref)
+        err = compare(f"estep across tiles D={n_donors}", got, want, **LOGITS_TOL)
+        oerr = compare(f"estep across tiles vs oracle D={n_donors}", got, ref, **LOGITS_TOL)
+        perr = compare(f"estep across tiles posteriors vs oracle D={n_donors}", torch.softmax(got, -1),
+                       torch.softmax(ref, -1), 0.0, POSTERIOR_ATOL)
+        plain_perr = float((torch.softmax(want.cpu().double(), -1) - torch.softmax(ref.double(), -1)).abs().max())
+        calls = int(np.diff(args[1].row_ptr.cpu().numpy()).max())
+        say("kernels", kernel="estep_logits", n_donors=n_donors, max_calls_per_barcode=calls,
+            max_abs_err=err, oracle_max_abs_err=oerr, posterior_vs_oracle_max_abs_err=perr,
+            plain_posterior_vs_oracle_max_abs_err=plain_perr)
+
     for n_donors in (1, 32, 65):
         for power in (1.0, 2.0):
             rng = np.random.RandomState(100 + n_donors)
@@ -249,14 +313,14 @@ def plain_versions():
 def _run_main_path(genotypes, handler, packed):
     from demuxalot_tpu_torch import Demultiplexer
 
-    learnt, state, _cols = Demultiplexer.learn_genotypes_core(
+    learnt = Demultiplexer.learn_genotypes_core(
         packed, genotypes, handler, n_iterations=N_ITERATIONS, doublet_prior=DOUBLET_PRIOR,
     )
     logits, probs, columns = Demultiplexer.predict_posteriors_core(
-        packed, learnt, handler, doublet_prior=DOUBLET_PRIOR,
+        packed, learnt.genotypes, handler, doublet_prior=DOUBLET_PRIOR,
     )
     torch.cuda.synchronize()
-    return learnt, state, logits, probs, columns
+    return learnt.genotypes, learnt.state, logits, probs, columns
 
 
 def phase_main(genotypes, handler, packed, truth) -> dict:
@@ -400,6 +464,165 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
     return {"timings": timings, "estep_err": estep_err, "mstep_err": mstep_err}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the BAM path at the end-to-end shape
+# ---------------------------------------------------------------------------
+
+def _same_counts(ours: dict, theirs: dict, what: str) -> None:
+    require(sorted(ours) == sorted(theirs), f"{what}: chromosomes {sorted(ours)} vs {sorted(theirs)}")
+    for chromosome in ours:
+        a, b = ours[chromosome], theirs[chromosome]
+        require(a.molecules.tobytes() == b.molecules.tobytes(), f"{what}: molecules of {chromosome}")
+        require(a.snp_calls.tobytes() == b.snp_calls.tobytes(), f"{what}: calls of {chromosome}")
+
+
+def _packed_arrays(packed) -> list:
+    arrays = [packed.variant2snp, packed.reindex.order, packed.reindex.inverse]
+    arrays += [getattr(packed.molecule_calls, field) for field in (
+        "variant_id", "snp_id", "compressed_cb", "molecule_id", "p_base_wrong", "p_molecule_aligned_wrong")]
+    arrays += [packed.calls_v.vid, packed.calls_v.cb, packed.calls_v.q, packed.calls_v.count]
+    return arrays + list(packed.calls_by_barcode())
+
+
+def _run_cli(bam: str, genotypes, barcodes: list, tmp: Path) -> list:
+    """``python -m demuxalot_tpu_torch demux --compact`` on the BAM; its assignments.csv lines.
+
+    The one part of phase 6 that uses pandas and pyarrow (betas parquet in,
+    CSV out), which phase 1 showed the card's machine has.
+    """
+    betas = tmp / "prior_betas.parquet"
+    genotypes.save_betas(str(betas))
+    whitelist = tmp / "barcodes.csv"
+    whitelist.write_text("\n".join(barcodes) + "\n")
+    cli = [sys.executable, "-m", "demuxalot_tpu_torch", "demux", "--bam", bam, "--barcodes", str(whitelist),
+           "--prior-betas", str(betas), "--output-dir", str(tmp / "cli"), "--compact", "--damping", "auto",
+           "--doublet-prior", str(DOUBLET_PRIOR), "--n-iterations", str(N_ITERATIONS), "--device", "cuda"]
+    proc = subprocess.run(cli, cwd=REPO, capture_output=True, text=True, timeout=900)
+    require(proc.returncode == 0, f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return (tmp / "cli" / "assignments.csv").read_text().splitlines()
+
+
+def phase_bam(card: str) -> dict:
+    from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, count_snps, native, sim
+    from demuxalot_tpu_torch.native import hostops
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
+
+    Demultiplexer.device = "cuda"
+    stages = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        bam, genotypes, _ids, barcode2donors = sim.generate_bam_file(f"{tmp}/e2e.bam", rng=0, **E2E_FIXTURE)
+        stages["fixture_s"] = time.perf_counter() - t0
+        n_reads = E2E_FIXTURE["n_barcodes"] * E2E_FIXTURE["n_reads_per_barcode"]
+        handler = BarcodeHandler(list(barcode2donors))
+        positions = genotypes.get_chromosome2positions()
+        say("bam", stage="fixture", card=card, seconds=stages["fixture_s"], n_reads=n_reads,
+            bam_bytes=Path(bam).stat().st_size, n_variants=genotypes.n_variants)
+
+        # phase 2 built the native libraries; the host ops must run on them
+        require(hostops.native_library() is native.load_host_library(), "native host library loaded")
+
+        t0 = time.perf_counter()
+        calls = count_snps(bam, positions, handler, joblib_n_jobs=-1, joblib_verbosity=0, native=True)
+        stages["count_native_s"] = time.perf_counter() - t0
+        n_molecule_calls = sum(c.n_snp_calls for c in calls.values())
+        t0 = time.perf_counter()
+        python_chr1 = count_snps(bam, {"chr1": positions["chr1"]}, handler, joblib_n_jobs=None,
+                                 joblib_verbosity=0, native=False)
+        stages["count_python_chr1_s"] = time.perf_counter() - t0
+        _same_counts({"chr1": calls["chr1"]}, python_chr1, "native vs Python scanner on chr1")
+        say("bam", stage="count", card=card, path="native scanner", seconds=stages["count_native_s"],
+            reads_per_s=n_reads / stages["count_native_s"], n_molecule_calls=n_molecule_calls,
+            python_chr1_s=stages["count_python_chr1_s"], native_equals_python_on_chr1=True)
+
+        t0 = time.perf_counter()
+        cli_rows = _run_cli(bam, genotypes, list(barcode2donors), Path(tmp))
+        stages["cli_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    packed = Demultiplexer.pack_dataset(calls, genotypes)
+    stages["pack_native_s"] = time.perf_counter() - t0
+    with hostops.numpy_paths():
+        t0 = time.perf_counter()
+        packed_numpy = Demultiplexer.pack_dataset(calls, genotypes)
+        stages["pack_numpy_s"] = time.perf_counter() - t0
+    for a, b in zip(_packed_arrays(packed), _packed_arrays(packed_numpy)):
+        require(a.dtype == b.dtype and a.tobytes() == b.tobytes(), "native and numpy packing bit-identical")
+    say("bam", stage="pack", card=card, native_s=stages["pack_native_s"], numpy_s=stages["pack_numpy_s"],
+        n_collapsed_calls=len(packed.calls_v), bit_identical=True)
+
+    estep_logits.launches = 0
+    mstep_addition.launches = 0
+    t0 = time.perf_counter()
+    learnt = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
+                                                doublet_prior=DOUBLET_PRIOR, damping="auto")
+    torch.cuda.synchronize()
+    stages["learn_auto_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compact = Demultiplexer.predict_posteriors_compact(packed, learnt.genotypes, handler, k=E2E_TOPK,
+                                                       doublet_prior=DOUBLET_PRIOR)
+    stages["predict_compact_s"] = time.perf_counter() - t0
+    launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
+    expected = {"estep_logits": 2 * N_ITERATIONS + 1, "mstep_addition": 2 * (N_ITERATIONS - 1)}
+    require(launches == expected, f"BAM path launches {launches}, expected {expected}")
+    say("bam", stage="learn auto + compact", card=card, launches=launches, learn_auto_s=stages["learn_auto_s"],
+        damping_selected=learnt.damping_selected, anchored_disagreement=learnt.anchored_disagreement,
+        predict_compact_s=stages["predict_compact_s"], bytes_moved=compact.bytes_moved)
+
+    # the compact result against the full frame of the same forward
+    logits, probs, columns = Demultiplexer.predict_posteriors_core(packed, learnt.genotypes, handler,
+                                                                   doublet_prior=DOUBLET_PRIOR)
+    full = logits.cpu().numpy()
+    require(bool(np.isfinite(full).all()) and bool(torch.isfinite(probs).all()), "posteriors finite")
+    require(bool(np.isfinite(compact.top_logits).all()) and bool(np.isfinite(compact.logsumexp).all()),
+            "compact output finite")
+    require(bool(torch.isfinite(learnt.state.probs).all()), "EM posteriors finite")
+    require(np.array_equal(compact.assignment, full.argmax(axis=1)), "compact assignment = full-frame argmax")
+    require(np.array_equal(compact.top_logits, np.take_along_axis(full, compact.top_index, axis=1)),
+            "top_logits are exact frame entries")
+    truth = np.array([columns.index("+".join(sorted(set(barcode2donors[b])))) for b in compact.barcodes])
+    accuracy = float((compact.assignment == truth).mean())
+    singlet = np.array([len(set(barcode2donors[b])) == 1 for b in compact.barcodes])
+    singlet_accuracy = float((compact.assignment[singlet] == truth[singlet]).mean())
+    require(accuracy > 0.9, f"assignment accuracy {accuracy}")
+    cli_assignment = [row.split(",")[1] for row in cli_rows[1:]]
+    require(cli_rows[0].startswith("BARCODE,assignment") and cli_assignment == compact.assignment_names,
+            "the CLI's assignments equal the API's")
+    say("bam", stage="checks", card=card, accuracy=accuracy, singlet_accuracy=singlet_accuracy,
+        compact_equals_full_argmax=True, top_logits_exact=True, cli_s=stages["cli_s"],
+        cli_assignments_equal=True, stages=stages)
+
+    # the same learn + predict through the plain versions on the card, at this
+    # path's shapes: most barcodes here span several E-step tiles of calls
+    per_barcode = np.bincount(packed.calls_v.cb, minlength=handler.n_barcodes)
+    with plain_versions():
+        learnt_p = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
+                                                      doublet_prior=DOUBLET_PRIOR, damping="auto")
+        logits_p, probs_p, _ = Demultiplexer.predict_posteriors_core(packed, learnt_p.genotypes, handler,
+                                                                     doublet_prior=DOUBLET_PRIOR)
+    require(learnt.damping_selected == learnt_p.damping_selected,
+            f"damping_selected {learnt.damping_selected} vs plain {learnt_p.damping_selected}")
+    errors = {
+        "em_posteriors": compare("BAM path EM posteriors", learnt.state.probs, learnt_p.state.probs,
+                                 0.0, POSTERIOR_ATOL),
+        "learnt_betas": compare("BAM path learnt betas", torch.from_numpy(np.array(learnt.genotypes.get_betas())),
+                                torch.from_numpy(np.array(learnt_p.genotypes.get_betas())), **BETAS_TOL),
+        "logits": compare("BAM path predict logits", logits, logits_p, **LOGITS_TOL),
+        "posteriors": compare("BAM path predict posteriors", probs, probs_p, 0.0, POSTERIOR_ATOL),
+    }
+    em_argmax_same = float((learnt.state.probs.argmax(1) == learnt_p.state.probs.argmax(1)).float().mean())
+    argmax_same = float((probs.argmax(1) == probs_p.argmax(1)).float().mean())
+    require(em_argmax_same == 1.0 and argmax_same == 1.0,
+            f"argmax agrees on {em_argmax_same} (EM) and {argmax_same} (predict) of barcodes")
+    say("bam", stage="plain vs kernels", card=card, max_abs_err=errors, argmax_agreement=argmax_same,
+        em_argmax_agreement=em_argmax_same, damping_selected=[learnt.damping_selected, learnt_p.damping_selected],
+        anchored_disagreement=[learnt.anchored_disagreement, learnt_p.anchored_disagreement],
+        calls_per_barcode={"mean": float(per_barcode.mean()), "max": int(per_barcode.max()),
+                           "share_over_128": float((per_barcode > 128).mean())})
+    return {"launches": launches, "stages": stages, "errors": errors}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -411,15 +634,21 @@ def main() -> int:
     genotypes, handler, packed, truth = _bench_data()
     main_result = phase_main(genotypes, handler, packed, truth)
     timing = phase_timing(genotypes, handler, packed, main_result, card)
+    bam_result = phase_bam(card)
     t = timing["timings"]
+
+    def launches(name: str) -> dict:
+        by_path = {"packed_calls": main_result["launches"][name], "bam_flow": bam_result["launches"][name]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
     kernels = [
         {"name": "estep_logits", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/likelihood.cu",
-         "replaces": "demuxalot_tpu/ops/pallas_likelihood.py:180",
-         "launches": main_result["launches"]["estep_logits"], "max_abs_err": timing["estep_err"],
+         "replaces": "demuxalot_tpu/ops/pallas_likelihood.py:180", **launches("estep_logits"),
+         "max_abs_err": timing["estep_err"],
          "ms": t["estep"]["kernel_ms_mean"], "plain_ms": t["estep"]["plain_ms_mean"]},
         {"name": "mstep_addition", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/mstep.cu",
-         "replaces": "demuxalot_tpu/ops/pallas_mstep.py:56",
-         "launches": main_result["launches"]["mstep_addition"], "max_abs_err": timing["mstep_err"],
+         "replaces": "demuxalot_tpu/ops/pallas_mstep.py:56", **launches("mstep_addition"),
+         "max_abs_err": timing["mstep_err"],
          "ms": t["mstep"]["kernel_ms_mean"], "plain_ms": t["mstep"]["plain_ms_mean"]},
     ]
     print(card, flush=True)

@@ -12,14 +12,17 @@ raises where there is no card; set it to ``"cpu"`` to run the plain path.
 
 __version__ = "0.1.0"
 
-from .models.demux import Demultiplexer, PackedCalls
+from .frontend.snp_counter import count_snps
+from .models.demux import CompactPosteriors, Demultiplexer, PackedCalls
 from .models.genotypes import ProbabilisticGenotypes
 from .utils.barcodes import BarcodeHandler
 
 __all__ = [
     "BarcodeHandler",
+    "CompactPosteriors",
     "Demultiplexer",
     "PackedCalls",
     "ProbabilisticGenotypes",
     "__version__",
+    "count_snps",
 ]

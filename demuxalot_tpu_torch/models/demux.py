@@ -14,14 +14,17 @@ The EM state is variant-major [V, D]: a call's genotype row is then one
 contiguous read in the E-step and the M-step writes whole variant rows.
 
 Each public entry point is an array core that returns tensors
-(:meth:`Demultiplexer.learn_genotypes_core`,
+(:meth:`Demultiplexer.learn_genotypes_core`, which also runs
+``damping="auto"`` as two EMs on one pack,
 :meth:`Demultiplexer.predict_posteriors_core`) plus a thin wrapper that
 builds the reference-shaped pandas frames; pandas is imported only there.
-Semantics are those of ``demuxalot_tpu.models.demux`` (reference:
-demuxalot/demux.py:24-156).
+:meth:`Demultiplexer.predict_posteriors_compact` reduces the logits to
+their top-k and logsumexp on the device. Semantics are those of
+``demuxalot_tpu.models.demux`` (reference: demuxalot/demux.py:24-156).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -206,8 +209,13 @@ class _EMRun:
         barcode_prior_logits: Optional[np.ndarray],
         damping: Optional[str] = None,
     ):
+        _refuse_unported_switches()
         if damping not in (None, "anchor"):
-            raise ValueError(f"damping must be None or 'anchor' ('auto' is not ported yet), got {damping!r}")
+            raise ValueError(
+                f"damping must be None or 'anchor', got {damping!r}"
+                + (" ('auto' is only available through learn_genotypes, which"
+                   " needs the whole trajectory to decide)" if damping == "auto" else "")
+            )
         device = resolve_device(Demultiplexer.device)
         packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
         self.prior_betas = packed.betas_for(genotypes, add_data_prior=True)
@@ -286,14 +294,175 @@ def _frame(values: torch.Tensor, barcode_handler: BarcodeHandler, column_names, 
     return frame
 
 
+def _refuse_unported_switches() -> None:
+    """Raise for engine switches whose paths this package does not have yet."""
+    if Demultiplexer.aggregate_on_snps:
+        raise ValueError("aggregate_on_snps is not ported yet")
+
+
+class LearnResult(NamedTuple):
+    """What :meth:`Demultiplexer.learn_genotypes_core` returns."""
+
+    genotypes: ProbabilisticGenotypes  # the learnt genotypes
+    state: EMState  # the last EM iteration, on the device
+    column_names: List[str]
+    # damping="auto" only (None otherwise): the damping the selection took
+    # ("anchor", or None for plain EM) and the disagreement it measured
+    damping_selected: Optional[str] = None
+    anchored_disagreement: Optional[float] = None
+
+
+def auto_damping_select(probs_plain: torch.Tensor, probs_anchor: torch.Tensor,
+                        n_genotypes: int) -> Tuple[Optional[str], float]:
+    """damping="auto"'s choice from the posteriors of a plain and an anchored run.
+
+    Among barcodes whose best singlet posterior under plain EM reaches
+    ``Demultiplexer.auto_damping_confidence`` (all barcodes when none
+    does), the fraction whose singlet argmax differs from the anchored
+    run's. Above ``auto_damping_disagreement_threshold`` plain EM is taken
+    to have diverged. Returns (``"anchor"`` or None, disagreement); the
+    rule of ``demuxalot_tpu.models.demux.auto_damping_select``.
+    """
+    singlets_plain = probs_plain[:, :n_genotypes]
+    assign_plain = singlets_plain.argmax(dim=1)  # first maximum, as np.argmax
+    assign_anchor = probs_anchor[:, :n_genotypes].argmax(dim=1)
+    confident = singlets_plain.max(dim=1).values >= Demultiplexer.auto_damping_confidence
+    differs = assign_plain != assign_anchor
+    counted = differs[confident] if bool(confident.any()) else differs
+    disagreement = int(counted.sum()) / max(counted.numel(), 1)
+    anchored = disagreement > Demultiplexer.auto_damping_disagreement_threshold
+    return ("anchor" if anchored else None), disagreement
+
+
+@dataclass
+class CompactPosteriors:
+    """Compact posterior result: the device's top-k instead of full frames.
+
+    ``top_logits``/``top_index`` are the k best pseudogenotype logits per
+    barcode (exact f32 frame entries, descending, ties toward the lowest
+    index); ``logsumexp`` is the per-row softmax normalizer, so
+    ``exp(top_logits - logsumexp[:, None])`` gives the exact top-k
+    posterior probabilities without the full frame. ``logits_bf16`` (only
+    when requested) is the full frame as a CPU ``torch.bfloat16`` tensor
+    (numpy has no bfloat16): every entry the f32 value rounded to nearest.
+    Same contract as ``demuxalot_tpu.models.demux.CompactPosteriors``.
+    """
+
+    column_names: list
+    barcodes: list
+    top_index: np.ndarray  # [n, k] int32, descending by logit
+    top_logits: np.ndarray  # [n, k] float32 (exact frame entries)
+    logsumexp: np.ndarray  # [n] float32
+    logits_bf16: Optional[torch.Tensor]  # [n, n_pg] bfloat16 on the CPU, or None
+    bytes_moved: int  # device -> host bytes of the arrays above
+
+    @property
+    def assignment(self) -> np.ndarray:
+        """argmax pseudogenotype index per barcode (== full-frame argmax)."""
+        return self.top_index[:, 0]
+
+    @property
+    def k(self) -> int:
+        return self.top_index.shape[1]
+
+    @property
+    def runner_up(self) -> np.ndarray:
+        if self.k < 2:
+            raise ValueError(
+                "no runner-up recorded: the result holds top-1 only "
+                "(k=1, or a single pseudogenotype column)"
+            )
+        return self.top_index[:, 1]
+
+    @property
+    def margin(self) -> np.ndarray:
+        """Top-1 minus top-2 logit (f32, exact)."""
+        if self.k < 2:
+            raise ValueError(
+                "no margin available: the result holds top-1 only "
+                "(k=1, or a single pseudogenotype column)"
+            )
+        return self.top_logits[:, 0] - self.top_logits[:, 1]
+
+    @property
+    def top_probs(self) -> np.ndarray:
+        """Posterior probability of each of the k best pseudogenotypes."""
+        return np.exp(
+            self.top_logits.astype(np.float64) - self.logsumexp.astype(np.float64)[:, None]
+        ).astype(np.float32)
+
+    @property
+    def assignment_names(self) -> list:
+        return [self.column_names[i] for i in self.top_index[:, 0]]
+
+    def to_dataframe(self):
+        """Compact per-barcode summary frame (BARCODE-indexed).
+
+        The runner-up/margin columns are present only when k >= 2.
+        """
+        import pandas as pd
+
+        columns = {"assignment": self.assignment_names}
+        if self.k >= 2:
+            columns["runner_up"] = [self.column_names[i] for i in self.runner_up]
+            columns["logit_margin"] = self.margin
+        columns["posterior"] = self.top_probs[:, 0]
+        df = pd.DataFrame(columns, index=list(self.barcodes))
+        df.index.name = "BARCODE"
+        return df
+
+    def logits_dataframe(self):
+        """Full logits frame upcast from bfloat16 (requires include_logits)."""
+        if self.logits_bf16 is None:
+            raise ValueError(
+                "full logits were not requested; pass include_logits=True to "
+                "predict_posteriors_compact"
+            )
+        import pandas as pd
+
+        df = pd.DataFrame(
+            data=self.logits_bf16.float().numpy(), index=list(self.barcodes), columns=self.column_names,
+        )
+        df.index.name = "BARCODE"
+        return df
+
+
+def _validate_topk(k, n_columns: int) -> int:
+    """Clamp k into [1, n_columns]; reject non-positive requests early."""
+    if int(k) < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    return int(min(int(k), n_columns))
+
+
+def compact_topk(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(top-k values f32, top-k indices i32, row logsumexp f32), on the logits' device.
+
+    A stable descending sort keeps equal logits in column order, so ties
+    go to the lowest index, the rule of ``np.argmax`` and ``lax.top_k``
+    (``torch.topk`` promises no order among equal values).
+    """
+    values, index = torch.sort(logits, dim=1, descending=True, stable=True)
+    return values[:, :k], index[:, :k].to(torch.int32), torch.logsumexp(logits, dim=1)
+
+
 class Demultiplexer:
     """Demultiplexer that can also learn (refine) genotypes from the data."""
 
     # contribution_power dampens contributions from barcodes that have no
     # clearly-best candidate donor
     contribution_power = 2.0
+    # the reference's SNP-aggregating likelihood; its path is not ported
+    # yet, so both cores raise while the switch is on
+    aggregate_on_snps = False
+    compensation_during_computing_barcode_logits = 0.5
     # explicit device, no silent CPU path: "cuda" raises without a card
     device = "cuda"
+    # damping="auto": plain-vs-anchored disagreement among plain-confident
+    # barcodes above this fraction means plain EM diverged (measured on the
+    # JAX package's quality sweeps: converging runs <= 0.052, diverging
+    # ones >= 0.239)
+    auto_damping_disagreement_threshold = 0.15
+    auto_damping_confidence = 0.9
 
     # -- array cores --------------------------------------------------------
     @staticmethod
@@ -306,8 +475,26 @@ class Demultiplexer:
         doublet_prior: float = 0.0,
         barcode_prior_logits: Optional[np.ndarray] = None,
         damping: Optional[str] = None,
-    ) -> Tuple[ProbabilisticGenotypes, EMState, List[str]]:
-        """EM without data frames: (learnt genotypes, last EMState, column names)."""
+    ) -> LearnResult:
+        """EM without data frames (see :class:`LearnResult`).
+
+        ``damping="auto"`` packs once and runs a plain and an anchored EM
+        through this core, then keeps one of them by
+        :func:`auto_damping_select`.
+        """
+        if damping == "auto":
+            packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
+            runs = {
+                choice: Demultiplexer.learn_genotypes_core(
+                    packed, genotypes, barcode_handler, n_iterations, p_genotype_clip,
+                    doublet_prior, barcode_prior_logits, damping=choice,
+                )
+                for choice in (None, "anchor")
+            }
+            selected, disagreement = auto_damping_select(
+                runs[None].state.probs, runs["anchor"].state.probs, genotypes.n_genotypes,
+            )
+            return runs[selected]._replace(damping_selected=selected, anchored_disagreement=disagreement)
         run = _EMRun(
             chromosome2compressed_snp_calls, genotypes, barcode_handler,
             n_iterations, p_genotype_clip, doublet_prior, barcode_prior_logits,
@@ -319,17 +506,18 @@ class Demultiplexer:
         if state is None:
             raise ValueError("n_iterations must be >= 1")
         learnt_genotypes = genotypes._with_betas(genotypes.get_betas() + run.registry_addition(state))
-        return learnt_genotypes, state, run.column_names
+        return LearnResult(learnt_genotypes, state, run.column_names)
 
     @staticmethod
-    def predict_posteriors_core(
+    def _predict_logits(
         chromosome2compressed_snp_calls,
         genotypes: ProbabilisticGenotypes,
         barcode_handler: BarcodeHandler,
-        p_genotype_clip: float = 0.01,
-        doublet_prior: float = 0.35,
-    ) -> Tuple[torch.Tensor, torch.Tensor, List[str]]:
-        """Posterior inference without data frames: (logits, probs, column names)."""
+        p_genotype_clip: float,
+        doublet_prior: float,
+    ) -> Tuple[torch.Tensor, List[str]]:
+        """The posterior forward: (logits on the device, column names)."""
+        _refuse_unported_switches()
         device = resolve_device(Demultiplexer.device)
         packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
         prior_betas = packed.betas_for(genotypes, add_data_prior=False)
@@ -344,8 +532,21 @@ class Demultiplexer:
             _to_device(reindex.variant2snp, device),
             n_snps, p_genotype_clip, max_per_snp=reindex.windowed_max_per_snp,
         )
-        logits = likelihood.logits(genotype_prob)
-        return logits, torch.softmax(logits, dim=-1), likelihood.column_names
+        return likelihood.logits(genotype_prob), likelihood.column_names
+
+    @staticmethod
+    def predict_posteriors_core(
+        chromosome2compressed_snp_calls,
+        genotypes: ProbabilisticGenotypes,
+        barcode_handler: BarcodeHandler,
+        p_genotype_clip: float = 0.01,
+        doublet_prior: float = 0.35,
+    ) -> Tuple[torch.Tensor, torch.Tensor, List[str]]:
+        """Posterior inference without data frames: (logits, probs, column names)."""
+        logits, column_names = Demultiplexer._predict_logits(
+            chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip, doublet_prior,
+        )
+        return logits, torch.softmax(logits, dim=-1), column_names
 
     # -- public API ---------------------------------------------------------
     @staticmethod
@@ -371,15 +572,24 @@ class Demultiplexer:
             columns entirely
         :param barcode_prior_logits: optional [n_barcodes, n_options] prior
             assignment logits, applied at the first iteration only
-        :param damping: None (reference-parity EM) or "anchor" (M-step
-            updates only at variants whose genotype prior is informative)
+        :param damping: None (reference-parity EM), "anchor" (M-step
+            updates only at variants whose genotype prior is informative:
+            cannot diverge where plain EM does, but never refines prior-less
+            variants) or "auto" (runs both; keeps the anchored result when
+            plain EM's confident assignments disagree with it, see
+            :func:`auto_damping_select`). With "auto" the frame's ``attrs``
+            carry ``damping_selected`` and ``anchored_disagreement``.
         :return: (learnt genotypes, last-iteration barcode posterior probs)
         """
-        learnt_genotypes, state, column_names = Demultiplexer.learn_genotypes_core(
+        result = Demultiplexer.learn_genotypes_core(
             chromosome2compressed_snp_calls, genotypes, barcode_handler, n_iterations,
             p_genotype_clip, doublet_prior, barcode_prior_logits, damping,
         )
-        return learnt_genotypes, _frame(state.probs, barcode_handler, column_names)
+        probs = _frame(result.state.probs, barcode_handler, result.column_names)
+        if damping == "auto":
+            probs.attrs["damping_selected"] = result.damping_selected
+            probs.attrs["anchored_disagreement"] = result.anchored_disagreement
+        return result.genotypes, probs
 
     @staticmethod
     def staged_genotype_learning(
@@ -397,6 +607,7 @@ class Demultiplexer:
         The prior betas stay frozen; learning accumulates into a separate
         additive term (``genotype_addition``), and only singlet posterior
         columns drive the M-step (reference: demuxalot/demux.py:68-118).
+        ``damping`` is None or "anchor": "auto" needs the whole trajectory.
         """
         run = _EMRun(
             chromosome2compressed_snp_calls, genotypes, barcode_handler,
@@ -426,6 +637,46 @@ class Demultiplexer:
         return (
             _frame(logits, barcode_handler, column_names, index_name="BARCODE"),
             _frame(probs, barcode_handler, column_names, index_name="BARCODE"),
+        )
+
+    @staticmethod
+    def predict_posteriors_compact(
+        chromosome2compressed_snp_calls,
+        genotypes: ProbabilisticGenotypes,
+        barcode_handler: BarcodeHandler,
+        p_genotype_clip: float = 0.01,
+        doublet_prior: float = 0.35,
+        k: int = 4,
+        include_logits: bool = False,
+    ) -> CompactPosteriors:
+        """Posterior inference that moves only the top-k to the host.
+
+        The forward of :meth:`predict_posteriors`, then the top-``k``
+        logits and indices and the row logsumexp on the device
+        (:func:`compact_topk`): (8k+4) bytes per barcode cross to the host
+        instead of the full f32 frame. Assignments equal the argmax of the
+        full f32 frame (same values, ties to the lowest index) and the
+        top-k logits are exact frame entries. ``include_logits=True`` also
+        returns the full frame as bfloat16 (half the bytes).
+        """
+        n_columns = len(L.pseudogenotype_names(genotypes.genotype_names, doublet_prior))
+        k = _validate_topk(k, n_columns)
+        logits, column_names = Demultiplexer._predict_logits(
+            chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip, doublet_prior,
+        )
+        top_logits, top_index, logsumexp = (t.cpu().numpy() for t in compact_topk(logits, k))
+        logits_bf16 = logits.to(torch.bfloat16).cpu() if include_logits else None
+        bytes_moved = top_logits.nbytes + top_index.nbytes + logsumexp.nbytes + (
+            logits_bf16.numel() * logits_bf16.element_size() if logits_bf16 is not None else 0
+        )
+        return CompactPosteriors(
+            column_names=list(column_names),
+            barcodes=list(barcode_handler.ordered_barcodes),
+            top_index=top_index,
+            top_logits=top_logits,
+            logsumexp=logsumexp,
+            logits_bf16=logits_bf16,
+            bytes_moved=int(bytes_moved),
         )
 
     @staticmethod

@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from ..native.hostops import collapse_calls_keyed, match_keys, sort_calls_by_cb, stable_argsort
+from ..native.hostops import collapse_calls_keyed, match_compact, match_keys, sort_calls_by_cb, stable_argsort
 from ..utils.encoding import base_lookup
 
 # windowed denominators stay cheap only while SNP runs are short; genuine
@@ -83,6 +83,20 @@ def match_calls_to_variants(chromosome2compressed_snp_calls, genotypes) -> Molec
         if chromosome not in chrom2keys or len(calls) == 0:
             continue
         table_keys, table_vids = chrom2keys[chromosome]
+        native = match_compact(table_keys, table_vids, calls, molecules)
+        if native is not None:
+            # fused C++ join: key build, hash lookup, compaction and the
+            # molecule-field gathers in one pass
+            vid_m, cb_m, mol_m, p_m, pmol_m = native
+            if not len(vid_m):
+                continue
+            collected["variant_id"].append(vid_m)
+            collected["snp_id"].append(v2s_i32[vid_m])
+            collected["compressed_cb"].append(cb_m)
+            collected["molecule_id"].append(mol_m)
+            collected["p_base_wrong"].append(p_m)
+            collected["p_molecule_aligned_wrong"].append(pmol_m)
+            continue
         call_keys = calls["snp_position"].astype(np.int64) * 6 + calls["base_index"].astype(np.int64)
         joined = match_keys(table_keys, table_vids, call_keys)
         matched = joined >= 0

@@ -315,6 +315,80 @@ def test_device_is_explicit():
 
 
 def test_unported_damping_raises(dataset):
+    """Unknown damping values raise; "auto" runs only where the whole EM is in view."""
     calls, genotypes, handler = dataset["port"]
-    with pytest.raises(ValueError, match="auto"):
+    with pytest.raises(ValueError, match="damping must be"):
+        Demultiplexer.learn_genotypes(calls, genotypes, handler, damping="bogus")
+    with pytest.raises(ValueError, match="learn_genotypes"):
+        next(Demultiplexer.staged_genotype_learning(calls, genotypes, handler, damping="auto"))
+
+
+def test_aggregate_on_snps_is_refused_not_ignored(dataset, monkeypatch):
+    """The switch exists with the JAX defaults, and turning it on raises.
+
+    Before the switch existed on the port, setting it made a class
+    attribute nothing read, and the run quietly took the default path.
+    """
+    assert "aggregate_on_snps" in vars(Demultiplexer)
+    assert Demultiplexer.aggregate_on_snps is JaxDemultiplexer.aggregate_on_snps is False
+    assert (Demultiplexer.compensation_during_computing_barcode_logits
+            == JaxDemultiplexer.compensation_during_computing_barcode_logits == 0.5)
+    calls, genotypes, handler = dataset["port"]
+    default_logits, _, _ = Demultiplexer.predict_posteriors_core(calls, genotypes, handler)
+    monkeypatch.setattr(Demultiplexer, "aggregate_on_snps", True)
+    for core in (Demultiplexer.learn_genotypes_core, Demultiplexer.predict_posteriors_core,
+                 Demultiplexer.predict_posteriors_compact):
+        with pytest.raises(ValueError, match="aggregate_on_snps is not ported yet"):
+            core(calls, genotypes, handler)
+    with pytest.raises(ValueError, match="aggregate_on_snps"):
         Demultiplexer.learn_genotypes(calls, genotypes, handler, damping="auto")
+    assert default_logits.shape[0] == handler.n_barcodes
+
+
+@pytest.fixture(scope="module")
+def auto_data(tmp_path_factory):
+    """A BAM where heavily degraded priors make plain EM diverge (8 donors, 50 barcodes)."""
+    np.random.seed(3)
+    filename = str(tmp_path_factory.mktemp("auto") / "a.bam")
+    filename, genotypes, _ids, names = generate_bam_file(
+        filename, n_genotypes=8, n_barcodes=50, n_reads_per_barcode=60,
+        chromosome2length={"chr1": 2000, "chr2": 2000, "chr3": 2000},
+    )
+    calls = count_snps(filename, genotypes.get_chromosome2positions(), JaxBarcodeHandler(list(names)),
+                       joblib_n_jobs=None, joblib_verbosity=0)
+    return genotypes, calls, list(names)
+
+
+# erased fraction of SNP priors -> the selection JAX makes on auto_data
+AUTO_CASES = {"diverging": (0.98, "anchor"), "converging": (0.9, None), "full-prior": (0.0, None)}
+
+
+@pytest.mark.parametrize("doublet_prior", [0.0, 0.25])
+@pytest.mark.parametrize("case", sorted(AUTO_CASES))
+def test_auto_damping_matches_jax(auto_data, case, doublet_prior):
+    """damping="auto": same selection and disagreement as JAX, same posteriors."""
+    genotypes, calls, names = auto_data
+    erased, expected = AUTO_CASES[case]
+    degraded = genotypes.clone()
+    snp_ids = degraded.get_snp_ids_for_variants()
+    mask = np.random.RandomState(5).random_sample(snp_ids.max() + 1) < erased
+    degraded.variant_betas[np.nonzero(mask[snp_ids])[0], :] = 0
+    data = _both_sides(degraded, calls, names)
+    learnt, probs = Demultiplexer.learn_genotypes(*data["port"], doublet_prior=doublet_prior, damping="auto")
+    jax_learnt, jax_probs = _jax_run(False, lambda: JaxDemultiplexer.learn_genotypes(
+        *data["jax"], doublet_prior=doublet_prior, damping="auto"))
+    assert probs.attrs["damping_selected"] == jax_probs.attrs["damping_selected"] == expected
+    assert abs(probs.attrs["anchored_disagreement"] - jax_probs.attrs["anchored_disagreement"]) <= 1e-6
+    np.testing.assert_allclose(probs.values, jax_probs.values, atol=3e-5)
+    np.testing.assert_allclose(learnt.get_betas(), jax_learnt.get_betas(), rtol=1e-4, atol=1e-2)
+    # the core returns the selected run: the same tensors as running that damping alone
+    calls_port, genotypes_port, handler = data["port"]
+    packed = Demultiplexer.pack_dataset(calls_port, genotypes_port)
+    core = Demultiplexer.learn_genotypes_core(packed, genotypes_port, handler, doublet_prior=doublet_prior,
+                                              damping="auto")
+    alone = Demultiplexer.learn_genotypes_core(packed, genotypes_port, handler, doublet_prior=doublet_prior,
+                                               damping=expected)
+    assert core.damping_selected == expected and alone.damping_selected is None
+    assert core.anchored_disagreement == probs.attrs["anchored_disagreement"]
+    assert torch.equal(core.state.probs, alone.state.probs)
+    np.testing.assert_array_equal(core.genotypes.get_betas(), alone.genotypes.get_betas())

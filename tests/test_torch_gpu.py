@@ -5,8 +5,11 @@ and skips without one. This file imports no jax (the machine with the card
 has none), so on the card it runs without the suite's conftest:
 ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``.
 Tolerances: logits rtol=1e-4, atol=5e-3; posteriors atol=3e-5 (the bar the
-TPU kernel met against full f32); additions rtol=1e-4, atol=1e-5.
+TPU kernel met against full f32); additions rtol=1e-4, atol=1e-5. The
+engine-level tests (compact output, damping="auto") run the same call
+through the kernels and through the plain versions.
 """
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -15,8 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, sim
+from demuxalot_tpu_torch.models import demux
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
 from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain
+from oracle import oracle_barcode_logits
 from torch_problems import estep_args, estep_problem, mstep_operands, mstep_problem, t
 
 
@@ -39,6 +45,30 @@ def test_gpu_estep_kernel_matches_plain(n_donors, doublet_prior):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=5e-3)
     np.testing.assert_allclose(torch.softmax(got, -1).cpu().numpy(),
                                torch.softmax(want, -1).cpu().numpy(), atol=3e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_donors", [32, 65])
+def test_gpu_estep_kernel_across_tiles(n_donors):
+    """Barcodes of ~375 calls each span several staged tiles (128 calls at these D).
+
+    Over that many calls the plain version's own f32 sums drift from float64
+    by about the posterior bar, so the kernel is held to the float64 oracle
+    at both bars and to the plain version at the logits bar.
+    """
+    _need_card()
+    problem = estep_problem(n_donors=n_donors, n_barcodes=16, n_calls=6000)
+    gprob, vid, cb, q, n_barcodes, _, prior = problem
+    args = estep_args(problem, "cuda")
+    got = estep_logits(*args)
+    want = estep_logits_plain(*args)
+    torch.cuda.synchronize()
+    ref, _ = oracle_barcode_logits([f"D{i}" for i in range(n_donors)], gprob, vid, cb, q, n_barcodes, prior)
+    got = got.cpu().numpy()
+    np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=5e-3)
+    softmax = lambda x: torch.softmax(torch.from_numpy(x).double(), -1).numpy()
+    np.testing.assert_allclose(softmax(got), softmax(ref), atol=3e-5)
 
 
 @pytest.mark.gpu
@@ -106,3 +136,90 @@ def test_gpu_out_of_range_index_traps(kernel):
     script = _TRAP_SCRIPT.format(paths=[str(tests.parent), str(tests)], kernel=kernel)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=600)
     assert proc.returncode == 3, proc.stdout + proc.stderr
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """Point the engine at the kernels' plain versions."""
+    saved = demux.estep_logits, demux.mstep_addition
+    demux.estep_logits, demux.mstep_addition = estep_logits_plain, mstep_addition_plain
+    try:
+        yield
+    finally:
+        demux.estep_logits, demux.mstep_addition = saved
+
+
+@pytest.fixture
+def engine_problem(monkeypatch):
+    """Synthetic calls with doublets (6 donors, 400 barcodes) on the card's engine."""
+    monkeypatch.setattr(Demultiplexer, "device", "cuda")
+    genotypes, calls, _truth, _names = sim.synthesize_compressed_calls(400, 6, 600, 30, seed=1)
+    handler = BarcodeHandler([f"BC{b:04d}" for b in range(400)])
+    return Demultiplexer.pack_dataset(calls, genotypes), genotypes, handler
+
+
+@pytest.mark.gpu
+def test_gpu_compact_matches_plain(engine_problem):
+    _need_card()
+    packed, genotypes, handler = engine_problem
+    launches = estep_logits.launches
+    compact = Demultiplexer.predict_posteriors_compact(packed, genotypes, handler, k=4, include_logits=True)
+    assert estep_logits.launches == launches + 1
+    with _plain_versions():
+        plain = Demultiplexer.predict_posteriors_compact(packed, genotypes, handler, k=4, include_logits=True)
+    np.testing.assert_array_equal(compact.assignment, plain.assignment)
+    np.testing.assert_allclose(compact.top_logits, plain.top_logits, rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(compact.logsumexp, plain.logsumexp, rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(compact.top_probs, plain.top_probs, atol=3e-5)
+    assert compact.logits_bf16.dtype == torch.bfloat16 and compact.logits_bf16.device.type == "cpu"
+    # the compact result is the card's full frame, reduced on the card
+    logits, _probs, _names = Demultiplexer.predict_posteriors_core(packed, genotypes, handler)
+    full = logits.cpu().numpy()
+    np.testing.assert_array_equal(compact.assignment, full.argmax(axis=1))
+    np.testing.assert_array_equal(compact.top_logits, np.take_along_axis(full, compact.top_index, axis=1))
+    np.testing.assert_array_equal(compact.logits_bf16.float().numpy(), logits.to(torch.bfloat16).float().cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("erased", [0.0, 0.95])
+def test_gpu_auto_damping_matches_plain(engine_problem, erased):
+    """damping="auto" on the card against the same call through the plain versions.
+
+    The anchored disagreement counts barcodes, so a barcode whose singlet
+    argmax is a tie, or whose confidence sits at the threshold, within the
+    posterior bar may count differently on the two paths (the plain
+    version's atomic sums break exact ties either way). Over every other
+    barcode the disagreement must be the same number.
+    """
+    _need_card()
+    packed, genotypes, handler = engine_problem
+    degraded = genotypes.clone()
+    snp_ids = degraded.get_snp_ids_for_variants()
+    mask = np.random.RandomState(5).random_sample(snp_ids.max() + 1) < erased
+    degraded.variant_betas[np.nonzero(mask[snp_ids])[0], :] = 0
+    learn = lambda damping: Demultiplexer.learn_genotypes_core(packed, degraded, handler, n_iterations=2,
+                                                               doublet_prior=0.35, damping=damping)
+    launches = estep_logits.launches, mstep_addition.launches
+    result = learn("auto")
+    assert (estep_logits.launches - launches[0], mstep_addition.launches - launches[1]) == (4, 2)
+    runs = {"kernel": [learn(damping).state.probs for damping in (None, "anchor")]}
+    with _plain_versions():
+        plain = learn("auto")
+        runs["plain"] = [learn(damping).state.probs for damping in (None, "anchor")]
+    assert result.damping_selected == plain.damping_selected
+    np.testing.assert_allclose(result.state.probs.cpu().numpy(), plain.state.probs.cpu().numpy(), atol=3e-5)
+    np.testing.assert_allclose(result.genotypes.get_betas(), plain.genotypes.get_betas(), rtol=1e-4, atol=1e-2)
+
+    n_genotypes = genotypes.n_genotypes
+    # the kernel path is deterministic: these are the two runs "auto" compared
+    assert demux.auto_damping_select(*runs["kernel"], n_genotypes) == (
+        result.damping_selected, result.anchored_disagreement)
+    near = torch.zeros(handler.n_barcodes, dtype=torch.bool, device=result.state.probs.device)
+    for probs in runs["plain"]:
+        top2 = probs[:, :n_genotypes].topk(2, dim=1).values
+        near |= top2[:, 0] - top2[:, 1] <= 2 * 3e-5
+    confidence = runs["plain"][0][:, :n_genotypes].max(dim=1).values
+    near |= (confidence - Demultiplexer.auto_damping_confidence).abs() <= 3e-5
+    keep = ~near
+    assert demux.auto_damping_select(*(p[keep] for p in runs["kernel"]), n_genotypes) == \
+        demux.auto_damping_select(*(p[keep] for p in runs["plain"]), n_genotypes)

@@ -1,4 +1,4 @@
-"""The port imports without jax, pandas, triton or a CUDA toolchain."""
+"""The port imports without jax, pandas, triton or a CUDA toolchain, and builds nothing on import."""
 import json
 import os
 import subprocess
@@ -13,11 +13,15 @@ FORBIDDEN = ("jax", "pandas", "triton", "demuxalot_tpu")
 MODULES = [
     "demuxalot_tpu_torch",
     "demuxalot_tpu_torch.bamio",
+    "demuxalot_tpu_torch.cli",
     "demuxalot_tpu_torch.convert",
     "demuxalot_tpu_torch.frontend",
+    "demuxalot_tpu_torch.frontend.native_counter",
     "demuxalot_tpu_torch.models.demux",
     "demuxalot_tpu_torch.models.genotypes",
+    "demuxalot_tpu_torch.native",
     "demuxalot_tpu_torch.native.hostops",
+    "demuxalot_tpu_torch.native.scanner",
     "demuxalot_tpu_torch.ops._cuda",
     "demuxalot_tpu_torch.ops.likelihood",
     "demuxalot_tpu_torch.ops.likelihood_kernel",
@@ -53,3 +57,17 @@ def loaded_after_import():
 @pytest.mark.parametrize("module", MODULES)
 def test_import_needs_no_jax_pandas_or_toolchain(module, loaded_after_import):
     assert loaded_after_import[module] == []
+
+
+def test_cli_help_runs_with_jax_unimportable():
+    """``python -m demuxalot_tpu_torch demux --help`` where ``import jax`` fails."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None  # any import of jax now raises ImportError\n"
+        "sys.argv = ['demuxalot_tpu_torch', 'demux', '--help']\n"
+        "runpy.run_module('demuxalot_tpu_torch', run_name='__main__', alter_sys=True)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "--compact" in proc.stdout
