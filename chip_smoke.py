@@ -33,12 +33,26 @@ pyarrow (for the CLI run of phase 6), and no jax. Phases, one line each
    result against the full frame, truth accuracy, the same flow through
    ``python -m demuxalot_tpu_torch demux --compact``, and last the same
    learn + predict through the plain versions on the card (phase 4's
-   bars). Host-clock seconds per stage.
+   bars). Host-clock seconds per stage;
+7. the aggregate-on-SNPs path and SNP discovery. (a) On phase 4's data,
+   ``aggregate_on_snps = True``: ``learn_genotypes_core`` (5 iterations,
+   doublet prior 0, one ``STAGE_TIMINGS`` dict printed) then
+   ``predict_posteriors_compact`` (prior 0.35), launch counts, output
+   checks, truth accuracy, the same run through the plain versions at
+   phase 4's bars, and the CUDA-event time of ``snp_aggregated_logits`` at
+   32 and 528 columns. (b) On phase 6's BAM with only chr1–chr4 known:
+   ``detect_snps_positions`` (the provisional predict launches the E-step
+   kernel; the pileup takes the C++ scanner), its selections against the
+   hidden truth, the parquet fed back through ``add_prior_betas``, native
+   against Python coverage on one chromosome, and ``python -m
+   demuxalot_tpu_torch detect-snps`` against the API's parquet.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums the runs of phases 4 and 6, ``launches_by_path`` keeps
-them apart); the line before it is nvidia-smi's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+(``launches`` sums the runs of phases 4, 6 and 7, ``launches_by_path``
+keeps them apart; ``bound_ms`` is the least time the card could take for
+the bench-shape call that ``ms`` times, from ``utils.profiling``); the
+line before it is nvidia-smi's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -74,6 +88,19 @@ E2E_FIXTURE = dict(
     doublets_fraction=0.2, chromosome2length={f"chr{i}": 20_000 for i in range(1, 9)},
 )
 E2E_TOPK = 4
+# phase 7b: SNP discovery on phase 6's BAM with these chromosomes' variants
+# known and the other four hidden. Depth per position is reads x read
+# length / genome length = 1,310,720 x 100 / 160,000 ≈ 819; a variant that
+# one donor of 32 carries shows ≈ 819 / 32 ≈ 26 alternative reads (the
+# simulated reads carry no sequencing errors). Sites must reach half the
+# depth, and half of one donor's alternative reads.
+DISCOVERY_KNOWN = ("chr1", "chr2", "chr3", "chr4")
+_E2E_DEPTH = (E2E_FIXTURE["n_barcodes"] * E2E_FIXTURE["n_reads_per_barcode"] * 100
+              / sum(E2E_FIXTURE["chromosome2length"].values()))
+DISCOVERY_THRESHOLDS = dict(
+    minimum_coverage=int(_E2E_DEPTH / 2),
+    minimum_alternative_coverage=int(_E2E_DEPTH / E2E_FIXTURE["n_genotypes"] / 2),
+)
 
 
 def say(phase: str, **fields) -> None:
@@ -415,6 +442,7 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
     from demuxalot_tpu_torch.ops import likelihood as L
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
     from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain
+    from demuxalot_tpu_torch.utils.profiling import MStepRoofline, Roofline
 
     cuda = torch.device("cuda")
     lik = _Likelihood(packed, handler.n_barcodes, genotypes.genotype_names, DOUBLET_PRIOR, cuda)
@@ -461,7 +489,20 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
         say("timing", step=name, card=card, **timings[name])
     say("timing", card=card, max_memory_allocated=torch.cuda.max_memory_allocated(),
         estep_max_abs_err=estep_err, estep_posterior_max_abs_err=post_err, mstep_max_abs_err=mstep_err)
-    return {"timings": timings, "estep_err": estep_err, "mstep_err": mstep_err}
+
+    # the least time the card could take for the same two calls (H100 SXM
+    # peaks at 700 W; the card's own limit is printed beside them)
+    n_calls, n_barcodes, n_variants = int(lik.calls.q_b.shape[0]), handler.n_barcodes, packed.n_variants
+    bounds = {
+        "estep": Roofline(n_calls=n_calls, n_donors=n_genotypes, n_pseudogenotypes=lik.n_options,
+                          n_barcodes=n_barcodes, n_variants=n_variants),
+        "mstep": MStepRoofline(n_calls=n_calls, n_donors=n_genotypes, n_barcodes=n_barcodes, n_variants=n_variants),
+    }
+    for name, bound in bounds.items():
+        say("timing", step=name, card=card, bound_ms=bound.speed_of_light_s() * 1e3, bound_by=bound.bound_by(),
+            bytes=bound.bytes_moved(), operations=bound.operations(),
+            share_of_bound=bound.speed_of_light_s() * 1e3 / timings[name]["kernel_ms_mean"])
+    return {"timings": timings, "estep_err": estep_err, "mstep_err": mstep_err, "bounds": bounds, "gprob": gprob}
 
 
 # ---------------------------------------------------------------------------
@@ -502,7 +543,8 @@ def _run_cli(bam: str, genotypes, barcodes: list, tmp: Path) -> list:
     return (tmp / "cli" / "assignments.csv").read_text().splitlines()
 
 
-def phase_bam(card: str) -> dict:
+def phase_bam(card: str, tmp: Path) -> dict:
+    """Phase 6; the BAM fixture stays in ``tmp`` for phase 7."""
     from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, count_snps, native, sim
     from demuxalot_tpu_torch.native import hostops
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
@@ -510,35 +552,34 @@ def phase_bam(card: str) -> dict:
 
     Demultiplexer.device = "cuda"
     stages = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        bam, genotypes, _ids, barcode2donors = sim.generate_bam_file(f"{tmp}/e2e.bam", rng=0, **E2E_FIXTURE)
-        stages["fixture_s"] = time.perf_counter() - t0
-        n_reads = E2E_FIXTURE["n_barcodes"] * E2E_FIXTURE["n_reads_per_barcode"]
-        handler = BarcodeHandler(list(barcode2donors))
-        positions = genotypes.get_chromosome2positions()
-        say("bam", stage="fixture", card=card, seconds=stages["fixture_s"], n_reads=n_reads,
-            bam_bytes=Path(bam).stat().st_size, n_variants=genotypes.n_variants)
+    t0 = time.perf_counter()
+    bam, genotypes, _ids, barcode2donors = sim.generate_bam_file(str(tmp / "e2e.bam"), rng=0, **E2E_FIXTURE)
+    stages["fixture_s"] = time.perf_counter() - t0
+    n_reads = E2E_FIXTURE["n_barcodes"] * E2E_FIXTURE["n_reads_per_barcode"]
+    handler = BarcodeHandler(list(barcode2donors))
+    positions = genotypes.get_chromosome2positions()
+    say("bam", stage="fixture", card=card, seconds=stages["fixture_s"], n_reads=n_reads,
+        bam_bytes=Path(bam).stat().st_size, n_variants=genotypes.n_variants)
 
-        # phase 2 built the native libraries; the host ops must run on them
-        require(hostops.native_library() is native.load_host_library(), "native host library loaded")
+    # phase 2 built the native libraries; the host ops must run on them
+    require(hostops.native_library() is native.load_host_library(), "native host library loaded")
 
-        t0 = time.perf_counter()
-        calls = count_snps(bam, positions, handler, joblib_n_jobs=-1, joblib_verbosity=0, native=True)
-        stages["count_native_s"] = time.perf_counter() - t0
-        n_molecule_calls = sum(c.n_snp_calls for c in calls.values())
-        t0 = time.perf_counter()
-        python_chr1 = count_snps(bam, {"chr1": positions["chr1"]}, handler, joblib_n_jobs=None,
-                                 joblib_verbosity=0, native=False)
-        stages["count_python_chr1_s"] = time.perf_counter() - t0
-        _same_counts({"chr1": calls["chr1"]}, python_chr1, "native vs Python scanner on chr1")
-        say("bam", stage="count", card=card, path="native scanner", seconds=stages["count_native_s"],
-            reads_per_s=n_reads / stages["count_native_s"], n_molecule_calls=n_molecule_calls,
-            python_chr1_s=stages["count_python_chr1_s"], native_equals_python_on_chr1=True)
+    t0 = time.perf_counter()
+    calls = count_snps(bam, positions, handler, joblib_n_jobs=-1, joblib_verbosity=0, native=True)
+    stages["count_native_s"] = time.perf_counter() - t0
+    n_molecule_calls = sum(c.n_snp_calls for c in calls.values())
+    t0 = time.perf_counter()
+    python_chr1 = count_snps(bam, {"chr1": positions["chr1"]}, handler, joblib_n_jobs=None,
+                             joblib_verbosity=0, native=False)
+    stages["count_python_chr1_s"] = time.perf_counter() - t0
+    _same_counts({"chr1": calls["chr1"]}, python_chr1, "native vs Python scanner on chr1")
+    say("bam", stage="count", card=card, path="native scanner", seconds=stages["count_native_s"],
+        reads_per_s=n_reads / stages["count_native_s"], n_molecule_calls=n_molecule_calls,
+        python_chr1_s=stages["count_python_chr1_s"], native_equals_python_on_chr1=True)
 
-        t0 = time.perf_counter()
-        cli_rows = _run_cli(bam, genotypes, list(barcode2donors), Path(tmp))
-        stages["cli_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli_rows = _run_cli(bam, genotypes, list(barcode2donors), tmp)
+    stages["cli_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     packed = Demultiplexer.pack_dataset(calls, genotypes)
@@ -620,7 +661,251 @@ def phase_bam(card: str) -> dict:
         anchored_disagreement=[learnt.anchored_disagreement, learnt_p.anchored_disagreement],
         calls_per_barcode={"mean": float(per_barcode.mean()), "max": int(per_barcode.max()),
                            "share_over_128": float((per_barcode > 128).mean())})
-    return {"launches": launches, "stages": stages, "errors": errors}
+    return {"launches": launches, "stages": stages, "errors": errors, "fixture": (bam, genotypes, handler)}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the aggregate-on-SNPs path and SNP discovery
+# ---------------------------------------------------------------------------
+
+def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict:
+    from demuxalot_tpu_torch import Demultiplexer
+    from demuxalot_tpu_torch.models import demux
+    from demuxalot_tpu_torch.ops import likelihood as L
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
+
+    Demultiplexer.device = "cuda"
+    cuda = demux.resolve_device(Demultiplexer.device)  # the engine's device key, as its layout cache has it
+    Demultiplexer.aggregate_on_snps = True
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        estep_logits.launches = 0
+        mstep_addition.launches = 0
+        demux.STAGE_TIMINGS = {}
+        t0 = time.perf_counter()
+        learnt = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
+                                                    doublet_prior=0.0)
+        torch.cuda.synchronize()
+        learn_s = time.perf_counter() - t0
+        learn_launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
+        stage_timings, demux.STAGE_TIMINGS = demux.STAGE_TIMINGS, None
+        t0 = time.perf_counter()
+        compact = Demultiplexer.predict_posteriors_compact(packed, learnt.genotypes, handler,
+                                                           doublet_prior=DOUBLET_PRIOR, k=E2E_TOPK)
+        compact_s = time.perf_counter() - t0
+        launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
+        expected = {"estep_logits": 0, "mstep_addition": N_ITERATIONS - 1}
+        require(learn_launches == expected, f"aggregate EM launches {learn_launches}, expected {expected}")
+        require(launches == expected, f"aggregate path launches {launches}, expected {expected}")
+        layout = packed.snp_aggregation_layout(cuda)
+        # the learn run's layout_s: this one-off grouping on the host and its upload
+        t0 = time.perf_counter()
+        demux._SnpAggregationLayout.build(packed.molecule_calls, cuda)
+        torch.cuda.synchronize()
+        layout_build_s = time.perf_counter() - t0
+        say("aggregate", stage="learn + compact", card=card, launches=launches, learn_s=learn_s,
+            compact_s=compact_s, layout_build_s=layout_build_s, n_groups=layout.n_groups,
+            n_molecule_calls=int(layout.vid.shape[0]), max_molecules_per_group=int(layout.calls_per_group.max()),
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        say("aggregate", stage="STAGE_TIMINGS of the learn run", card=card, **stage_timings)
+
+        logits, probs, columns = Demultiplexer.predict_posteriors_core(packed, learnt.genotypes, handler,
+                                                                       doublet_prior=DOUBLET_PRIOR)
+        n_barcodes, n_donors, n_pg = handler.n_barcodes, len(genotypes.genotype_names), len(columns)
+        for name, frame, width in (("em_probs", learnt.state.probs, n_donors), ("logits", logits, n_pg),
+                                   ("probs", probs, n_pg)):
+            require(tuple(frame.shape) == (n_barcodes, width), f"aggregate {name} shape {tuple(frame.shape)}")
+            require(bool(torch.isfinite(frame).all()), f"aggregate {name} has non-finite values")
+        row_err = max(float((p.sum(dim=1) - 1).abs().max()) for p in (learnt.state.probs, probs))
+        require(row_err <= 1e-5, f"aggregate posterior rows sum to 1 within {row_err}")
+        require(bool(np.isfinite(compact.top_logits).all()) and bool(np.isfinite(compact.logsumexp).all()),
+                "aggregate compact output finite")
+        # the aggregate forward sums in order, so the compact result and a
+        # second forward's full frame agree bit for bit
+        full = logits.cpu().numpy()
+        require(np.array_equal(compact.assignment, full.argmax(axis=1)), "aggregate compact = full-frame argmax")
+        require(np.array_equal(compact.top_logits, np.take_along_axis(full, compact.top_index, axis=1)),
+                "aggregate top_logits are exact frame entries")
+        truth_column = np.array([columns.index("+".join(t)) for t in truth])
+        accuracy = float((compact.assignment == truth_column).mean())
+        singlet = np.array([len(t) == 1 for t in truth])
+        singlet_accuracy = float((compact.assignment[singlet] == truth_column[singlet]).mean())
+        require(accuracy >= 0.9, f"aggregate assignment accuracy {accuracy}")
+
+        # a second run through the kernels gives the same bits (every sum of
+        # the path runs in a fixed order; with atomic sums in the E-step,
+        # five iterations had amplified run-order noise past the posterior bar)
+        again = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
+                                                   doublet_prior=0.0)
+        require(torch.equal(again.state.probs, learnt.state.probs) and torch.equal(again.state.logits,
+                                                                                   learnt.state.logits),
+                "two aggregate EM runs through the kernels are bit-equal")
+
+        # the same path through the plain versions: reruns the M-step, while
+        # snp_aggregated_logits is the same torch ops on both runs
+        with plain_versions():
+            learnt_p = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
+                                                          doublet_prior=0.0)
+            logits_p, probs_p, _ = Demultiplexer.predict_posteriors_core(packed, learnt_p.genotypes, handler,
+                                                                         doublet_prior=DOUBLET_PRIOR)
+        errors = {
+            "em_posteriors": compare("aggregate EM posteriors", learnt.state.probs, learnt_p.state.probs,
+                                     0.0, POSTERIOR_ATOL),
+            "learnt_betas": compare("aggregate learnt betas",
+                                    torch.from_numpy(np.array(learnt.genotypes.get_betas())),
+                                    torch.from_numpy(np.array(learnt_p.genotypes.get_betas())), **BETAS_TOL),
+            "logits": compare("aggregate predict logits", logits, logits_p, **LOGITS_TOL),
+            "posteriors": compare("aggregate predict posteriors", probs, probs_p, 0.0, POSTERIOR_ATOL),
+        }
+        argmax_same = float((probs.argmax(1) == probs_p.argmax(1)).float().mean())
+        require(argmax_same == 1.0, f"aggregate argmax agrees on {argmax_same} of barcodes")
+        say("aggregate", stage="checks", card=card, accuracy=accuracy, singlet_accuracy=singlet_accuracy,
+            max_row_sum_err=row_err, compact_equals_full_frame=True, kernel_runs_bit_equal=True,
+            plain_vs_kernels_max_abs_err=errors,
+            argmax_agreement=argmax_same)
+
+        # one snp_aggregated_logits call at the learn run's and the predict's
+        # widths; two calls on the same inputs give the same bits
+        aggregated_ms = {}
+        for prior in (0.0, DOUBLET_PRIOR):
+            mixing = torch.from_numpy(L.pseudogenotype_mixing(list(genotypes.genotype_names), prior)[0]).to(cuda)
+            run = lambda: layout.logits(gprob, mixing, handler.n_barcodes)  # noqa: E731
+            require(torch.equal(run(), run()), f"snp_aggregated_logits bit-equal across calls at prior {prior}")
+            torch.cuda.reset_peak_memory_stats()
+            samples = [_time_ms(run, repeats=5) for _ in range(2)]
+            aggregated_ms[int(mixing.shape[1])] = samples
+            say("aggregate", stage="snp_aggregated_logits", card=card, n_columns=int(mixing.shape[1]),
+                ms=samples, n_groups=layout.n_groups, bit_equal_across_calls=True,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+    finally:
+        Demultiplexer.aggregate_on_snps = False
+        demux.STAGE_TIMINGS = None
+    return {"launches": launches, "accuracy": accuracy, "errors": errors, "aggregated_ms": aggregated_ms,
+            "learn_s": learn_s, "compact_s": compact_s}
+
+
+@contextlib.contextmanager
+def _timed_calls(owner, name: str, seconds: list, static: bool = False):
+    """Record the seconds of every call of ``owner.name`` in the block (ending in a device sync)."""
+    original = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(owner, name, staticmethod(timed) if static else timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, staticmethod(original) if static else original)
+
+
+def phase_discovery(card: str, fixture: tuple, tmp: Path) -> dict:
+    import pandas as pd
+
+    from demuxalot_tpu_torch import Demultiplexer, ProbabilisticGenotypes, detect_snps_positions
+    from demuxalot_tpu_torch.bamio import BamReader
+    from demuxalot_tpu_torch.frontend import cellranger, native_counter
+    from demuxalot_tpu_torch.models import snp_detection
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
+
+    bam, genotypes, handler = fixture
+    Demultiplexer.device = "cuda"
+    known = ProbabilisticGenotypes(genotypes.genotype_names)
+    for (chrom, pos, base), vid in genotypes.var2varid.items():
+        if chrom in DISCOVERY_KNOWN:
+            row = known.get_variant_id(chrom, pos, base)
+            known.variant_betas[row] = genotypes.variant_betas[vid]
+    # the API reads the genotypes as the CLI does: from a betas parquet
+    betas = tmp / "known_betas.parquet"
+    known.save_betas(str(betas))
+    store = ProbabilisticGenotypes(known.genotype_names)
+    store.add_prior_betas(str(betas), prior_strength=1.0)
+    api_parquet = tmp / "discovered_api.parquet"
+
+    pileups = []  # whether each fragment's pileup took the C++ scanner
+    real_pileup = native_counter.try_count_coverage_native
+
+    def counting_pileup(*args, **kwargs):
+        counts = real_pileup(*args, **kwargs)
+        pileups.append(counts is not None)
+        return counts
+
+    walls = {"count": [], "predict": [], "scan": []}
+    native_counter.try_count_coverage_native = counting_pileup
+    estep_logits.launches = 0
+    mstep_addition.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with _timed_calls(snp_detection, "count_snps", walls["count"]), \
+                _timed_calls(snp_detection, "_scan_fragments", walls["scan"]), \
+                _timed_calls(Demultiplexer, "predict_posteriors_core", walls["predict"], static=True):
+            selected = detect_snps_positions(bam, store, handler, joblib_n_jobs=-1, joblib_verbosity=0,
+                                             result_beta_prior_filename=str(api_parquet), **DISCOVERY_THRESHOLDS)
+    finally:
+        native_counter.try_count_coverage_native = real_pileup
+    total_s = time.perf_counter() - t0
+    launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
+    expected = {"estep_logits": 1, "mstep_addition": 0}
+    require(launches == expected, f"discovery launches {launches}, expected {expected}")
+    n_fragments = len(E2E_FIXTURE["chromosome2length"])
+    require(len(pileups) == n_fragments and all(pileups),
+            f"every fragment's pileup on the C++ scanner: {pileups}")
+
+    hidden = [(chrom, pos) for chrom, pos, _score, _bases in selected if chrom not in DISCOVERY_KNOWN]
+    require(len(hidden) > 0, "sites selected on the hidden chromosomes")
+    known_positions = store.get_snp_positions_set()
+    require(not any((chrom, pos) in known_positions for chrom, pos, _s, _b in selected),
+            "no selected site at a known position")
+    true_hidden = {(chrom, pos) for chrom, pos, _base in genotypes.var2varid if chrom not in DISCOVERY_KNOWN}
+    true_share = len(set(hidden) & true_hidden) / len(hidden)
+    require(true_share > 0.5, f"share of hidden-chromosome sites at true variant positions {true_share}")
+    enriched = store.clone()
+    enriched.add_prior_betas(str(api_parquet), prior_strength=10)
+    require(enriched.n_variants > store.n_variants, "the parquet grows the registry through add_prior_betas")
+    say("discovery", stage="detect_snps_positions", card=card, launches=launches, thresholds=DISCOVERY_THRESHOLDS,
+        n_selected=len(selected), n_hidden_selected=len(hidden), n_true_hidden_positions=len(true_hidden),
+        true_share=true_share, native_pileups=len(pileups), registry=[store.n_variants, enriched.n_variants],
+        provisional_count_s=walls["count"][0], predict_s=walls["predict"], scan_s=walls["scan"], total_s=total_s)
+
+    # the C++ pileup against the Python pileup on one hidden chromosome
+    chromosome = "chr5"
+    length = E2E_FIXTURE["chromosome2length"][chromosome]
+    t0 = time.perf_counter()
+    native = real_pileup(bam, chromosome, 0, length, cellranger.parse_read, required=True)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with BamReader(bam) as reader:
+        python = reader.count_coverage(chromosome, 0, length,
+                                       read_callback=lambda read: cellranger.parse_read(read) is not None)
+    python_s = time.perf_counter() - t0
+    require(all(np.array_equal(a, b) for a, b in zip(native, python)) and len(native) == len(python) == 4,
+            f"native coverage equals Python coverage on {chromosome}")
+
+    # the CLI on the same inputs writes the API's rows
+    whitelist = tmp / "discovery_barcodes.csv"
+    whitelist.write_text("\n".join(handler.ordered_barcodes) + "\n")
+    cli_parquet = tmp / "discovered_cli.parquet"
+    cli = [sys.executable, "-m", "demuxalot_tpu_torch", "detect-snps", "--bam", bam, "--barcodes", str(whitelist),
+           "--prior-betas", str(betas), "--out", str(cli_parquet),
+           "--min-coverage", str(DISCOVERY_THRESHOLDS["minimum_coverage"]),
+           "--min-alternative-coverage", str(DISCOVERY_THRESHOLDS["minimum_alternative_coverage"]),
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli, cwd=REPO, capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"detect-snps CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    api_rows, cli_rows = pd.read_parquet(api_parquet), pd.read_parquet(cli_parquet)
+    require(len(cli_rows) > 0 and api_rows.equals(cli_rows), "the CLI's parquet rows equal the API's")
+    say("discovery", stage="checks", card=card, native_coverage_equals_python=chromosome,
+        native_pileup_s=native_s, python_pileup_s=python_s, cli_s=cli_s, cli_rows_equal_api=len(cli_rows))
+    return {"launches": launches, "total_s": total_s}
 
 
 def main() -> int:
@@ -634,22 +919,33 @@ def main() -> int:
     genotypes, handler, packed, truth = _bench_data()
     main_result = phase_main(genotypes, handler, packed, truth)
     timing = phase_timing(genotypes, handler, packed, main_result, card)
-    bam_result = phase_bam(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        bam_result = phase_bam(card, Path(tmp))
+        aggregate = phase_aggregate(genotypes, handler, packed, truth, timing["gprob"], card)
+        discovery = phase_discovery(card, bam_result["fixture"], Path(tmp))
     t = timing["timings"]
 
     def launches(name: str) -> dict:
-        by_path = {"packed_calls": main_result["launches"][name], "bam_flow": bam_result["launches"][name]}
+        by_path = {"packed_calls": main_result["launches"][name], "bam_flow": bam_result["launches"][name],
+                   "aggregate_em": aggregate["launches"][name], "detect_snps": discovery["launches"][name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
+    def bound(step: str) -> dict:
+        roofline = timing["bounds"][step]
+        return {"bound_ms": roofline.speed_of_light_s() * 1e3, "bound_by": roofline.bound_by()}
+
+    # no single PyTorch call computes either function, so neither has a library time
     kernels = [
         {"name": "estep_logits", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/likelihood.cu",
          "replaces": "demuxalot_tpu/ops/pallas_likelihood.py:180", **launches("estep_logits"),
          "max_abs_err": timing["estep_err"],
-         "ms": t["estep"]["kernel_ms_mean"], "plain_ms": t["estep"]["plain_ms_mean"]},
+         "ms": t["estep"]["kernel_ms_mean"], "plain_ms": t["estep"]["plain_ms_mean"], **bound("estep"),
+         "library_ms": None},
         {"name": "mstep_addition", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/mstep.cu",
          "replaces": "demuxalot_tpu/ops/pallas_mstep.py:56", **launches("mstep_addition"),
          "max_abs_err": timing["mstep_err"],
-         "ms": t["mstep"]["kernel_ms_mean"], "plain_ms": t["mstep"]["plain_ms_mean"]},
+         "ms": t["mstep"]["kernel_ms_mean"], "plain_ms": t["mstep"]["plain_ms_mean"], **bound("mstep"),
+         "library_ms": None},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,6 +15,7 @@ __version__ = "0.1.0"
 from .frontend.snp_counter import count_snps
 from .models.demux import CompactPosteriors, Demultiplexer, PackedCalls
 from .models.genotypes import ProbabilisticGenotypes
+from .models.snp_detection import detect_snps_positions
 from .utils.barcodes import BarcodeHandler
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "ProbabilisticGenotypes",
     "__version__",
     "count_snps",
+    "detect_snps_positions",
 ]

@@ -1,16 +1,19 @@
 """Command-line interface: the pipeline without writing Python.
 
-The ``demux`` and ``count`` commands of ``demuxalot_tpu.cli`` with the same
-flags, on this package's engine, plus ``--device`` (default ``cuda``)::
+The ``demux``, ``count`` and ``detect-snps`` commands of
+``demuxalot_tpu.cli`` with the same flags, on this package's engine, plus
+``--device`` (default ``cuda``) for the commands that run it::
 
     python -m demuxalot_tpu_torch demux --bam sample.bam --barcodes barcodes.csv \
         --vcf donors.vcf --output-dir out/ [--compact] [--device cuda]
     python -m demuxalot_tpu_torch count --bam sample.bam --barcodes barcodes.csv \
         --vcf donors.vcf --counts-dir counts/
+    python -m demuxalot_tpu_torch detect-snps --bam sample.bam --barcodes barcodes.csv \
+        --vcf donors.vcf --out new_snps.parquet --min-coverage 200 [--device cuda]
 
-SNP discovery (``detect-snps``) and the sharded engine (``--sharded``) are
-not ported yet, so the parser rejects them. Each subcommand is a thin shell
-over the Python API; anything beyond flag-plumbing belongs in the library.
+The sharded engine (``--sharded``) is not ported yet, so the parser rejects
+it. Each subcommand is a thin shell over the Python API; anything beyond
+flag-plumbing belongs in the library.
 """
 import argparse
 import contextlib
@@ -294,6 +297,40 @@ def _cmd_count(args) -> int:
     return 0
 
 
+def _cmd_detect_snps(args) -> int:
+    with _on_device(args.device):
+        return _detect_snps(args)
+
+
+def _detect_snps(args) -> int:
+    from .models.snp_detection import detect_snps_positions
+
+    store = _load_genotypes(args)
+    whitelist = _load_barcodes(args)
+    bam = _parse_bam(args.bam)
+    if not isinstance(bam, str):
+        raise SystemExit("detect-snps takes a single --bam (no RG=PATH form)")
+    rows = detect_snps_positions(
+        bam, store, whitelist,
+        minimum_coverage=args.min_coverage,
+        minimum_alternative_fraction=args.min_alternative_fraction,
+        minimum_alternative_coverage=args.min_alternative_coverage,
+        n_best_snps_per_donor=args.best_per_donor,
+        n_additional_best_snps=args.additional_best,
+        joblib_n_jobs=args.jobs,
+        joblib_verbosity=0,
+        result_beta_prior_filename=args.out,
+    )
+    print(f"# {len(rows)} positions selected -> {args.out}", file=sys.stderr)
+    return 0
+
+
+def _device_arg(sub) -> None:
+    sub.add_argument("--device", default="cuda",
+                     help="torch device of the engine (default cuda, which "
+                          "needs a CUDA card; cpu runs the plain PyTorch path)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="demuxalot_tpu_torch",
@@ -325,9 +362,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "posterior/logits frames — at product scale the "
                             "full f32 frame is hundreds of MB of pure "
                             "device->host transfer)")
-    demux.add_argument("--device", default="cuda",
-                       help="torch device of the engine (default cuda, which "
-                            "needs a CUDA card; cpu runs the plain PyTorch path)")
+    _device_arg(demux)
     demux.set_defaults(func=_cmd_demux)
 
     count = sub.add_parser(
@@ -335,6 +370,19 @@ def build_parser() -> argparse.ArgumentParser:
     _genotype_args(count)
     count.add_argument("--counts-dir", required=True)
     count.set_defaults(func=_cmd_count)
+
+    detect = sub.add_parser(
+        "detect-snps", help="discover new discriminative SNPs from the data")
+    _genotype_args(detect)
+    detect.add_argument("--out", required=True,
+                        help="positions-only parquet consumable via --prior-betas")
+    detect.add_argument("--min-coverage", type=int, required=True)
+    detect.add_argument("--min-alternative-fraction", type=float, default=0.01)
+    detect.add_argument("--min-alternative-coverage", type=int, default=100)
+    detect.add_argument("--best-per-donor", type=int, default=100)
+    detect.add_argument("--additional-best", type=int, default=1000)
+    _device_arg(detect)
+    detect.set_defaults(func=_cmd_detect_snps)
 
     return parser
 

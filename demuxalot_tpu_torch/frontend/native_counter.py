@@ -1,15 +1,45 @@
-"""Hook for the C++ bulk BAM scanner (a copy of ``demuxalot_tpu.frontend.native_counter``).
+"""Hooks for the C++ bulk BAM scanner (after ``demuxalot_tpu.frontend.native_counter``).
 
 The native scanner (``demuxalot_tpu_torch.native``) fuses BGZF decompression, record
 decoding, read filtering, molecule grouping, and consensus calling into one
-C++ pass — replacing the per-read Python loop on the hot ingest path. This
-module loads it when built and transparently falls back otherwise.
+C++ pass — replacing the per-read Python loop on the hot ingest path — and
+counts the coverage pileup of SNP discovery. This module loads it when
+built and falls back to the Python paths where it cannot apply.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+
+
+def try_count_coverage_native(bamfile_path, chromosome, start, stop, parse_read,
+                              quality_threshold: int = 15, required: bool = False):
+    """Native A/C/G/T pileup over [start, stop), or None for the Python pileup.
+
+    None only where the JAX package's counter declines too: a non-BAM
+    input, a custom ``parse_read`` (the native path only encodes the
+    standard tag-based filter) or no scanner library; with ``required``
+    those raise instead. Unlike the JAX wrapper, a native failure mid-scan
+    raises rather than falling back. The counts equal
+    ``BamReader.count_coverage`` with the same filter, bit for bit.
+    """
+    from ..bamio import sniff_format
+
+    if sniff_format(str(bamfile_path)) == "bam":
+        from ..native import scanner
+
+        counts = scanner.try_count_coverage_native(
+            bamfile_path, chromosome, start, stop, parse_read, quality_threshold=quality_threshold,
+        )
+        if counts is not None:
+            return counts
+        reason = "the standard tag-based parse_read and a buildable C++ scanner"
+    else:
+        reason = "BAM input (the C++ scanner reads BGZF/BAM only)"
+    if required:
+        raise RuntimeError(f"the native pileup of {bamfile_path} needs {reason}")
+    return None
 
 
 def try_count_snps_native(

@@ -19,17 +19,27 @@ Each public entry point is an array core that returns tensors
 :meth:`Demultiplexer.predict_posteriors_core`) plus a thin wrapper that
 builds the reference-shaped pandas frames; pandas is imported only there.
 :meth:`Demultiplexer.predict_posteriors_compact` reduces the logits to
-their top-k and logsumexp on the device. Semantics are those of
-``demuxalot_tpu.models.demux`` (reference: demuxalot/demux.py:24-156).
+their top-k and logsumexp on the device.
+
+With ``Demultiplexer.aggregate_on_snps`` the E-step is the per-SNP
+aggregation of ``ops.likelihood.snp_aggregated_logits`` over (barcode,
+snp) groups of the molecule calls (:class:`_SnpAggregationLayout`, built
+once per dataset and device; segment sums in order, so every run gives
+the same bits); the M-step stays the kernel. Setting
+:data:`STAGE_TIMINGS` to a dict records per-stage wall seconds. Semantics
+are those of ``demuxalot_tpu.models.demux`` (reference:
+demuxalot/demux.py:24-156).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+import time
+from dataclasses import dataclass, replace
+from typing import Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..native.hostops import stable_argsort
 from ..ops import likelihood as L
 from ..ops import packing as P
 from ..ops.likelihood_kernel import estep_logits, estep_operands
@@ -37,6 +47,34 @@ from ..ops.mstep_kernel import MStepOperands, mstep_addition
 from ..utils.barcodes import BarcodeHandler
 from ..utils.device import resolve_device
 from .genotypes import ProbabilisticGenotypes
+
+# Stage-timing hook for benchmarks. Set it to an empty dict before calling
+# learn_genotypes(_core) / predict_posteriors(_core, _compact) and the entry
+# point adds measured wall seconds per stage into it: host packing
+# (pack_s), device tables built and uploaded (layout_s), the upload
+# finished (upload_flush_s, h2d_bytes), the EM loop (device_loop_s), the
+# predict forward (forward_s) and the copies back (materialize_s,
+# d2h_logits_s/_bytes, d2h_addition_s/_bytes, d2h_compact_bytes). Only a
+# dict makes the entry points synchronise the device between stages; None
+# (the default) adds no synchronisation and no copy, and results are the
+# same bit for bit either way.
+STAGE_TIMINGS: Optional[dict] = None
+
+
+def _stage_mark(timings: Optional[dict], key: str, t0: float) -> float:
+    """Add now − t0 to ``timings[key]`` (when timings is a dict); return now."""
+    now = time.perf_counter()
+    if timings is not None:
+        timings[key] = timings.get(key, 0.0) + (now - t0)
+    return now
+
+
+def _flush_device(tensors: Iterable[Optional[torch.Tensor]]) -> int:
+    """Wait for the device work behind ``tensors``; return their bytes."""
+    tensors = [t for t in tensors if t is not None]
+    if any(t.is_cuda for t in tensors):
+        torch.cuda.synchronize()
+    return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -60,6 +98,62 @@ class DeviceCalls(NamedTuple):
     q_v: torch.Tensor  # f32 [N]
 
 
+class _SnpAggregationLayout(NamedTuple):
+    """(barcode, snp) groups of the molecule calls on one device (aggregate_on_snps).
+
+    The grouping depends only on the calls, never on the EM state, so it is
+    built once per (dataset, device) and reused by every iteration
+    (:meth:`PackedCalls.snp_aggregation_layout`). Groups are numbered in
+    (barcode, snp) order, the dense ids of ``utils.lookup.FeatureLookup``,
+    and calls are sorted by group, stably: the JAX package's layout, held
+    as CSR run lengths. ``vid`` indexes the rows of whatever genotype table
+    the caller passes: the engine builds it from molecule calls remapped to
+    the device (SNP-sorted) variant order.
+    """
+
+    vid: torch.Tensor  # i32 [N] variant of every molecule call, sorted by group
+    q: torch.Tensor  # f32 [N] p_base_wrong of every molecule call
+    group_ptr: np.ndarray  # i64 [G + 1] first call of every group (host)
+    calls_per_group: torch.Tensor  # i64 [G] molecule calls of every group
+    groups_per_barcode: torch.Tensor  # i64 [1 + the largest barcode of any group]
+
+    @classmethod
+    def build(cls, molecule_calls: P.MoleculeCalls, device: torch.device) -> "_SnpAggregationLayout":
+        # one stable sort by the (barcode, snp) key gives FeatureLookup's
+        # dense ids (ranks of the distinct keys) and the calls in group order
+        snp_span = int(molecule_calls.snp_id.max()) + 1 if len(molecule_calls) else 1
+        key = molecule_calls.compressed_cb.astype(np.int64) * snp_span + molecule_calls.snp_id
+        by_group = stable_argsort(key)
+        sorted_key = key[by_group]
+        first = P._group_boundaries(sorted_key)
+        group_ptr = np.append(first, len(key)).astype(np.int64)
+        return cls(
+            vid=_to_device(molecule_calls.variant_id[by_group].astype(np.int32), device),
+            q=_to_device(molecule_calls.p_base_wrong[by_group].astype(np.float32), device),
+            group_ptr=group_ptr,
+            calls_per_group=_to_device(np.diff(group_ptr), device),
+            groups_per_barcode=_to_device(np.bincount(sorted_key[first] // snp_span).astype(np.int64), device),
+        )
+
+    @property
+    def n_groups(self) -> int:
+        return self.calls_per_group.shape[0]
+
+    def tensors(self) -> tuple:
+        return self.vid, self.q, self.calls_per_group, self.groups_per_barcode
+
+    def logits(self, genotype_prob: torch.Tensor, mixing: torch.Tensor, n_barcodes: int) -> torch.Tensor:
+        """Aggregated logits f32 [n_barcodes, PG] (no doublet penalties)."""
+        reached = self.groups_per_barcode.shape[0]
+        if n_barcodes < reached:
+            raise ValueError(f"calls reach barcode {reached - 1}, but n_barcodes={n_barcodes}")
+        return L.snp_aggregated_logits(
+            genotype_prob, mixing, self.vid, self.q, self.group_ptr, self.calls_per_group,
+            torch.nn.functional.pad(self.groups_per_barcode, (0, n_barcodes - reached)),
+            compensation=float(Demultiplexer.compensation_during_computing_barcode_logits),
+        )
+
+
 class PackedCalls:
     """Pack once, run many: packed call tables plus a device-tensor cache.
 
@@ -76,7 +170,8 @@ class PackedCalls:
     Genotype objects passed alongside may differ in beta VALUES (e.g. the
     learnt clone) but must carry the same variant registry; this is checked
     on every use. :meth:`device_calls` caches the device tensors per
-    (n_barcodes, device).
+    (n_barcodes, device), :meth:`snp_aggregation_layout` the (barcode, snp)
+    groups of the aggregate_on_snps path per device.
     """
 
     def __init__(self, chromosome2compressed_snp_calls, genotypes: ProbabilisticGenotypes):
@@ -94,7 +189,30 @@ class PackedCalls:
         # (device vid, cb)-sorted: the M-step order with no further sort
         self.calls_v = P.collapse_device_order(self.molecule_calls, self.reindex)
         self._calls_b: Optional[tuple] = None
+        self._barcode_calls: Optional[np.recarray] = None
         self._device_calls: dict = {}
+        self._snp_layouts: dict = {}
+
+    @property
+    def barcode_calls(self) -> np.recarray:
+        """Reference-shaped collapsed call table, registry variant order (lazy).
+
+        The engine runs on ``calls_v``; this exists for
+        :meth:`Demultiplexer.pack_calls`'s 4-tuple.
+        """
+        if self._barcode_calls is None:
+            self._barcode_calls = P.molecule_calls_to_barcode_calls(self.molecule_calls)
+        return self._barcode_calls
+
+    def snp_aggregation_layout(self, device: torch.device) -> _SnpAggregationLayout:
+        """Cached (barcode, snp) groups on ``device``, variant ids in device order."""
+        key = str(device)
+        layout = self._snp_layouts.get(key)
+        if layout is None:
+            calls = self.molecule_calls
+            remapped = replace(calls, variant_id=self.reindex.remap_variant_ids(calls.variant_id))
+            layout = self._snp_layouts[key] = _SnpAggregationLayout.build(remapped, device)
+        return layout
 
     def calls_by_barcode(self) -> tuple:
         """(cb, vid, q) columns in barcode-major order (cached one-sort view)."""
@@ -159,21 +277,35 @@ def ensure_packed(chromosome2compressed_snp_calls, genotypes) -> PackedCalls:
 
 
 class _Likelihood:
-    """E-step and M-step operands of one dataset and doublet prior on a device."""
+    """E-step and M-step operands of one dataset and doublet prior on a device.
+
+    With ``Demultiplexer.aggregate_on_snps`` the E-step is the per-SNP
+    aggregation over the dataset's (barcode, snp) groups; the M-step is the
+    kernel on the collapsed variant-CSR calls either way.
+    """
 
     def __init__(self, packed: PackedCalls, n_barcodes: int, genotype_names: List[str],
                  doublet_prior: float, device: torch.device):
         assert 0 <= doublet_prior < 1
         self.column_names = L.pseudogenotype_names(genotype_names, doublet_prior)
-        c = packed.device_calls(n_barcodes, device)
+        self.n_barcodes = n_barcodes
+        self.calls = c = packed.device_calls(n_barcodes, device)
         self.estep = estep_operands(len(genotype_names), doublet_prior, c.row_ptr, c.cb_b, c.vid_b, c.q_b)
         self.mstep = MStepOperands(c.var_ptr, c.vid_v, c.cb_v, c.q_v)
+        self.snp_groups = packed.snp_aggregation_layout(device) if Demultiplexer.aggregate_on_snps else None
 
     @property
     def n_options(self) -> int:
         return len(self.column_names)
 
+    def tensors(self) -> list:
+        """Every device tensor the E-step and M-step read."""
+        groups = self.snp_groups.tensors() if self.snp_groups is not None else ()
+        return [*self.calls, self.estep.penalties, self.estep.col_i, self.estep.col_j, self.estep.mixing, *groups]
+
     def logits(self, genotype_prob: torch.Tensor) -> torch.Tensor:
+        if self.snp_groups is not None:
+            return self.snp_groups.logits(genotype_prob, self.estep.mixing, self.n_barcodes)
         return estep_logits(genotype_prob, self.estep)
 
     def addition(self, probs: torch.Tensor, n_genotypes: int) -> torch.Tensor:
@@ -209,7 +341,6 @@ class _EMRun:
         barcode_prior_logits: Optional[np.ndarray],
         damping: Optional[str] = None,
     ):
-        _refuse_unported_switches()
         if damping not in (None, "anchor"):
             raise ValueError(
                 f"damping must be None or 'anchor', got {damping!r}"
@@ -217,8 +348,11 @@ class _EMRun:
                    " needs the whole trajectory to decide)" if damping == "auto" else "")
             )
         device = resolve_device(Demultiplexer.device)
+        timings = STAGE_TIMINGS
+        t_mark = time.perf_counter()
         packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
         self.prior_betas = packed.betas_for(genotypes, add_data_prior=True)
+        t_mark = _stage_mark(timings, "pack_s", t_mark)
         self.barcode_handler = barcode_handler
         self.n_iterations = n_iterations
         self.p_genotype_clip = p_genotype_clip
@@ -250,6 +384,13 @@ class _EMRun:
             _to_device(np.asarray(barcode_prior_logits, dtype=np.float32), device)
             if barcode_prior_logits is not None else None
         )
+        t_mark = _stage_mark(timings, "layout_s", t_mark)
+        if timings is not None:
+            timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _flush_device([
+                self.variant2snp, self.prior_betas_dev, self.anchor_mask, self.prior_logits,
+                *self.likelihood.tensors(),
+            ])
+            _stage_mark(timings, "upload_flush_s", t_mark)
 
     def device_iterations(self):
         """Yield an :class:`EMState` per EM iteration (the last runs no M-step)."""
@@ -272,7 +413,12 @@ class _EMRun:
 
     def registry_addition(self, state: EMState) -> np.ndarray:
         """The state's beta addition on the host, in registry variant order."""
-        return self.reindex.unpermute_rows(state.addition.cpu().numpy())
+        t0 = time.perf_counter()
+        addition = state.addition.cpu().numpy()
+        if STAGE_TIMINGS is not None:
+            _stage_mark(STAGE_TIMINGS, "d2h_addition_s", t0)
+            STAGE_TIMINGS["d2h_addition_bytes"] = int(addition.nbytes)
+        return self.reindex.unpermute_rows(addition)
 
     def materialize(self, state: EMState):
         """One device state → (posterior probs df, debug dict) on the host."""
@@ -281,23 +427,15 @@ class _EMRun:
             "genotype_prior": self.prior_betas,
             "genotype_addition": self.registry_addition(state),
         }
-        return _frame(state.probs, self.barcode_handler, self.column_names), debug_information
+        return _frame(state.probs.cpu().numpy(), self.barcode_handler, self.column_names), debug_information
 
 
-def _frame(values: torch.Tensor, barcode_handler: BarcodeHandler, column_names, index_name=None):
+def _frame(values: np.ndarray, barcode_handler: BarcodeHandler, column_names, index_name=None):
     import pandas as pd
 
-    frame = pd.DataFrame(
-        data=values.cpu().numpy(), index=list(barcode_handler.ordered_barcodes), columns=column_names
-    )
+    frame = pd.DataFrame(data=values, index=list(barcode_handler.ordered_barcodes), columns=column_names)
     frame.index.name = index_name
     return frame
-
-
-def _refuse_unported_switches() -> None:
-    """Raise for engine switches whose paths this package does not have yet."""
-    if Demultiplexer.aggregate_on_snps:
-        raise ValueError("aggregate_on_snps is not ported yet")
 
 
 class LearnResult(NamedTuple):
@@ -451,8 +589,10 @@ class Demultiplexer:
     # contribution_power dampens contributions from barcodes that have no
     # clearly-best candidate donor
     contribution_power = 2.0
-    # the reference's SNP-aggregating likelihood; its path is not ported
-    # yet, so both cores raise while the switch is on
+    # the reference's alternative likelihood: per-(barcode, snp) groups,
+    # damped by molecule count**compensation, with a bad-SNP floor and no
+    # doublet penalties (ops.likelihood.snp_aggregated_logits); read by
+    # every entry point
     aggregate_on_snps = False
     compensation_during_computing_barcode_logits = 0.5
     # explicit device, no silent CPU path: "cuda" raises without a card
@@ -500,12 +640,18 @@ class Demultiplexer:
             n_iterations, p_genotype_clip, doublet_prior, barcode_prior_logits,
             damping=damping,
         )
+        timings = STAGE_TIMINGS
+        t_mark = time.perf_counter()
         state = None
         for state in run.device_iterations():
             pass
         if state is None:
             raise ValueError("n_iterations must be >= 1")
+        if timings is not None:
+            _flush_device(state)
+        t_mark = _stage_mark(timings, "device_loop_s", t_mark)
         learnt_genotypes = genotypes._with_betas(genotypes.get_betas() + run.registry_addition(state))
+        _stage_mark(timings, "materialize_s", t_mark)
         return LearnResult(learnt_genotypes, state, run.column_names)
 
     @staticmethod
@@ -517,22 +663,33 @@ class Demultiplexer:
         doublet_prior: float,
     ) -> Tuple[torch.Tensor, List[str]]:
         """The posterior forward: (logits on the device, column names)."""
-        _refuse_unported_switches()
         device = resolve_device(Demultiplexer.device)
+        timings = STAGE_TIMINGS
+        t_mark = time.perf_counter()
         packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
         prior_betas = packed.betas_for(genotypes, add_data_prior=False)
+        t_mark = _stage_mark(timings, "pack_s", t_mark)
         n_snps = int(packed.variant2snp.max()) + 1 if packed.n_variants else 0
         likelihood = _Likelihood(
             packed, barcode_handler.n_barcodes, genotypes.genotype_names, doublet_prior, device
         )
         # logits are invariant to the SNP-sorted renumbering: nothing maps back
         reindex = packed.reindex
+        betas = _to_device(reindex.permute_rows(prior_betas), device)
+        variant2snp = _to_device(reindex.variant2snp, device)
+        t_mark = _stage_mark(timings, "layout_s", t_mark)
+        if timings is not None:
+            timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _flush_device(
+                [betas, variant2snp, *likelihood.tensors()])
+            t_mark = _stage_mark(timings, "upload_flush_s", t_mark)
         genotype_prob = L.probs_from_betas(
-            _to_device(reindex.permute_rows(prior_betas), device),
-            _to_device(reindex.variant2snp, device),
-            n_snps, p_genotype_clip, max_per_snp=reindex.windowed_max_per_snp,
+            betas, variant2snp, n_snps, p_genotype_clip, max_per_snp=reindex.windowed_max_per_snp,
         )
-        return likelihood.logits(genotype_prob), likelihood.column_names
+        logits = likelihood.logits(genotype_prob)
+        if timings is not None:
+            _flush_device([logits])
+        _stage_mark(timings, "forward_s", t_mark)
+        return logits, likelihood.column_names
 
     @staticmethod
     def predict_posteriors_core(
@@ -585,7 +742,9 @@ class Demultiplexer:
             chromosome2compressed_snp_calls, genotypes, barcode_handler, n_iterations,
             p_genotype_clip, doublet_prior, barcode_prior_logits, damping,
         )
-        probs = _frame(result.state.probs, barcode_handler, result.column_names)
+        t_mark = time.perf_counter()
+        probs = _frame(result.state.probs.cpu().numpy(), barcode_handler, result.column_names)
+        _stage_mark(STAGE_TIMINGS, "materialize_s", t_mark)
         if damping == "auto":
             probs.attrs["damping_selected"] = result.damping_selected
             probs.attrs["anchored_disagreement"] = result.anchored_disagreement
@@ -634,10 +793,19 @@ class Demultiplexer:
             chromosome2compressed_snp_calls, genotypes, barcode_handler,
             p_genotype_clip, doublet_prior,
         )
-        return (
+        timings = STAGE_TIMINGS
+        t_mark = time.perf_counter()
+        logits = logits.cpu().numpy()
+        if timings is not None:
+            _stage_mark(timings, "d2h_logits_s", t_mark)
+            timings["d2h_logits_bytes"] = int(logits.nbytes)
+        probs = probs.cpu().numpy()
+        frames = (
             _frame(logits, barcode_handler, column_names, index_name="BARCODE"),
             _frame(probs, barcode_handler, column_names, index_name="BARCODE"),
         )
+        _stage_mark(timings, "materialize_s", t_mark)
+        return frames
 
     @staticmethod
     def predict_posteriors_compact(
@@ -664,11 +832,17 @@ class Demultiplexer:
         logits, column_names = Demultiplexer._predict_logits(
             chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip, doublet_prior,
         )
-        top_logits, top_index, logsumexp = (t.cpu().numpy() for t in compact_topk(logits, k))
-        logits_bf16 = logits.to(torch.bfloat16).cpu() if include_logits else None
+        top_logits, top_index, logsumexp = compact_topk(logits, k)
+        logits_bf16 = logits.to(torch.bfloat16) if include_logits else None
+        t_mark = time.perf_counter()
+        top_logits, top_index, logsumexp = (t.cpu().numpy() for t in (top_logits, top_index, logsumexp))
+        logits_bf16 = logits_bf16.cpu() if include_logits else None
         bytes_moved = top_logits.nbytes + top_index.nbytes + logsumexp.nbytes + (
             logits_bf16.numel() * logits_bf16.element_size() if logits_bf16 is not None else 0
         )
+        if STAGE_TIMINGS is not None:
+            _stage_mark(STAGE_TIMINGS, "materialize_s", t_mark)
+            STAGE_TIMINGS["d2h_compact_bytes"] = int(bytes_moved)
         return CompactPosteriors(
             column_names=list(column_names),
             barcodes=list(barcode_handler.ordered_barcodes),
@@ -683,3 +857,98 @@ class Demultiplexer:
     def pack_dataset(chromosome2compressed_snp_calls, genotypes) -> PackedCalls:
         """Pack once for reuse across entry points (see :class:`PackedCalls`)."""
         return PackedCalls(chromosome2compressed_snp_calls, genotypes)
+
+    # -- the reference's helper names (numpy in, numpy out) ------------------
+    @staticmethod
+    def pack_calls(chromosome2compressed_snp_calls, genotypes, add_data_prior: bool):
+        """(variant2snp, regularized betas, molecule calls, barcode calls), the reference's 4-tuple."""
+        if isinstance(chromosome2compressed_snp_calls, PackedCalls):
+            packed = chromosome2compressed_snp_calls
+            return (packed.variant2snp, packed.betas_for(genotypes, add_data_prior),
+                    packed.molecule_calls, packed.barcode_calls)
+        return P.pack_calls(chromosome2compressed_snp_calls, genotypes, add_data_prior)
+
+    @staticmethod
+    def _doublet_penalties(n_genotypes: int, doublet_prior: float) -> np.ndarray:
+        return L.doublet_penalties(n_genotypes, doublet_prior)
+
+    @staticmethod
+    def molecule_calls2barcode_calls(molecule_calls):
+        return P.molecule_calls_to_barcode_calls(molecule_calls)
+
+    @staticmethod
+    def _compute_probs_from_betas(variant_index2snp_index, variant_index2betas, p_genotype_clip):
+        """Per-donor variant probabilities, on ``Demultiplexer.device``."""
+        device = resolve_device(Demultiplexer.device)
+        variant2snp = np.asarray(variant_index2snp_index, dtype=np.int64)
+        n_snps = int(variant2snp.max()) + 1 if len(variant2snp) else 0
+        probs = L.probs_from_betas(
+            _to_device(np.asarray(variant_index2betas, dtype=np.float32), device),
+            _to_device(variant2snp, device), n_snps, p_genotype_clip,
+        )
+        return probs.cpu().numpy()
+
+    @staticmethod
+    def _iterate_genotypes_options(genotype_names, genotype_prob: np.ndarray, doublet_prior: float):
+        """Yield (pseudogenotype index, name, per-variant prob) incl. doublets."""
+        mixing, names = L.pseudogenotype_mixing(list(genotype_names), doublet_prior)
+        expanded = genotype_prob @ mixing
+        for pg_index, name in enumerate(names):
+            yield pg_index, name, expanded[:, pg_index]
+
+    @staticmethod
+    def compute_barcode_logits(
+        genotype_names, barcode_calls, molecule_calls, doublet_prior: float,
+        genotype_prob: np.ndarray, n_barcodes: int, n_genotypes: int,
+    ):
+        """(logits, column names); dispatches on ``aggregate_on_snps``."""
+        if Demultiplexer.aggregate_on_snps:
+            mixing, column_names = L.pseudogenotype_mixing(list(genotype_names), doublet_prior)
+            penalties = L.doublet_penalties(n_genotypes, doublet_prior)
+            logits = Demultiplexer._compute_logits_aggregating_on_snps(
+                genotype_prob, mixing, penalties, molecule_calls, n_barcodes)
+            return logits, column_names
+        return Demultiplexer.compute_barcode_logits_using_barcode_calls(
+            genotype_names, barcode_calls, doublet_prior, genotype_prob, n_barcodes, n_genotypes)
+
+    @staticmethod
+    def compute_barcode_logits_using_barcode_calls(
+        genotype_names, barcode_calls, doublet_prior: float, genotype_prob: np.ndarray,
+        n_barcodes: int, n_genotypes: int,
+    ):
+        """Logits over collapsed barcode calls through the E-step on ``Demultiplexer.device``."""
+        device = resolve_device(Demultiplexer.device)
+        cb = np.asarray(barcode_calls["compressed_cb"], dtype=np.int32)
+        order = stable_argsort(cb)
+        cb = cb[order]
+        operands = estep_operands(
+            n_genotypes, doublet_prior, _to_device(P.csr_row_pointers(cb, n_barcodes), device),
+            _to_device(cb, device),
+            _to_device(np.asarray(barcode_calls["variant_id"], dtype=np.int32)[order], device),
+            _to_device(np.asarray(barcode_calls["p_base_wrong"], dtype=np.float32)[order], device),
+        )
+        logits = estep_logits(_to_device(np.asarray(genotype_prob, dtype=np.float32), device), operands)
+        return logits.cpu().numpy(), L.pseudogenotype_names(list(genotype_names), doublet_prior)
+
+    @staticmethod
+    def _compute_logits_aggregating_on_snps(
+        genotype_prob: np.ndarray,
+        mixing: np.ndarray,
+        penalties: np.ndarray,
+        molecule_calls: P.MoleculeCalls,
+        n_barcodes: int,
+    ) -> np.ndarray:
+        """Per-SNP aggregation logits on ``Demultiplexer.device``.
+
+        ``molecule_calls`` index the rows of ``genotype_prob``. As in the
+        reference, the doublet penalties are not applied on this path
+        (demuxalot/demux.py:239-244 computes but never adds them). The EM
+        loop does not come here: it keeps its layout on ``PackedCalls``.
+        """
+        del penalties
+        device = resolve_device(Demultiplexer.device)
+        logits = _SnpAggregationLayout.build(molecule_calls, device).logits(
+            _to_device(np.asarray(genotype_prob, dtype=np.float32), device),
+            _to_device(np.asarray(mixing, dtype=np.float32), device), n_barcodes,
+        )
+        return logits.cpu().numpy()

@@ -9,8 +9,8 @@ file name keyed by a hash of its source, flags and machine architecture,
 exactly as ``ops._cuda`` builds the CUDA kernels.
 
 * the scanner (``-lz``): BGZF decompression, record decoding, read
-  filtering, molecule grouping and consensus calls in one pass
-  (:mod:`.scanner`);
+  filtering, molecule grouping and consensus calls in one pass, and the
+  A/C/G/T pileup of SNP discovery (:mod:`.scanner`);
 * the host ops (``-pthread``): radix argsort, hash joins and the fused
   collapse/sort passes of the packing layer (:mod:`.hostops`).
 
@@ -83,6 +83,14 @@ SCANNER_SIGNATURES = {
         _i32p, _i32p, ctypes.POINTER(ctypes.c_uint8), _f32p,
     )),
     "scan_free": (None, (ctypes.c_void_p,)),
+    "count_coverage": (ctypes.c_int, (
+        _cp,
+        _u64p, _u64p, ctypes.c_int,
+        _i32, _i32, _i32,
+        _cp, _cp, _cp,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _i64p,
+    )),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

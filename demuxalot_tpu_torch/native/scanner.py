@@ -1,7 +1,7 @@
 """ctypes binding for the C++ BAM region scanner.
 
-A copy of ``demuxalot_tpu.native.scanner`` (its coverage counter belongs to
-SNP discovery, which this package does not have yet). Reuses the Python
+A copy of ``demuxalot_tpu.native.scanner``: the region scan of
+``count_snps`` and the coverage pileup of SNP discovery. Reuses the Python
 task planner (region splits, RG fan-out) and the Python BAI index for
 virtual-offset chunks; each region-shard task becomes one
 native call. Tasks run on a thread pool — the GIL is released for the
@@ -157,6 +157,53 @@ def _scan_task(lib, bai_cache, task, params, cb_tag):
     result.snp_calls = snp_calls
     result._finalized = True
     return chromosome, result
+
+
+def try_count_coverage_native(bamfile_path, chromosome, start, stop, parse_read,
+                              quality_threshold: int = 15):
+    """A/C/G/T pileup over [start, stop) via the C++ scanner, or None.
+
+    Returns a tuple of four int64 arrays like ``BamReader.count_coverage``.
+    None for custom parse_read callables or where the library cannot be
+    built or loaded; a failed native count raises.
+    """
+    params = _extract_parse_params(parse_read)
+    if params is None:
+        return None
+    try:
+        lib = load_library()
+    except (OSError, RuntimeError):  # no g++, zlib or a failed build or load
+        return None
+
+    bamfile_path = str(bamfile_path)
+    with BamReader(bamfile_path) as reader:
+        index = reader._load_index()
+        ref_id = reader.header.ref2id[chromosome]
+        ref_len = reader.header.lengths[ref_id]
+    beg = 0 if start is None else max(0, int(start))
+    end = ref_len if stop is None else min(ref_len, int(stop))
+    length = max(0, end - beg)
+    counts = np.zeros((4, length), dtype=np.int64)
+    if length == 0:
+        return tuple(counts)
+
+    chunks = index.chunks_for_region(ref_id, beg, end)
+    if chunks:
+        vbeg = (ctypes.c_uint64 * len(chunks))(*[c[0] for c in chunks])
+        vend = (ctypes.c_uint64 * len(chunks))(*[c[1] for c in chunks])
+        ret = lib.count_coverage(
+            bamfile_path.encode(),
+            vbeg, vend, len(chunks),
+            ref_id, beg, end,
+            params["umi_tag"].encode(), params["nhits_tag"].encode(),
+            params["score_tag"].encode(),
+            int(params["score_diff_max"]), int(params["mapq_threshold"]),
+            int(quality_threshold),
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        )
+        if ret != 0:
+            raise RuntimeError(f"native count_coverage failed for {bamfile_path}")
+    return counts[0], counts[1], counts[2], counts[3]
 
 
 def count_snps_native(

@@ -176,6 +176,66 @@ def barcode_logits(
     return penalties + sums
 
 
+def group_chunks(group_ptr: np.ndarray, call_chunk: int):
+    """[g0, g1) ranges of consecutive groups holding at most ``call_chunk`` calls.
+
+    ``group_ptr`` [n_groups + 1] gives each group's first call; a group
+    larger than ``call_chunk`` makes a range of its own.
+    """
+    n_groups = len(group_ptr) - 1
+    g0 = 0
+    while g0 < n_groups:
+        g1 = int(np.searchsorted(group_ptr, group_ptr[g0] + call_chunk, side="right")) - 1
+        g1 = min(max(g1, g0 + 1), n_groups)
+        yield g0, g1
+        g0 = g1
+
+
+def snp_aggregated_logits(
+    genotype_prob: torch.Tensor,  # f32 [n_variants, n_donors]
+    mixing: torch.Tensor,  # f32 [n_donors, n_pseudogenotypes]
+    variant_id: torch.Tensor,  # int [n_calls] per molecule call, sorted by group
+    q: torch.Tensor,  # f32 [n_calls] p_base_wrong per molecule call
+    group_ptr: np.ndarray,  # int64 [n_groups + 1] first call of every group, on the host
+    calls_per_group: torch.Tensor,  # int64 [n_groups] molecule calls of every group (>= 1)
+    groups_per_barcode: torch.Tensor,  # int64 [n_barcodes] groups of every barcode, in group order
+    compensation: float,
+    p_bad_snp: float = 0.01,
+    call_chunk: int = DEFAULT_CALL_CHUNK,
+) -> torch.Tensor:
+    """Logits [n_barcodes, n_pseudogenotypes] of the per-SNP aggregation path.
+
+    Per (barcode, snp) group: sum the calls' ``log(p + q)``, damp by
+    molecule-count**compensation, log-softmax, floor with a bad-SNP escape
+    (``logaddexp`` with ``log(p_bad_snp / n_pg)``), log-softmax again, then
+    sum the groups of each barcode (reference: demuxalot/demux.py:193-244).
+    Groups are sorted by (barcode, snp) and calls by group, so both sums
+    are segment sums over contiguous runs (``torch.segment_reduce``), taken
+    in order with no atomics: the result is the same bit for bit on every
+    run. An EM loop amplifies run-order noise here: with atomic sums two
+    identical runs at the bench shape drifted apart past the posterior bar
+    within five iterations. Calls are taken in chunks of whole groups, like
+    :func:`barcode_logits`'s call chunks. Doublet penalties are NOT
+    applied: the reference computes but never adds them on this path. The
+    per-call term is not the E-step kernel's (``log(p·(1−q) + max(q,
+    1e-4))``), so this path runs as torch ops.
+    """
+    if genotype_prob.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    n_pg = mixing.shape[1]
+    group_logits = genotype_prob.new_empty((calls_per_group.shape[0], n_pg))
+    for g0, g1 in group_chunks(group_ptr, call_chunk):
+        c0, c1 = int(group_ptr[g0]), int(group_ptr[g1])
+        p = genotype_prob[variant_id[c0:c1]] @ mixing  # [chunk, pg]
+        group_logits[g0:g1] = torch.segment_reduce(
+            torch.log(p + q[c0:c1, None]), "sum", lengths=calls_per_group[g0:g1], unsafe=True)
+    group_logits /= calls_per_group.to(group_logits.dtype).clamp(min=1.0)[:, None] ** compensation
+    group_logits = torch.log_softmax(group_logits, dim=1)
+    bad_snp = torch.tensor(math.log(p_bad_snp / n_pg), dtype=group_logits.dtype, device=group_logits.device)
+    group_logits = torch.log_softmax(torch.logaddexp(group_logits, bad_snp, out=group_logits), dim=1)
+    return torch.segment_reduce(group_logits, "sum", lengths=groups_per_barcode, unsafe=True)
+
+
 def genotype_addition_from_posteriors(
     posterior: torch.Tensor,  # f32 [n_barcodes, n_pseudogenotypes]
     variant_id: torch.Tensor,  # int [n_calls], sorted by variant

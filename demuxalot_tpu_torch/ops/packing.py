@@ -22,7 +22,9 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from ..native.hostops import collapse_calls_keyed, match_compact, match_keys, sort_calls_by_cb, stable_argsort
+from ..native.hostops import (
+    collapse_calls_keyed, group_sum_broadcast, match_compact, match_keys, sort_calls_by_cb, stable_argsort,
+)
 from ..utils.encoding import base_lookup
 
 # windowed denominators stay cheap only while SNP runs are short; genuine
@@ -129,6 +131,74 @@ def match_calls_to_variants(chromosome2compressed_snp_calls, genotypes) -> Molec
     )
 
 
+BARCODE_CALLS_DTYPE = np.dtype(
+    [
+        ("variant_id", "int32"),
+        ("snp_id", "int32"),
+        ("compressed_cb", "int32"),
+        ("p_base_wrong", "float32"),
+        ("barcode_variant_count", "int64"),
+        ("barcode_snp_count", "float64"),
+    ]
+)
+
+
+def _group_boundaries(sorted_keys: np.ndarray) -> np.ndarray:
+    """Start indices of equal-key runs in a sorted array."""
+    if len(sorted_keys) == 0:
+        return np.zeros(0, dtype=np.int64)
+    starts = np.empty(len(sorted_keys), dtype=bool)
+    starts[0] = True
+    np.not_equal(sorted_keys[1:], sorted_keys[:-1], out=starts[1:])
+    return np.flatnonzero(starts)
+
+
+def molecule_calls_to_barcode_calls(molecule_calls: MoleculeCalls) -> np.recarray:
+    """Collapse molecule calls to unique (variant, snp, barcode) rows.
+
+    The reference-shaped call table (registry variant order, rows sorted by
+    (variant, barcode)): ``p_base_wrong`` of a row is the f32 product over
+    its molecules' values in stable order, and the molecule counts per row
+    and per (snp, barcode) ride along (reference: demuxalot/demux.py:276-300).
+    The numpy path of the JAX package's function, on this package's host ops.
+    """
+    n = len(molecule_calls)
+    cb_span = int(molecule_calls.compressed_cb.max()) + 1 if n else 1
+    vid = molecule_calls.variant_id.astype(np.int64)
+    cb = molecule_calls.compressed_cb.astype(np.int64)
+    group_key = vid * cb_span + cb
+
+    order = stable_argsort(group_key)
+    sorted_keys = group_key[order]
+    starts = _group_boundaries(sorted_keys)
+    unique_keys = sorted_keys[starts]
+    barcode_variant_counts = np.diff(np.append(starts, n))
+
+    out_vid = (unique_keys // cb_span).astype(np.int32)
+    out_cb = (unique_keys % cb_span).astype(np.int32)
+    # snp_id is a function of variant_id: take it from the first member row
+    out_snp = molecule_calls.snp_id[order[starts]]
+    # probability of a wrong base = product of member molecules' probabilities
+    if n:
+        p_base_wrong = np.multiply.reduceat(molecule_calls.p_base_wrong[order], starts).astype("float32")
+    else:
+        p_base_wrong = np.zeros(0, "float32")
+
+    # molecules per (snp, barcode), broadcast back to rows (f64 sums of
+    # small int counts are exact)
+    snp_cb_key = out_snp.astype(np.int64) * cb_span + out_cb
+    barcode_snp_count = group_sum_broadcast(snp_cb_key, barcode_variant_counts.astype(np.float64))
+
+    result = np.recarray(len(starts), dtype=BARCODE_CALLS_DTYPE)
+    result["variant_id"] = out_vid
+    result["snp_id"] = out_snp
+    result["compressed_cb"] = out_cb
+    result["p_base_wrong"] = p_base_wrong
+    result["barcode_variant_count"] = barcode_variant_counts
+    result["barcode_snp_count"] = barcode_snp_count
+    return result
+
+
 @dataclass
 class CallColumns:
     """Collapsed (variant, barcode) call rows as contiguous columns.
@@ -200,6 +270,20 @@ def compute_prior_betas(
     result = variant_index2betas + addition.astype(variant_index2betas.dtype)
     result.flags.writeable = False
     return result
+
+
+def pack_calls(chromosome2compressed_snp_calls, genotypes, add_data_prior: bool):
+    """Full packing pipeline; returns the same 4-tuple shape as the reference.
+
+    (variant_index2snp_index, regularized_betas, molecule_calls, barcode_calls)
+    """
+    variant_index2snp_index = genotypes.get_snp_ids_for_variants()
+    molecule_calls = match_calls_to_variants(chromosome2compressed_snp_calls, genotypes)
+    barcode_calls = molecule_calls_to_barcode_calls(molecule_calls)
+    variant_index2betas = compute_prior_betas(
+        genotypes, molecule_calls, variant_index2snp_index, add_data_prior=add_data_prior
+    )
+    return variant_index2snp_index, variant_index2betas, molecule_calls, barcode_calls
 
 
 @dataclass

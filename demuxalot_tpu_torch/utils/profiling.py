@@ -1,0 +1,125 @@
+"""Profiling helpers: device traces and kernel speed-of-light bounds on an H100.
+
+The counterpart of ``demuxalot_tpu.utils.profiling``: :func:`device_trace`
+records a ``torch.profiler`` trace, and :class:`Roofline` (E-step) and
+:class:`MStepRoofline` give the least time one NVIDIA H100 could take for a
+kernel's work, the larger of its bytes over the HBM rate and its FP32
+operations over the FP32 rate. Bytes count each input read once and each
+output written once, whatever the kernel reads again; operations count
+what these inputs need. The default rates are the published peaks of the
+H100 SXM at its 700 W limit (3.35 TB/s of HBM, 67 TFLOP/s in FP32 outside
+the tensor cores); a card set below 700 W runs slower.
+"""
+from __future__ import annotations
+
+import os
+from contextlib import contextmanager
+from dataclasses import dataclass
+
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_FP32_FLOPS_PER_S = 67e12
+
+
+@contextmanager
+def device_trace(log_dir: str):
+    """Record a ``torch.profiler`` trace (CPU, and CUDA where a card exists).
+
+    Yields the profiler, so ``key_averages()`` can be read after the block;
+    on exit the trace is written to ``log_dir/trace.json`` (Chrome trace
+    format: chrome://tracing or Perfetto). Example::
+
+        with device_trace("traces/predict") as prof:
+            Demultiplexer.predict_posteriors(...)
+        print(prof.key_averages().table(sort_by="cuda_time_total"))
+    """
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class _Bound:
+    """Speed of light from ``bytes_moved()`` and ``operations()``."""
+
+    hbm_bytes_per_s: float
+    f32_flops_per_s: float
+
+    def bytes_moved(self) -> int:
+        raise NotImplementedError
+
+    def operations(self) -> int:
+        raise NotImplementedError
+
+    def estimate_seconds(self) -> dict:
+        return {
+            "hbm_bound_s": self.bytes_moved() / self.hbm_bytes_per_s,
+            "fp32_bound_s": self.operations() / self.f32_flops_per_s,
+        }
+
+    def speed_of_light_s(self) -> float:
+        return max(self.estimate_seconds().values())
+
+    def bound_by(self) -> str:
+        """"bytes" or "operations": which of the two sets the bound."""
+        bounds = self.estimate_seconds()
+        return "bytes" if bounds["hbm_bound_s"] >= bounds["fp32_bound_s"] else "operations"
+
+
+@dataclass
+class Roofline(_Bound):
+    """Speed of light of the E-step likelihood kernel (``csrc/likelihood.cu``).
+
+    Bytes: every call's variant id and ``q`` (4 + 4), the barcode row
+    pointers (8 per barcode), the genotype table (4·V·D), the column pairs
+    and penalties (12 per column) and the logits written once (4·B·PG).
+    Operations per call: per pseudogenotype the mean of two donor terms
+    (add, multiply), the running product (multiply) and a share of the log
+    and the sum (counted as one); per donor the term
+    ``G·(1−q) + max(q, 1e-4)`` (multiply, add, max).
+    """
+
+    n_calls: int
+    n_donors: int
+    n_pseudogenotypes: int
+    n_barcodes: int = 0
+    n_variants: int = 0
+    hbm_bytes_per_s: float = H100_HBM_BYTES_PER_S
+    f32_flops_per_s: float = H100_FP32_FLOPS_PER_S
+
+    def bytes_moved(self) -> int:
+        n, d, pg, b, v = self.n_calls, self.n_donors, self.n_pseudogenotypes, self.n_barcodes, self.n_variants
+        return 8 * n + 8 * (b + 1) + 4 * v * d + 12 * pg + 4 * b * pg
+
+    def operations(self) -> int:
+        return self.n_calls * (4 * self.n_pseudogenotypes + 3 * self.n_donors)
+
+
+@dataclass
+class MStepRoofline(_Bound):
+    """Speed of light of the M-step kernel (``csrc/mstep.cu``).
+
+    Bytes: every call's barcode and ``q`` (4 + 4), the variant row pointers
+    (8 per variant), the singlet posterior columns it reads (4·B·D) and
+    the additions written once (4·V·D). Operations per (call, donor):
+    ``post·(1−q)`` (multiply), the power (one multiply at power 2) and the
+    sum (add).
+    """
+
+    n_calls: int
+    n_donors: int
+    n_barcodes: int
+    n_variants: int
+    hbm_bytes_per_s: float = H100_HBM_BYTES_PER_S
+    f32_flops_per_s: float = H100_FP32_FLOPS_PER_S
+
+    def bytes_moved(self) -> int:
+        n, d, b, v = self.n_calls, self.n_donors, self.n_barcodes, self.n_variants
+        return 8 * n + 8 * (v + 1) + 4 * b * d + 4 * v * d
+
+    def operations(self) -> int:
+        return 3 * self.n_calls * self.n_donors

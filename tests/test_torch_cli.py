@@ -116,13 +116,30 @@ def test_counts_cache_rejects_changed_inputs(cli_problem, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["detect-snps", "--help"],
     ["demux", "--sharded", "--bam", "x.bam", "--barcodes", "b.csv", "--output-dir", "o"],
 ])
 def test_unported_commands_are_rejected(argv):
     with pytest.raises(SystemExit) as error:
         main(argv)
     assert error.value.code == 2  # argparse's usage error
+
+
+def test_detect_snps_help_lists_the_jax_flags(capsys):
+    from demuxalot_tpu.cli import build_parser as jax_build_parser
+    from demuxalot_tpu_torch.cli import build_parser
+
+    def flags(parser):
+        detect = parser._subparsers._group_actions[0].choices["detect-snps"]
+        return {option for action in detect._actions for option in action.option_strings}
+
+    assert flags(build_parser()) == flags(jax_build_parser()) | {"--device"}
+    with pytest.raises(SystemExit) as error:
+        main(["detect-snps", "--help"])
+    assert error.value.code == 0
+    usage = capsys.readouterr().out
+    for flag in ("--out", "--min-coverage", "--min-alternative-fraction", "--min-alternative-coverage",
+                 "--best-per-donor", "--additional-best", "--bam", "--barcodes", "--device"):
+        assert flag in usage
 
 
 def test_parse_bam_forms(tmp_path):

@@ -324,25 +324,36 @@ def test_unported_damping_raises(dataset):
 
 
 def test_aggregate_on_snps_is_refused_not_ignored(dataset, monkeypatch):
-    """The switch exists with the JAX defaults, and turning it on raises.
+    """The switch exists with the JAX defaults, and every entry point reads it.
 
     Before the switch existed on the port, setting it made a class
-    attribute nothing read, and the run quietly took the default path.
+    attribute nothing read, and the run quietly took the default path; it
+    then raised until its path was ported. Now each core's result must
+    change when it is on (tests/test_torch_aggregate.py holds those results
+    to the JAX package's).
     """
     assert "aggregate_on_snps" in vars(Demultiplexer)
     assert Demultiplexer.aggregate_on_snps is JaxDemultiplexer.aggregate_on_snps is False
     assert (Demultiplexer.compensation_during_computing_barcode_logits
             == JaxDemultiplexer.compensation_during_computing_barcode_logits == 0.5)
     calls, genotypes, handler = dataset["port"]
-    default_logits, _, _ = Demultiplexer.predict_posteriors_core(calls, genotypes, handler)
+
+    def run_all():
+        return {
+            "predict": Demultiplexer.predict_posteriors_core(calls, genotypes, handler)[0].numpy(),
+            "compact": Demultiplexer.predict_posteriors_compact(calls, genotypes, handler).top_logits,
+            "learn": Demultiplexer.learn_genotypes_core(calls, genotypes, handler, n_iterations=2).state.logits.numpy(),
+            "auto": Demultiplexer.learn_genotypes_core(calls, genotypes, handler, n_iterations=2,
+                                                       damping="auto").state.logits.numpy(),
+        }
+
+    default = run_all()
     monkeypatch.setattr(Demultiplexer, "aggregate_on_snps", True)
-    for core in (Demultiplexer.learn_genotypes_core, Demultiplexer.predict_posteriors_core,
-                 Demultiplexer.predict_posteriors_compact):
-        with pytest.raises(ValueError, match="aggregate_on_snps is not ported yet"):
-            core(calls, genotypes, handler)
-    with pytest.raises(ValueError, match="aggregate_on_snps"):
-        Demultiplexer.learn_genotypes(calls, genotypes, handler, damping="auto")
-    assert default_logits.shape[0] == handler.n_barcodes
+    aggregated = run_all()
+    for name, logits in default.items():
+        assert logits.shape == aggregated[name].shape
+        assert np.abs(logits - aggregated[name]).max() > 1.0, name
+    assert default["predict"].shape[0] == handler.n_barcodes
 
 
 @pytest.fixture(scope="module")

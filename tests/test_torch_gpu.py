@@ -223,3 +223,111 @@ def test_gpu_auto_damping_matches_plain(engine_problem, erased):
     keep = ~near
     assert demux.auto_damping_select(*(p[keep] for p in runs["kernel"]), n_genotypes) == \
         demux.auto_damping_select(*(p[keep] for p in runs["plain"]), n_genotypes)
+
+
+@pytest.mark.gpu
+def test_gpu_aggregate_em_matches_plain(engine_problem, monkeypatch):
+    """aggregate_on_snps on the card: the E-step is torch ops, every M-step the kernel."""
+    _need_card()
+    packed, genotypes, handler = engine_problem
+    monkeypatch.setattr(Demultiplexer, "aggregate_on_snps", True)
+    learn = lambda: Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=3, doublet_prior=0.35)
+    launches = estep_logits.launches, mstep_addition.launches
+    result = learn()
+    assert (estep_logits.launches - launches[0], mstep_addition.launches - launches[1]) == (0, 2)
+    with _plain_versions():
+        plain = learn()
+    np.testing.assert_allclose(result.state.probs.cpu().numpy(), plain.state.probs.cpu().numpy(), atol=3e-5)
+    np.testing.assert_allclose(result.state.logits.cpu().numpy(), plain.state.logits.cpu().numpy(),
+                               rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(result.genotypes.get_betas(), plain.genotypes.get_betas(), rtol=1e-4, atol=1e-2)
+    # the same run on the CPU: one path, two devices
+    monkeypatch.setattr(Demultiplexer, "device", "cpu")
+    cpu = learn()
+    np.testing.assert_allclose(result.state.probs.cpu().numpy(), cpu.state.probs.numpy(), atol=3e-5)
+    assert bool((result.state.probs.sum(dim=1) - 1).abs().max() <= 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("doublet_prior", [0.0, 0.35])
+def test_gpu_aggregated_logits_are_deterministic(engine_problem, doublet_prior):
+    """The aggregate E-step gives the same bits on every call, zeros for barcodes without calls,
+    and the CPU's values within the logits bar."""
+    _need_card()
+    from dataclasses import replace
+
+    from demuxalot_tpu_torch.ops import likelihood as L
+
+    packed, genotypes, handler = engine_problem
+    calls = packed.molecule_calls
+    keep = calls.compressed_cb % 5 != 2  # every fifth barcode loses its calls
+    fields = ("variant_id", "snp_id", "compressed_cb", "molecule_id", "p_base_wrong", "p_molecule_aligned_wrong")
+    kept = replace(calls, **{field: getattr(calls, field)[keep] for field in fields})
+    rng = np.random.RandomState(0)
+    gprob = rng.uniform(0.01, 0.99, (packed.n_variants, genotypes.n_genotypes)).astype(np.float32)
+    mixing, _ = L.pseudogenotype_mixing(list(genotypes.genotype_names), doublet_prior)
+    logits = {}
+    for device in ("cuda", "cpu"):
+        layout = demux._SnpAggregationLayout.build(kept, torch.device(device))
+        run = lambda: layout.logits(t(gprob, device), t(mixing, device), handler.n_barcodes)  # noqa: E731
+        logits[device] = run()
+        assert torch.equal(logits[device], run())
+    got = logits["cuda"].cpu().numpy()
+    empty = np.arange(handler.n_barcodes) % 5 == 2
+    assert (got[empty] == 0).all() and (got[~empty] != 0).any(axis=1).all()
+    np.testing.assert_allclose(got, logits["cpu"].numpy(), rtol=1e-4, atol=5e-3)
+
+
+@pytest.fixture(scope="module")
+def discovery_bam(tmp_path_factory):
+    """The port's synthetic BAM of the discovery tests (4 donors, chr2's variants hidden)."""
+    from demuxalot_tpu_torch import ProbabilisticGenotypes
+
+    _need_card()
+    filename = str(tmp_path_factory.mktemp("bam") / "d.bam")
+    filename, genotypes, _ids, names = sim.generate_bam_file(
+        filename, n_genotypes=4, doublets_fraction=0.1, mutation_prob=0.03, n_barcodes=300,
+        n_reads_per_barcode=80, chromosome2length={"chr1": 800, "chr2": 800}, rng=5,
+    )
+    known = ProbabilisticGenotypes(genotypes.genotype_names)
+    for (chrom, pos, base), vid in genotypes.var2varid.items():
+        if chrom == "chr1":
+            row = known.get_variant_id(chrom, pos, base)  # registers the row before the view is taken
+            known.variant_betas[row] = genotypes.variant_betas[vid]
+    return filename, known, BarcodeHandler(list(names))
+
+
+@pytest.mark.gpu
+def test_gpu_native_coverage_equals_python(discovery_bam):
+    """The C++ pileup, built on the card's host, against the Python pileup."""
+    _need_card()
+    from demuxalot_tpu_torch.bamio import BamReader
+    from demuxalot_tpu_torch.frontend import cellranger
+    from demuxalot_tpu_torch.frontend.native_counter import try_count_coverage_native
+
+    filename = discovery_bam[0]
+    for chromosome, start, stop in (("chr1", 0, 800), ("chr2", 123, 654)):
+        native = try_count_coverage_native(filename, chromosome, start, stop, cellranger.parse_read, required=True)
+        with BamReader(filename) as reader:
+            python = reader.count_coverage(chromosome, start, stop,
+                                           read_callback=lambda read: cellranger.parse_read(read) is not None)
+        for ours, theirs in zip(native, python):
+            np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.gpu
+def test_gpu_detect_snps_runs_the_estep_kernel(discovery_bam, monkeypatch):
+    """Discovery on the card: the provisional predict launches the E-step kernel once."""
+    _need_card()
+    from demuxalot_tpu_torch import detect_snps_positions
+
+    filename, known, handler = discovery_bam
+    kwargs = dict(minimum_coverage=50, minimum_alternative_coverage=10, joblib_n_jobs=2, joblib_verbosity=0)
+    monkeypatch.setattr(Demultiplexer, "device", "cuda")
+    launches = estep_logits.launches
+    selected = detect_snps_positions(filename, known, handler, **kwargs)
+    assert estep_logits.launches == launches + 1
+    assert "chr2" in {chrom for chrom, *_ in selected}
+    monkeypatch.setattr(Demultiplexer, "device", "cpu")
+    on_cpu = detect_snps_positions(filename, known, handler, **kwargs)
+    assert [(c, p, list(b)) for c, p, _s, b in selected] == [(c, p, list(b)) for c, p, _s, b in on_cpu]

@@ -1,4 +1,4 @@
-"""The port imports without jax, pandas, triton or a CUDA toolchain, and builds nothing on import."""
+"""The port imports without jax, pandas, joblib, triton or a CUDA toolchain, and builds nothing on import."""
 import json
 import os
 import subprocess
@@ -8,7 +8,7 @@ from pathlib import Path
 import pytest
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "pandas", "triton", "demuxalot_tpu")
+FORBIDDEN = ("jax", "pandas", "joblib", "triton", "demuxalot_tpu")
 
 MODULES = [
     "demuxalot_tpu_torch",
@@ -19,6 +19,7 @@ MODULES = [
     "demuxalot_tpu_torch.frontend.native_counter",
     "demuxalot_tpu_torch.models.demux",
     "demuxalot_tpu_torch.models.genotypes",
+    "demuxalot_tpu_torch.models.snp_detection",
     "demuxalot_tpu_torch.native",
     "demuxalot_tpu_torch.native.hostops",
     "demuxalot_tpu_torch.native.scanner",
@@ -30,6 +31,10 @@ MODULES = [
     "demuxalot_tpu_torch.sim",
     "demuxalot_tpu_torch.utils",
     "demuxalot_tpu_torch.utils.device",
+    "demuxalot_tpu_torch.utils.lookup",
+    "demuxalot_tpu_torch.utils.profiling",
+    "demuxalot_tpu_torch.utils.summary",
+    "demuxalot_tpu_torch.utils.timing",
 ]
 
 
