@@ -3,7 +3,7 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc``, ``g++`` with zlib's headers, ``nvidia-smi``, pandas and
-pyarrow (for the CLI run of phase 6), and no jax. Phases, one line each
+pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
 (any failed check raises and the exit code is non-zero):
 
 1. device: name, count, versions, nvidia-smi's name and power limit,
@@ -45,10 +45,24 @@ pyarrow (for the CLI run of phase 6), and no jax. Phases, one line each
    kernel; the pileup takes the C++ scanner), its selections against the
    hidden truth, the parquet fed back through ``add_prior_betas``, native
    against Python coverage on one chromosome, and ``python -m
-   demuxalot_tpu_torch detect-snps`` against the API's parquet.
+   demuxalot_tpu_torch detect-snps`` against the API's parquet;
+8. the barcode-sharded engine (``parallel.ShardedDemultiplexer``). (a) 4
+   shards on cuda:0 at phase 4's shape: ``learn_genotypes`` (5 iterations,
+   prior 0.35), ``predict_posteriors`` and ``predict_posteriors_compact``
+   on the learnt genotypes, launch counts (4 shards x 7 E-steps, 4 x 4
+   M-steps), output checks, truth accuracy; iteration-0 and predict logits
+   bit-equal to the single-device engine on the same inputs, EM posteriors
+   and learnt betas against phase 4's, two sharded runs bit-equal; the
+   CUDA-event time of one sharded EM iteration beside the single-device
+   one, in turns. (b) Two processes on the card joined by ``gloo``, 2
+   shards each, and (c) one process in an ``nccl`` group with 4 shards, at
+   8,192 barcodes (``tests/torch_sharded_worker.py``, under a timeout),
+   against (a)'s engine in this process at that size. (d) ``python -m
+   demuxalot_tpu_torch demux --sharded --compact`` on phase 6's BAM against
+   phase 6's CLI run.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums the runs of phases 4, 6 and 7, ``launches_by_path``
+(``launches`` sums the runs of phases 4, 6, 7 and 8a, ``launches_by_path``
 keeps them apart; ``bound_ms`` is the least time the card could take for
 the bench-shape call that ``ms`` times, from ``utils.profiling``); the
 line before it is nvidia-smi's name and power limit; the last line is
@@ -88,6 +102,13 @@ E2E_FIXTURE = dict(
     doublets_fraction=0.2, chromosome2length={f"chr{i}": 20_000 for i in range(1, 9)},
 )
 E2E_TOPK = 4
+# phase 8: shards of the sharded engine on the one card; learnt betas held
+# to single-device at rtol 1e-5 (their smallest entry is 0.5); the
+# multi-process runs at phase 4's widths with fewer barcodes
+SHARDS = 4
+SHARDED_BETAS_TOL = dict(rtol=1e-5, atol=1e-6)
+MULTIPROCESS = dict(n_barcodes=8_192, n_donors=BENCH["n_donors"], n_snps=BENCH["n_snps"],
+                    calls_per_barcode=BENCH["calls_per_barcode"], seed=0)
 # phase 7b: SNP discovery on phase 6's BAM with these chromosomes' variants
 # known and the other four hidden. Depth per position is reads x read
 # length / genome length = 1,310,720 x 100 / 160,000 ≈ 819; a variant that
@@ -136,7 +157,7 @@ def phase_device() -> dict:
     report = device_report()
     for module in ("pandas", "pyarrow", "joblib"):
         report[module] = importlib.util.find_spec(module) is not None
-    # the BAM scanner (demuxalot_tpu/native/scanner.cpp) includes zlib.h
+    # the BAM scanner (demuxalot_tpu_torch/native/scanner.cpp) includes zlib.h
     zlib = subprocess.run(["g++", "-E", "-x", "c++", "-"], input="#include <zlib.h>\n",
                           capture_output=True, text=True)
     report["zlib_h"] = zlib.returncode == 0
@@ -418,11 +439,15 @@ def _time_ms(fn, repeats: int = 10) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def _em_iteration_ms(genotypes, handler, packed, repeats: int = 5) -> float:
-    """Per-iteration time of the EM generator in steady state (M + E step)."""
+def _em_iteration_ms(genotypes, handler, packed, repeats: int = 5, sharded=None) -> float:
+    """Per-iteration time of the EM generator in steady state (M + E step), or of ``sharded``'s."""
     from demuxalot_tpu_torch.models.demux import _EMRun
+    from demuxalot_tpu_torch.parallel.sharded import _ShardedEM
 
-    run = _EMRun(packed, genotypes, handler, repeats + 2, 0.01, DOUBLET_PRIOR, None)
+    if sharded is None:
+        run = _EMRun(packed, genotypes, handler, repeats + 2, 0.01, DOUBLET_PRIOR, None)
+    else:
+        run = _ShardedEM(sharded, packed, genotypes, handler, repeats + 2, 0.01, DOUBLET_PRIOR, None, None)
     iterations = run.device_iterations()
     next(iterations)
     next(iterations)  # warm
@@ -525,22 +550,23 @@ def _packed_arrays(packed) -> list:
     return arrays + list(packed.calls_by_barcode())
 
 
-def _run_cli(bam: str, genotypes, barcodes: list, tmp: Path) -> list:
-    """``python -m demuxalot_tpu_torch demux --compact`` on the BAM; its assignments.csv lines.
+def _run_cli(bam: str, genotypes, barcodes: list, tmp: Path, *flags: str) -> list:
+    """``python -m demuxalot_tpu_torch demux --compact [flags]`` on the BAM; its assignments.csv lines.
 
-    The one part of phase 6 that uses pandas and pyarrow (betas parquet in,
-    CSV out), which phase 1 showed the card's machine has.
+    The one part of phases 6 and 8 that uses pandas and pyarrow (betas
+    parquet in, CSV out), which phase 1 showed the card's machine has.
     """
     betas = tmp / "prior_betas.parquet"
     genotypes.save_betas(str(betas))
     whitelist = tmp / "barcodes.csv"
     whitelist.write_text("\n".join(barcodes) + "\n")
+    out = tmp / ("cli" + "".join(flags).replace("-", "_"))
     cli = [sys.executable, "-m", "demuxalot_tpu_torch", "demux", "--bam", bam, "--barcodes", str(whitelist),
-           "--prior-betas", str(betas), "--output-dir", str(tmp / "cli"), "--compact", "--damping", "auto",
-           "--doublet-prior", str(DOUBLET_PRIOR), "--n-iterations", str(N_ITERATIONS), "--device", "cuda"]
+           "--prior-betas", str(betas), "--output-dir", str(out), "--compact", "--damping", "auto",
+           "--doublet-prior", str(DOUBLET_PRIOR), "--n-iterations", str(N_ITERATIONS), "--device", "cuda", *flags]
     proc = subprocess.run(cli, cwd=REPO, capture_output=True, text=True, timeout=900)
     require(proc.returncode == 0, f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
-    return (tmp / "cli" / "assignments.csv").read_text().splitlines()
+    return (out / "assignments.csv").read_text().splitlines()
 
 
 def phase_bam(card: str, tmp: Path) -> dict:
@@ -661,7 +687,8 @@ def phase_bam(card: str, tmp: Path) -> dict:
         anchored_disagreement=[learnt.anchored_disagreement, learnt_p.anchored_disagreement],
         calls_per_barcode={"mean": float(per_barcode.mean()), "max": int(per_barcode.max()),
                            "share_over_128": float((per_barcode > 128).mean())})
-    return {"launches": launches, "stages": stages, "errors": errors, "fixture": (bam, genotypes, handler)}
+    return {"launches": launches, "stages": stages, "errors": errors, "fixture": (bam, genotypes, handler),
+            "cli_rows": cli_rows}
 
 
 # ---------------------------------------------------------------------------
@@ -908,6 +935,155 @@ def phase_discovery(card: str, fixture: tuple, tmp: Path) -> dict:
     return {"launches": launches, "total_s": total_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the barcode-sharded engine
+# ---------------------------------------------------------------------------
+
+def phase_sharded(genotypes, handler, packed, truth, main: dict, timing: dict, card: str, bam_result: dict,
+                  tmp: Path) -> dict:
+    """Phase 8: (a) 4 shards on cuda:0 at the bench shape, (b) two processes (gloo), (c) one-process
+    NCCL, (d) ``demux --sharded``."""
+    from demuxalot_tpu_torch import Demultiplexer
+    from demuxalot_tpu_torch.models.demux import _EMRun
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
+    from demuxalot_tpu_torch.parallel import ShardedDemultiplexer, make_mesh
+    from demuxalot_tpu_torch.parallel.sharded import _ShardedEM
+    from torch_sharded_worker import free_port, run as worker_run, run_processes
+
+    Demultiplexer.device = "cuda"
+    sharded = ShardedDemultiplexer(make_mesh(["cuda:0"] * SHARDS))
+
+    # (a) the main path through the sharded engine, counted
+    estep_logits.launches = 0
+    mstep_addition.launches = 0
+    t0 = time.perf_counter()
+    learnt, em_probs = sharded.learn_genotypes(packed, genotypes, handler, n_iterations=N_ITERATIONS,
+                                               doublet_prior=DOUBLET_PRIOR)
+    logits, probs = sharded.predict_posteriors(packed, learnt, handler, doublet_prior=DOUBLET_PRIOR)
+    compact = sharded.predict_posteriors_compact(packed, learnt, handler, doublet_prior=DOUBLET_PRIOR, k=E2E_TOPK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
+    expected = {"estep_logits": SHARDS * (N_ITERATIONS + 2), "mstep_addition": SHARDS * (N_ITERATIONS - 1)}
+    require(launches == expected, f"sharded launches {launches}, expected {expected}")
+    require((sharded.layout_cache_misses, sharded.layout_cache_hits) == (2, 2),
+            f"layouts built {sharded.layout_cache_misses}, reused {sharded.layout_cache_hits}: expected 2 and 2")
+    n_barcodes, n_pg = handler.n_barcodes, probs.shape[1]
+    em, logits, probs = (np.array(frame.values) for frame in (em_probs, logits, probs))
+    for name, frame in (("em_probs", em), ("logits", logits), ("probs", probs)):
+        require(frame.shape == (n_barcodes, n_pg) and bool(np.isfinite(frame).all()), f"sharded {name}: shape, finite")
+    require(float(np.abs(probs.sum(axis=1) - 1).max()) <= 1e-5, "sharded posterior rows sum to 1")
+    truth_column = np.array([list(em_probs.columns).index("+".join(t)) for t in truth])
+    accuracy = float((probs.argmax(1) == truth_column).mean())
+    require(accuracy > 0.9, f"sharded assignment accuracy {accuracy}")
+    require(np.array_equal(compact.assignment, logits.argmax(1)), "sharded compact = full-frame argmax")
+    require(np.array_equal(compact.top_logits, np.take_along_axis(logits, compact.top_index, axis=1)),
+            "sharded top_logits are exact frame entries")
+
+    # against the single-device engine on the same inputs: phase 4's EM, and
+    # its first E-step and its predict on the sharded run's learnt genotypes
+    single = main["state"]
+    errors = {
+        "em_posteriors": compare("sharded vs single EM posteriors", torch.from_numpy(em), single.probs, 0.0,
+                                 POSTERIOR_ATOL),
+        "learnt_betas": compare("sharded vs single learnt betas", torch.from_numpy(np.array(learnt.get_betas())),
+                                torch.from_numpy(np.array(main["learnt"].get_betas())), **SHARDED_BETAS_TOL),
+    }
+    require(np.array_equal(em.argmax(1), single.probs.argmax(1).cpu().numpy()), "sharded EM argmax = single's")
+    single_logits, _, _ = Demultiplexer.predict_posteriors_core(packed, learnt, handler, doublet_prior=DOUBLET_PRIOR)
+    require(np.array_equal(logits, single_logits.cpu().numpy()), "sharded predict logits bit-equal to single's")
+    (_, first), = sharded.staged_genotype_learning(packed, genotypes, handler, n_iterations=1,
+                                                   doublet_prior=DOUBLET_PRIOR)
+    first_single = next(_EMRun(packed, genotypes, handler, 1, 0.01, DOUBLET_PRIOR, None).device_iterations())
+    require(np.array_equal(first["barcode_logits"], first_single.logits.cpu().numpy()),
+            "sharded iteration-0 logits bit-equal to single's")
+    again_learnt, again = sharded.learn_genotypes(packed, genotypes, handler, n_iterations=N_ITERATIONS,
+                                                  doublet_prior=DOUBLET_PRIOR)
+    require(np.array_equal(again.values, em) and np.array_equal(again_learnt.get_betas(), learnt.get_betas()),
+            "two sharded runs bit-equal")
+    say("sharded", stage="4 shards on cuda:0, bench shape", card=card, launches=launches, wall_s=wall,
+        accuracy=accuracy, max_abs_err=errors, first_estep_bit_equal=True, predict_bit_equal=True,
+        runs_bit_equal=True, compact_equals_full_frame=True,
+        layout_cache={"misses": sharded.layout_cache_misses, "hits": sharded.layout_cache_hits},
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # one EM iteration, sharded and single-device in turns
+    samples = {"single": [], "sharded": []}
+    for which in ("single", "sharded", "sharded", "single"):
+        samples[which].append(_em_iteration_ms(genotypes, handler, packed,
+                                               sharded=sharded if which == "sharded" else None))
+    iteration = {"sharded_ms": samples["sharded"], "single_ms": samples["single"],
+                 "sharded_ms_mean": sum(samples["sharded"]) / 2, "single_ms_mean": sum(samples["single"]) / 2,
+                 "phase5_single_ms_mean": timing["timings"]["em_iteration"]["kernel_ms_mean"]}
+    say("sharded", stage="EM iteration", card=card, n_shards=SHARDS, **iteration)
+
+    # where the difference goes: each step over the 4 shards, beside phase 5's single-device calls
+    run = _ShardedEM(sharded, packed, genotypes, handler, 2, 0.01, DOUBLET_PRIOR, None, None)
+    state = next(run.device_iterations())
+    gprob, power = timing["gprob"], float(sharded.contribution_power)
+    partials = [mstep_addition(p, o, run.n_genotypes, power) for p, o in zip(state.probs, run.mstep)]
+    steps = {
+        "estep": lambda: [estep_logits(gprob, o) for o in run.estep],
+        "softmax": lambda: [torch.softmax(block, dim=-1) for block in state.logits],
+        "mstep": lambda: [mstep_addition(p, o, run.n_genotypes, power) for p, o in zip(state.probs, run.mstep)],
+        "reduce": lambda: run._reduce(partials),
+    }
+    breakdown = {f"{name}_ms": [_time_ms(step) for _ in range(2)] for name, step in steps.items()}
+    say("sharded", stage="steps over 4 shards", card=card, **breakdown,
+        phase5_single_ms={name: timing["timings"][name]["kernel_ms_mean"] for name in ("estep", "mstep")})
+    iteration["steps"] = breakdown
+
+    # (b) two processes on the one card through gloo, 2 shards each, and (c) one
+    # process in an NCCL group with 4 shards, against (a)'s engine in this process
+    sizes = dict(MULTIPROCESS, n_iterations=N_ITERATIONS, doublet_prior=DOUBLET_PRIOR)
+    reference = worker_run(make_mesh(["cuda:0"] * SHARDS), **sizes)
+    flags = [f"--{name.replace('_', '-')}={value}" for name, value in sizes.items()]
+    worker = [sys.executable, str(REPO / "tests" / "torch_sharded_worker.py"), "--device", "cuda", *flags]
+    children = {}
+    for name, backend, world in (("two_processes_gloo", "gloo", 2), ("one_process_nccl", "nccl", 1)):
+        out, port = tmp / f"{name}.npz", free_port()
+        t0 = time.perf_counter()
+        run_processes([[*worker, "--rank", str(rank), "--world", str(world), "--port", str(port), "--backend",
+                        backend, "--shards", str(SHARDS // world), "--out", str(out)] for rank in range(world)],
+                      timeout=600)
+        seconds = time.perf_counter() - t0
+        result = dict(np.load(out))
+        got = {key: torch.tensor(result[key]) for key in ("em_probs", "betas", "logits")}
+        want = {key: torch.tensor(reference[key]) for key in ("em_probs", "betas", "logits")}
+        child_errors = {
+            "em_posteriors": compare(f"{name} EM posteriors", got["em_probs"], want["em_probs"], 0.0, POSTERIOR_ATOL),
+            "learnt_betas": compare(f"{name} learnt betas", got["betas"], want["betas"], **SHARDED_BETAS_TOL),
+            "logits": compare(f"{name} predict logits", got["logits"], want["logits"], **LOGITS_TOL),
+        }
+        require(np.array_equal(result["logits0"], reference["logits0"]), f"{name}: first E-step bit-equal")
+        require(np.array_equal(result["em_probs"].argmax(1), reference["em_probs"].argmax(1))
+                and np.array_equal(result["top_index"][:, 0], reference["top_index"][:, 0]), f"{name}: same argmax")
+        per_process = SHARDS // world
+        expected_child = [per_process * (2 + N_ITERATIONS + 2), per_process * (1 + N_ITERATIONS - 1)]
+        require(result["launches"].tolist() == expected_child,
+                f"{name}: rank 0 launched {result['launches'].tolist()}, expected {expected_child}")
+        if backend == "nccl":  # one rank: the all-reduce and the gathers move nothing
+            require(all(np.array_equal(result[key], reference[key]) for key in reference if key != "launches"),
+                    f"{name}: bit-equal to the in-process run")
+        children[name] = {"seconds": seconds, "max_abs_err": child_errors, "launches_rank0": expected_child}
+        say("sharded", stage=name, card=card, n_barcodes=MULTIPROCESS["n_barcodes"], processes=world,
+            shards_per_process=per_process, seconds=seconds, max_abs_err=child_errors,
+            first_estep_bit_equal=True, launches_rank0=result["launches"].tolist(),
+            bit_equal=backend == "nccl")
+
+    # (d) the CLI with --sharded on phase 6's BAM
+    bam, bam_genotypes, bam_handler = bam_result["fixture"]
+    t0 = time.perf_counter()
+    rows = _run_cli(bam, bam_genotypes, list(bam_handler.ordered_barcodes), tmp, "--sharded")
+    cli_s = time.perf_counter() - t0
+    assignment = lambda lines: [line.split(",")[1] for line in lines[1:]]  # noqa: E731
+    require(rows[0] == bam_result["cli_rows"][0] and assignment(rows) == assignment(bam_result["cli_rows"]),
+            "demux --sharded writes the assignments of demux")
+    say("sharded", stage="demux --sharded --compact", card=card, cli_s=cli_s, assignments_equal=len(rows) - 1)
+    return {"launches": launches, "errors": errors, "iteration": iteration, "children": children}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -923,11 +1099,13 @@ def main() -> int:
         bam_result = phase_bam(card, Path(tmp))
         aggregate = phase_aggregate(genotypes, handler, packed, truth, timing["gprob"], card)
         discovery = phase_discovery(card, bam_result["fixture"], Path(tmp))
+        sharded = phase_sharded(genotypes, handler, packed, truth, main_result, timing, card, bam_result, Path(tmp))
     t = timing["timings"]
 
     def launches(name: str) -> dict:
         by_path = {"packed_calls": main_result["launches"][name], "bam_flow": bam_result["launches"][name],
-                   "aggregate_em": aggregate["launches"][name], "detect_snps": discovery["launches"][name]}
+                   "aggregate_em": aggregate["launches"][name], "detect_snps": discovery["launches"][name],
+                   "sharded": sharded["launches"][name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     def bound(step: str) -> dict:

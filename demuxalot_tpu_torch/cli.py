@@ -5,14 +5,16 @@ The ``demux``, ``count`` and ``detect-snps`` commands of
 ``--device`` (default ``cuda``) for the commands that run it::
 
     python -m demuxalot_tpu_torch demux --bam sample.bam --barcodes barcodes.csv \
-        --vcf donors.vcf --output-dir out/ [--compact] [--device cuda]
+        --vcf donors.vcf --output-dir out/ [--compact] [--sharded] [--device cuda]
     python -m demuxalot_tpu_torch count --bam sample.bam --barcodes barcodes.csv \
         --vcf donors.vcf --counts-dir counts/
     python -m demuxalot_tpu_torch detect-snps --bam sample.bam --barcodes barcodes.csv \
         --vcf donors.vcf --out new_snps.parquet --min-coverage 200 [--device cuda]
 
-The sharded engine (``--sharded``) is not ported yet, so the parser rejects
-it. Each subcommand is a thin shell over the Python API; anything beyond
+``demux --sharded`` runs the barcode-sharded engine
+(``parallel.ShardedDemultiplexer``): over every visible card with
+``--device cuda``, over one CPU shard with ``--device cpu``. Each
+subcommand is a thin shell over the Python API; anything beyond
 flag-plumbing belongs in the library.
 """
 import argparse
@@ -219,7 +221,18 @@ def _cmd_demux(args) -> int:
 
 
 def _demux(args) -> int:
+    import torch
+
     from .models.demux import Demultiplexer
+
+    if args.sharded:
+        # barcode-sharded; the same API surface, so the dispatch is just this
+        from .parallel import ShardedDemultiplexer, make_mesh
+
+        engine = ShardedDemultiplexer(make_mesh([torch.device("cpu")] if args.device == "cpu" else None))
+        print(f"# sharding over {engine.n_shards} devices", file=sys.stderr)
+    else:
+        engine = Demultiplexer
 
     store = _load_genotypes(args)
     whitelist = _load_barcodes(args)
@@ -233,7 +246,7 @@ def _demux(args) -> int:
 
     learnt = None
     if not args.no_refine:
-        learnt, probs = Demultiplexer.learn_genotypes(
+        learnt, probs = engine.learn_genotypes(
             packed, genotypes=store, barcode_handler=whitelist,
             n_iterations=args.n_iterations,
             p_genotype_clip=args.p_genotype_clip,
@@ -245,7 +258,7 @@ def _demux(args) -> int:
     if args.compact:
         # device top-k readback (assignment, runner-up, margin, posterior)
         # instead of the full posterior frames
-        compact = Demultiplexer.predict_posteriors_compact(
+        compact = engine.predict_posteriors_compact(
             packed, genotypes=(learnt if learnt is not None else store),
             barcode_handler=whitelist,
             p_genotype_clip=args.p_genotype_clip,
@@ -261,7 +274,7 @@ def _demux(args) -> int:
         return 0
 
     if args.no_refine:
-        logits, probs = Demultiplexer.predict_posteriors(
+        logits, probs = engine.predict_posteriors(
             packed, genotypes=store, barcode_handler=whitelist,
             p_genotype_clip=args.p_genotype_clip,
             doublet_prior=args.doublet_prior,
@@ -362,6 +375,9 @@ def build_parser() -> argparse.ArgumentParser:
                             "posterior/logits frames — at product scale the "
                             "full f32 frame is hundreds of MB of pure "
                             "device->host transfer)")
+    demux.add_argument("--sharded", action="store_true",
+                       help="shard barcodes over every visible card (one CPU "
+                            "shard with --device cpu); the same results")
     _device_arg(demux)
     demux.set_defaults(func=_cmd_demux)
 

@@ -26,7 +26,7 @@ Scaling stance: the per-chromosome position index is a sorted array queried
 by binary search — memory is O(n_SNPs), independent of chromosome length,
 with no integer-width ceiling (a 250 Mb contig with millions of SNPs costs
 a few MB). The C++ scanner (``demuxalot_tpu_torch.native.scanner``, built
-from ``demuxalot_tpu/native/scanner.cpp``) replaces the whole Python loop
+from ``demuxalot_tpu_torch/native/scanner.cpp``) replaces the whole Python loop
 when the standard tag filter is in use.
 """
 from __future__ import annotations

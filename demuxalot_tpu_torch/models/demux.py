@@ -72,8 +72,8 @@ def _stage_mark(timings: Optional[dict], key: str, t0: float) -> float:
 def _flush_device(tensors: Iterable[Optional[torch.Tensor]]) -> int:
     """Wait for the device work behind ``tensors``; return their bytes."""
     tensors = [t for t in tensors if t is not None]
-    if any(t.is_cuda for t in tensors):
-        torch.cuda.synchronize()
+    for device in {t.device for t in tensors if t.is_cuda}:
+        torch.cuda.synchronize(device)
     return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
@@ -192,6 +192,7 @@ class PackedCalls:
         self._barcode_calls: Optional[np.recarray] = None
         self._device_calls: dict = {}
         self._snp_layouts: dict = {}
+        self._sharded_layouts: dict = {}  # parallel.ShardedDemultiplexer's per-shard layouts
 
     @property
     def barcode_calls(self) -> np.recarray:

@@ -1,12 +1,12 @@
 """Native (C++) host components: on-demand g++ builds, loaded with ctypes.
 
-Two libraries, compiled from the JAX package's C++ sources where they lie
-(``demuxalot_tpu/native/scanner.cpp`` and ``hostops.cpp``), so both
-packages run one C++ source of truth. The sources are only read: nothing
-of the JAX package is imported and nothing is written next to it. Each
-library is built at first use into ``demuxalot_tpu_torch/_build/`` under a
-file name keyed by a hash of its source, flags and machine architecture,
-exactly as ``ops._cuda`` builds the CUDA kernels.
+Two libraries, compiled from this package's own C++ sources
+(``demuxalot_tpu_torch/native/scanner.cpp`` and ``hostops.cpp``, copies of
+the JAX package's ``demuxalot_tpu/native/*.cpp``: the port builds without
+that package). Each library is built at first use into
+``demuxalot_tpu_torch/_build/`` under a file name keyed by a hash of its
+source, flags and machine architecture, exactly as ``ops._cuda`` builds the
+CUDA kernels.
 
 * the scanner (``-lz``): BGZF decompression, record decoding, read
   filtering, molecule grouping and consensus calls in one pass, and the
@@ -30,7 +30,7 @@ from pathlib import Path
 from typing import Dict
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE_DIR = PACKAGE_DIR.parent / "demuxalot_tpu" / "native"
+SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "_build"
 # portable code (no -march=native): a built library may be copied between
 # hosts of one architecture, which the file name keys on
@@ -45,7 +45,7 @@ _i64p = ctypes.POINTER(ctypes.c_int64)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _cp = ctypes.c_char_p
 
-# ctypes signatures, as demuxalot_tpu/native/__init__.py declares them:
+# ctypes signatures of the two sources' C entry points:
 # name -> (restype, argtypes)
 HOST_SIGNATURES = {
     "demux_radix_argsort_i64": (None, (_i64p, _i64, _i64p)),

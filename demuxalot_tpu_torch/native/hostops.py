@@ -2,7 +2,7 @@
 
 Each op has a numpy path, which is the semantic definition (the numpy
 paths of ``demuxalot_tpu.native.hostops``), and a native path through the
-C++ host library (``demuxalot_tpu/native/hostops.cpp``, built by
+C++ host library (``demuxalot_tpu_torch/native/hostops.cpp``, built by
 :func:`demuxalot_tpu_torch.native.load_host_library`) whose output is
 bit-identical. As in the JAX package, the native path runs for inputs of
 at least 65,536 rows when the library builds and loads; small inputs, or

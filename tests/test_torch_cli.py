@@ -115,24 +115,47 @@ def test_counts_cache_rejects_changed_inputs(cli_problem, tmp_path):
                                   _csv(tmp_path / "out3" / "posteriors.csv"))
 
 
-@pytest.mark.parametrize("argv", [
-    ["demux", "--sharded", "--bam", "x.bam", "--barcodes", "b.csv", "--output-dir", "o"],
-])
-def test_unported_commands_are_rejected(argv):
+@pytest.mark.parametrize("refine", [False, True])
+def test_demux_sharded_writes_the_same_assignments(cli_problem, tmp_path, capsys, refine):
+    """``demux --sharded --compact --device cpu`` (one CPU shard) against the run without ``--sharded``."""
+    bam, barcodes, betas = cli_problem
+    common = ["demux", "--bam", bam, "--barcodes", barcodes, "--prior-betas", betas, "--jobs", "1", "--compact",
+              "--doublet-prior", "0.25", "--device", "cpu"] + (["--n-iterations", "2"] if refine else ["--no-refine"])
+    assert main([*common, "--output-dir", str(tmp_path / "single")]) == 0
+    capsys.readouterr()
+    assert main([*common, "--sharded", "--output-dir", str(tmp_path / "sharded")]) == 0
+    assert "# sharding over 1 devices" in capsys.readouterr().err
+    assert Demultiplexer.device == "cuda", "the CLI restores the engine's device"
+    a, b = _csv(tmp_path / "sharded" / "assignments.csv"), _csv(tmp_path / "single" / "assignments.csv")
+    assert list(a.index) == list(b.index) and list(a.columns) == list(b.columns)
+    assert (a["assignment"] == b["assignment"]).all()
+    np.testing.assert_allclose(a["posterior"], b["posterior"], atol=1e-5)
+    if refine:
+        learnt, single = (pd.read_parquet(tmp_path / d / "learnt_betas.parquet") for d in ("sharded", "single"))
+        np.testing.assert_allclose(learnt.values, single.values, rtol=1e-5, atol=1e-5)
+
+
+def _flags(parser, command: str) -> set:
+    sub = parser._subparsers._group_actions[0].choices[command]
+    return {option for action in sub._actions for option in action.option_strings}
+
+
+def test_demux_flags_are_the_jax_flags(capsys):
+    from demuxalot_tpu.cli import build_parser as jax_build_parser
+    from demuxalot_tpu_torch.cli import build_parser
+
+    assert _flags(build_parser(), "demux") == _flags(jax_build_parser(), "demux") | {"--device"}
     with pytest.raises(SystemExit) as error:
-        main(argv)
-    assert error.value.code == 2  # argparse's usage error
+        main(["demux", "--help"])
+    assert error.value.code == 0
+    assert "--sharded" in capsys.readouterr().out
 
 
 def test_detect_snps_help_lists_the_jax_flags(capsys):
     from demuxalot_tpu.cli import build_parser as jax_build_parser
     from demuxalot_tpu_torch.cli import build_parser
 
-    def flags(parser):
-        detect = parser._subparsers._group_actions[0].choices["detect-snps"]
-        return {option for action in detect._actions for option in action.option_strings}
-
-    assert flags(build_parser()) == flags(jax_build_parser()) | {"--device"}
+    assert _flags(build_parser(), "detect-snps") == _flags(jax_build_parser(), "detect-snps") | {"--device"}
     with pytest.raises(SystemExit) as error:
         main(["detect-snps", "--help"])
     assert error.value.code == 0

@@ -331,3 +331,45 @@ def test_gpu_detect_snps_runs_the_estep_kernel(discovery_bam, monkeypatch):
     monkeypatch.setattr(Demultiplexer, "device", "cpu")
     on_cpu = detect_snps_positions(filename, known, handler, **kwargs)
     assert [(c, p, list(b)) for c, p, _s, b in selected] == [(c, p, list(b)) for c, p, _s, b in on_cpu]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra_barcodes", [0, 200])
+def test_gpu_sharded_matches_single_device(engine_problem, extra_barcodes):
+    """4 shards on cuda:0: the first E-step and the predict bit-equal, EM within 3e-5, runs repeatable.
+
+    With 200 whitelisted barcodes that have no reads, shard 3 holds no call
+    at all: its kernels get an empty CSR and give the penalties.
+    """
+    _need_card()
+    from demuxalot_tpu_torch.parallel import ShardedDemultiplexer, make_mesh
+
+    packed, genotypes, handler = engine_problem
+    if extra_barcodes:
+        handler = BarcodeHandler(list(handler.ordered_barcodes) + [f"ZZZ{i:04d}" for i in range(extra_barcodes)])
+    sharded = ShardedDemultiplexer(make_mesh(["cuda:0"] * 4))
+    launches = estep_logits.launches, mstep_addition.launches
+    (_, first), = sharded.staged_genotype_learning(packed, genotypes, handler, n_iterations=1, doublet_prior=0.35)
+    (_, single_first), = Demultiplexer.staged_genotype_learning(packed, genotypes, handler, n_iterations=1,
+                                                                doublet_prior=0.35)
+    assert (estep_logits.launches - launches[0], mstep_addition.launches - launches[1]) == (4 + 1, 0)
+    np.testing.assert_array_equal(first["barcode_logits"], single_first["barcode_logits"])
+
+    learn = lambda engine: engine.learn_genotypes(packed, genotypes, handler, n_iterations=3, doublet_prior=0.35)
+    launches = estep_logits.launches, mstep_addition.launches
+    learnt, probs = learn(sharded)
+    assert (estep_logits.launches - launches[0], mstep_addition.launches - launches[1]) == (4 * 3, 4 * 2)
+    single_learnt, single_probs = learn(Demultiplexer)
+    np.testing.assert_allclose(probs.values, single_probs.values, atol=3e-5)
+    np.testing.assert_allclose(learnt.get_betas(), single_learnt.get_betas(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(probs.values.argmax(1), single_probs.values.argmax(1))
+    again_learnt, again_probs = learn(sharded)
+    np.testing.assert_array_equal(again_probs.values, probs.values)
+    np.testing.assert_array_equal(again_learnt.get_betas(), learnt.get_betas())
+
+    logits, _ = sharded.predict_posteriors(packed, learnt, handler, doublet_prior=0.35)
+    single_logits, _ = Demultiplexer.predict_posteriors(packed, learnt, handler, doublet_prior=0.35)
+    np.testing.assert_array_equal(logits.values, single_logits.values)
+    if extra_barcodes:
+        penalties = demux.L.doublet_penalties(genotypes.n_genotypes, 0.35)
+        np.testing.assert_array_equal(logits.values[400:], np.broadcast_to(penalties, (extra_barcodes, len(penalties))))

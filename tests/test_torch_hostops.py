@@ -1,11 +1,13 @@
 """The port's native host ops against their numpy paths, bit for bit.
 
-The C++ library is built from ``demuxalot_tpu/native/hostops.cpp`` by g++
+The C++ library is built from ``demuxalot_tpu_torch/native/hostops.cpp`` by g++
 into ``demuxalot_tpu_torch/_build/``. Every op runs natively from 65,536
 rows, so the inputs here have 200,000 rows; ``hostops.numpy_paths()``
 gives the numpy path (the definition) on the same inputs. Packing is then
 checked whole: with and without the library, and against the JAX package.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -40,7 +42,8 @@ def test_host_library_builds_into_the_port(tmp_path):
     assert hostops.native_library() is lib
     path = native.library_path(native.SOURCE_DIR / "hostops.cpp", ("-pthread",))
     assert path.exists() and path.parent == native.BUILD_DIR
-    assert native.SOURCE_DIR.parent.name == "demuxalot_tpu"  # compiled where it lies
+    assert native.SOURCE_DIR == Path(native.__file__).resolve().parent  # the port's own copy
+    assert native.SOURCE_DIR.parent.name == "demuxalot_tpu_torch"
     assert native.load_library() is native.load_library()
 
 
