@@ -11,18 +11,24 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    ``zlib.h`` for the BAM scanner;
 2. build: nvcc builds ``demuxalot_tpu_torch/csrc/*.cu`` while g++ builds
    the BAM scanner and the host ops (``demuxalot_tpu_torch.native``);
-   seconds of each and ptxas' registers/spills per kernel;
+   seconds of each and ptxas' registers/spills per kernel (no kernel may
+   spill);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at edge shapes, the padding no-op, barcodes that span several staged
-   tiles of calls (also against ``tests/oracle.py``, float64 accumulation),
-   and the oracle at a small shape;
+   at edge shapes (the E-step logits-only and with its fused softmax, with
+   and without prior logits), the padding no-op, barcodes that span several
+   staged tiles of calls (also against ``tests/oracle.py``, float64
+   accumulation), and the oracle at a small shape;
 4. main path at the bench shape (32 donors, 65,536 SNPs, 65,536 barcodes,
    64 calls per barcode, 20% doublets, seed 0): ``learn_genotypes_core``
    (5 iterations, doublet prior 0.35) then ``predict_posteriors_core``,
    with launch counters, output checks and truth accuracy, then the same
    run through the plain versions on the card for comparison;
-5. timing with CUDA events: E-step, M-step and a full EM iteration,
-   kernel and plain in turns (plain, kernel, kernel, plain);
+5. timing with CUDA events: E-step (logits only), E-step with its fused
+   softmax (``estep_softmax``, against the plain logits + ``torch.softmax``),
+   M-step and a full EM iteration, kernel and plain in turns (plain,
+   kernel, kernel, plain); ``torch.softmax`` alone on the bench logits (the
+   epilogue's library call), and the fused E-step with its log fold through
+   ``logf`` against the default MUFU log2, in turns;
 6. the BAM path at the end-to-end shape of ``benchmarks/end_to_end.py``
    (32 donors, 65,536 barcodes x 20 reads, 8 chromosomes x 20,000 bp,
    mutation 0.003, 20% doublets, seed 0): ``sim.generate_bam_file``,
@@ -54,7 +60,8 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    bit-equal to the single-device engine on the same inputs, EM posteriors
    and learnt betas against phase 4's, two sharded runs bit-equal; the
    CUDA-event time of one sharded EM iteration beside the single-device
-   one, in turns. (b) Two processes on the card joined by ``gloo``, 2
+   one, in turns, and of each step over the 4 shards (the fused E-step,
+   M-step, reduction). (b) Two processes on the card joined by ``gloo``, 2
    shards each, and (c) one process in an ``nccl`` group with 4 shards, at
    8,192 barcodes (``tests/torch_sharded_worker.py``, under a timeout),
    against (a)'s engine in this process at that size. (d) ``python -m
@@ -64,9 +71,15 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
 The line before the last is a JSON object with one entry per kernel
 (``launches`` sums the runs of phases 4, 6, 7 and 8a, ``launches_by_path``
 keeps them apart; ``bound_ms`` is the least time the card could take for
-the bench-shape call that ``ms`` times, from ``utils.profiling``); the
-line before it is nvidia-smi's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+the bench-shape call that ``ms`` times, from ``utils.profiling``; the
+E-step's ``ms`` is its fused call, logits and posteriors, as the EM loop
+and predict make it); the line before it is nvidia-smi's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --parent DIR`` runs only the comparison of this
+tree's E-step with the one under ``DIR`` (an unpacked older commit):
+phases 1-2, then each tree's E-step and softmax at the bench shape in its
+own process, in turns (parent, this tree, this tree, parent).
 """
 from __future__ import annotations
 
@@ -85,6 +98,8 @@ import torch
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "tests"))  # oracle.py: numpy only
+if "--estep-ms" in sys.argv[1:-1]:  # a child of --parent imports the package under the given root
+    sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--estep-ms") + 1]).resolve()))
 
 BENCH = dict(n_barcodes=65_536, n_donors=32, n_snps=65_536, calls_per_barcode=64)
 DOUBLET_PRIOR = 0.35
@@ -190,6 +205,44 @@ def phase_build() -> None:
     for line in result.log.splitlines():
         if any(key in line for key in ("Compiling entry", "registers", "spill")):
             print("  ptxas: " + line.strip(), flush=True)
+    spills = [line.strip() for line in result.log.splitlines()
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    require(not spills, f"kernels spill registers: {spills}")
+    cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
+    if cuobjdump.is_file():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(result.path)], capture_output=True, text=True).stdout
+        say("build", estep_hot_loop=_estep_hot_loops(sass))
+
+
+def _estep_hot_loops(sass: str) -> dict:
+    """Per instantiation of the E-step kernel: the innermost loop with the most FADD and FMUL both (the
+    per-call products, 8 calls per trip), its instructions and their main kinds, from cuobjdump's SASS."""
+    import collections
+    import re
+
+    found = {}
+    for function in re.split(r"\n\s+Function : ", sass)[1:]:
+        args = re.search(r"estep_kernelILb(\d)ELi(\d+)E", function.splitlines()[0])
+        if args is None:
+            continue
+        lines = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", function)
+        code = [(int(at, 16), op.split(".")[0], rest) for at, op, rest in lines]
+        loops = []  # (first, last) address of every backward branch's body
+        for at, op, rest in code:
+            target = re.search(r"(0x[0-9a-f]+)", rest) if op == "BRA" else None
+            if target is not None and int(target.group(1), 16) < at:
+                loops.append((int(target.group(1), 16), at))
+        best = None
+        for lo, hi in loops:
+            if any(lo <= inner_lo and inner_hi < hi for inner_lo, inner_hi in loops):
+                continue  # not innermost
+            kinds = collections.Counter(o for a, o, _ in code if lo <= a <= hi)
+            if best is None or min(kinds["FADD"], kinds["FMUL"]) > min(best["FADD"], best["FMUL"]):
+                best = kinds
+        if best is not None:
+            found[f"fast_log={bool(int(args.group(1)))} chunk={args.group(2)}"] = {
+                "instructions": sum(best.values()), **{k: best[k] for k in ("FADD", "FMUL", "FFMA", "LDS", "MUFU")}}
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -241,17 +294,34 @@ def phase_kernels() -> None:
     from oracle import oracle_barcode_logits, oracle_mstep
 
     cuda = torch.device("cuda")
-    for n_donors in (1, 2, 32, 65):
+    for n_donors in (1, 2, 32, 33, 65):
         for doublet_prior in (0.0, 0.35):
             args = _estep_tensors(_estep_inputs(n_donors, doublet_prior, seed=n_donors), cuda)
             got = estep_logits(*args)
             want = estep_logits_plain(*args)
             torch.cuda.synchronize()
-            err = compare(f"estep D={n_donors} prior={doublet_prior}", got, want, **LOGITS_TOL)
-            perr = compare(f"estep posteriors D={n_donors} prior={doublet_prior}",
-                           torch.softmax(got, -1), torch.softmax(want, -1), 0.0, POSTERIOR_ATOL)
+            what = f"D={n_donors} prior={doublet_prior}"
+            err = compare(f"estep {what}", got, want, **LOGITS_TOL)
+            perr = compare(f"estep posteriors {what}", torch.softmax(got, -1), torch.softmax(want, -1), 0.0,
+                           POSTERIOR_ATOL)
+            # the fused softmax, without and with prior logits: one launch, logits as the logits-only
+            # call's bits (+ prior), posteriors against the plain logits (+ prior) and torch.softmax
+            prior = torch.from_numpy(np.random.RandomState(n_donors).randn(*got.shape).astype(np.float32)).to(cuda)
+            fused = {}
+            for name, prior_logits in (("fused", None), ("fused_prior", prior)):
+                launches = estep_logits.launches
+                logits, probs = estep_logits(*args, prior_logits=prior_logits, softmax=True)
+                require(estep_logits.launches == launches + 1, f"fused E-step {what}: one launch")
+                want_logits, want_probs = estep_logits_plain(*args, prior_logits=prior_logits, softmax=True)
+                same = got if prior_logits is None else got + prior_logits
+                require(torch.equal(logits, same), f"{name} {what}: logits equal the logits-only call's")
+                fused[name] = compare(f"{name} posteriors {what}", probs, want_probs, 0.0, POSTERIOR_ATOL)
+                compare(f"{name} logits {what}", logits, want_logits, **LOGITS_TOL)
+                row_err = float((probs.sum(dim=1) - 1).abs().max())
+                require(row_err <= 1e-5, f"{name} {what}: rows sum to 1 within {row_err}")
             say("kernels", kernel="estep_logits", n_donors=n_donors, doublet_prior=doublet_prior,
-                n_pg=int(args[1].penalties.shape[0]), max_abs_err=err, posterior_max_abs_err=perr)
+                n_pg=int(args[1].penalties.shape[0]), max_abs_err=err, posterior_max_abs_err=perr,
+                fused_posterior_max_abs_err=fused)
 
     # padding calls (q = 1) after the last barcode's real calls change no bit
     p = _estep_inputs(32, 0.35, seed=7)
@@ -262,16 +332,24 @@ def phase_kernels() -> None:
                   q=np.concatenate([p["q"], np.ones(pad, np.float32)]))
     with_pad = estep_logits(*_estep_tensors(padded, cuda))
     require(torch.equal(base, with_pad), "padding calls must leave the E-step logits bit-equal")
-    say("kernels", kernel="estep_logits", padding_noop="bit-equal", pad_calls=pad)
+    fused = estep_logits(*_estep_tensors(p, cuda), softmax=True)
+    fused_pad = estep_logits(*_estep_tensors(padded, cuda), softmax=True)
+    again = estep_logits(*_estep_tensors(p, cuda), softmax=True)
+    require(all(torch.equal(a, b) for a, b in zip(fused, fused_pad)),
+            "padding calls must leave the fused logits and posteriors bit-equal")
+    require(all(torch.equal(a, b) for a, b in zip(fused, again)), "two fused E-step runs bit-equal")
+    say("kernels", kernel="estep_logits", padding_noop="bit-equal (logits, fused logits and posteriors)",
+        runs="bit-equal", pad_calls=pad)
 
-    # twenty barcodes of ~400 calls each span four staged tiles (128 calls at
-    # D = 32 and 65). Over that many calls the plain version's own f32 sums
-    # drift from float64 by about the posterior bar, so the kernel is held to
-    # the float64 oracle at both bars and to the plain version at the logits bar
+    # twenty barcodes of ~400 calls each span thirteen staged tiles of 32
+    # calls. Over that many calls the plain version's own f32 sums drift from
+    # float64 by about the posterior bar, so the kernel is held to the float64
+    # oracle at both bars and to the plain version at the logits bar
     for n_donors in (32, 65):
         p = _estep_inputs(n_donors, 0.35, seed=11, n_barcodes=60)
         args = _estep_tensors(p, cuda)
         got, want = estep_logits(*args), estep_logits_plain(*args)
+        fused_logits, fused_probs = estep_logits(*args, softmax=True)
         torch.cuda.synchronize()
         ref, _ = oracle_barcode_logits([f"D{i}" for i in range(n_donors)], args[0].cpu().numpy(), p["vid"],
                                        p["cb"], p["q"], p["n_barcodes"], 0.35)
@@ -280,11 +358,14 @@ def phase_kernels() -> None:
         oerr = compare(f"estep across tiles vs oracle D={n_donors}", got, ref, **LOGITS_TOL)
         perr = compare(f"estep across tiles posteriors vs oracle D={n_donors}", torch.softmax(got, -1),
                        torch.softmax(ref, -1), 0.0, POSTERIOR_ATOL)
+        compare(f"fused estep across tiles vs oracle D={n_donors}", fused_logits, ref, **LOGITS_TOL)
+        fused_perr = compare(f"fused estep across tiles posteriors vs oracle D={n_donors}", fused_probs,
+                             torch.softmax(ref, -1), 0.0, POSTERIOR_ATOL)
         plain_perr = float((torch.softmax(want.cpu().double(), -1) - torch.softmax(ref.double(), -1)).abs().max())
         calls = int(np.diff(args[1].row_ptr.cpu().numpy()).max())
         say("kernels", kernel="estep_logits", n_donors=n_donors, max_calls_per_barcode=calls,
             max_abs_err=err, oracle_max_abs_err=oerr, posterior_vs_oracle_max_abs_err=perr,
-            plain_posterior_vs_oracle_max_abs_err=plain_perr)
+            fused_posterior_vs_oracle_max_abs_err=fused_perr, plain_posterior_vs_oracle_max_abs_err=plain_perr)
 
     for n_donors in (1, 32, 65):
         for power in (1.0, 2.0):
@@ -439,6 +520,17 @@ def _time_ms(fn, repeats: int = 10) -> float:
     return start.elapsed_time(end) / repeats
 
 
+@contextlib.contextmanager
+def _log_fold(likelihood_kernel, fast: bool):
+    """The E-step kernel's log fold on the MUFU unit (fast, the default) or through logf."""
+    saved = likelihood_kernel.FAST_LOG
+    likelihood_kernel.FAST_LOG = fast
+    try:
+        yield
+    finally:
+        likelihood_kernel.FAST_LOG = saved
+
+
 def _em_iteration_ms(genotypes, handler, packed, repeats: int = 5, sharded=None) -> float:
     """Per-iteration time of the EM generator in steady state (M + E step), or of ``sharded``'s."""
     from demuxalot_tpu_torch.models.demux import _EMRun
@@ -465,6 +557,7 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
     from demuxalot_tpu_torch import Demultiplexer
     from demuxalot_tpu_torch.models.demux import _Likelihood
     from demuxalot_tpu_torch.ops import likelihood as L
+    from demuxalot_tpu_torch.ops import likelihood_kernel
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
     from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain
     from demuxalot_tpu_torch.utils.profiling import MStepRoofline, Roofline
@@ -489,6 +582,23 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
                        torch.softmax(logits_p, -1), 0.0, POSTERIOR_ATOL)
     mstep_err = compare("bench-shape mstep", mstep_addition(*mstep_args),
                         mstep_addition_plain(*mstep_args), **ADDITION_TOL)
+    # the fused E-step (the EM loop's and predict's call) against the plain
+    # logits + torch.softmax, with its log fold on the MUFU unit (the
+    # default) and through logf
+    probs_p = torch.softmax(logits_p, -1)
+    fused_errors = {}
+    for fast_log in (True, False):
+        with _log_fold(likelihood_kernel, fast_log):
+            fused_logits, fused_probs = estep_logits(*estep_args, softmax=True)
+        name = "fast_log" if fast_log else "logf"
+        fused_errors[name] = {
+            "logits": compare(f"bench-shape fused estep logits ({name})", fused_logits, logits_p, **LOGITS_TOL),
+            "posteriors": compare(f"bench-shape fused estep posteriors ({name})", fused_probs, probs_p, 0.0,
+                                  POSTERIOR_ATOL),
+        }
+        require(torch.equal(fused_probs.argmax(1), probs_p.argmax(1)), f"fused estep ({name}): same argmax")
+        row_err = float((fused_probs.sum(dim=1) - 1).abs().max())
+        require(row_err <= 1e-5, f"fused estep ({name}): rows sum to 1 within {row_err}")
 
     def plain_em_ms() -> float:
         with plain_versions():
@@ -496,6 +606,8 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
 
     runs = {
         "estep": (lambda: estep_logits(*estep_args), lambda: estep_logits_plain(*estep_args)),
+        "estep_softmax": (lambda: estep_logits(*estep_args, softmax=True),
+                          lambda: estep_logits_plain(*estep_args, softmax=True)),
         "mstep": (lambda: mstep_addition(*mstep_args), lambda: mstep_addition_plain(*mstep_args)),
         "em_iteration": (lambda: _em_iteration_ms(genotypes, handler, packed), plain_em_ms),
     }
@@ -513,21 +625,36 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
         }
         say("timing", step=name, card=card, **timings[name])
     say("timing", card=card, max_memory_allocated=torch.cuda.max_memory_allocated(),
-        estep_max_abs_err=estep_err, estep_posterior_max_abs_err=post_err, mstep_max_abs_err=mstep_err)
+        estep_max_abs_err=estep_err, estep_posterior_max_abs_err=post_err, mstep_max_abs_err=mstep_err,
+        fused_estep_max_abs_err=fused_errors)
+    # the epilogue's library call: torch.softmax alone on the bench logits
+    softmax_ms = [_time_ms(lambda: torch.softmax(logits_p, -1)) for _ in range(2)]
+    # the fused E-step's log fold: MUFU log2 (the default) against logf, in turns
+    fold_ms = {"fast_log": [], "logf": []}
+    for fast_log in (True, False, False, True):
+        with _log_fold(likelihood_kernel, fast_log):
+            fold_ms["fast_log" if fast_log else "logf"].append(
+                _time_ms(lambda: estep_logits(*estep_args, softmax=True)))
+    say("timing", step="estep_softmax", card=card, torch_softmax_ms=softmax_ms, log_fold_ms=fold_ms)
+    timings["torch_softmax_ms"] = sum(softmax_ms) / 2
+    timings["log_fold_ms"] = {name: sum(v) / 2 for name, v in fold_ms.items()}
 
     # the least time the card could take for the same two calls (H100 SXM
     # peaks at 700 W; the card's own limit is printed beside them)
     n_calls, n_barcodes, n_variants = int(lik.calls.q_b.shape[0]), handler.n_barcodes, packed.n_variants
+    shape = dict(n_calls=n_calls, n_donors=n_genotypes, n_pseudogenotypes=lik.n_options, n_barcodes=n_barcodes,
+                 n_variants=n_variants)
     bounds = {
-        "estep": Roofline(n_calls=n_calls, n_donors=n_genotypes, n_pseudogenotypes=lik.n_options,
-                          n_barcodes=n_barcodes, n_variants=n_variants),
+        "estep": Roofline(**shape),
+        "estep_softmax": Roofline(**shape, softmax=True),
         "mstep": MStepRoofline(n_calls=n_calls, n_donors=n_genotypes, n_barcodes=n_barcodes, n_variants=n_variants),
     }
     for name, bound in bounds.items():
         say("timing", step=name, card=card, bound_ms=bound.speed_of_light_s() * 1e3, bound_by=bound.bound_by(),
             bytes=bound.bytes_moved(), operations=bound.operations(),
             share_of_bound=bound.speed_of_light_s() * 1e3 / timings[name]["kernel_ms_mean"])
-    return {"timings": timings, "estep_err": estep_err, "mstep_err": mstep_err, "bounds": bounds, "gprob": gprob}
+    return {"timings": timings, "estep_err": estep_err, "mstep_err": mstep_err, "bounds": bounds, "gprob": gprob,
+            "fused_errors": fused_errors}
 
 
 # ---------------------------------------------------------------------------
@@ -1023,15 +1150,15 @@ def phase_sharded(genotypes, handler, packed, truth, main: dict, timing: dict, c
     state = next(run.device_iterations())
     gprob, power = timing["gprob"], float(sharded.contribution_power)
     partials = [mstep_addition(p, o, run.n_genotypes, power) for p, o in zip(state.probs, run.mstep)]
+    # the E-step is the fused call (logits and posteriors), as in the EM loop
     steps = {
-        "estep": lambda: [estep_logits(gprob, o) for o in run.estep],
-        "softmax": lambda: [torch.softmax(block, dim=-1) for block in state.logits],
+        "estep_softmax": lambda: [estep_logits(gprob, o, softmax=True) for o in run.estep],
         "mstep": lambda: [mstep_addition(p, o, run.n_genotypes, power) for p, o in zip(state.probs, run.mstep)],
         "reduce": lambda: run._reduce(partials),
     }
     breakdown = {f"{name}_ms": [_time_ms(step) for _ in range(2)] for name, step in steps.items()}
     say("sharded", stage="steps over 4 shards", card=card, **breakdown,
-        phase5_single_ms={name: timing["timings"][name]["kernel_ms_mean"] for name in ("estep", "mstep")})
+        phase5_single_ms={name: timing["timings"][name]["kernel_ms_mean"] for name in ("estep_softmax", "mstep")})
     iteration["steps"] = breakdown
 
     # (b) two processes on the one card through gloo, 2 shards each, and (c) one
@@ -1084,11 +1211,70 @@ def phase_sharded(genotypes, handler, packed, truth, main: dict, timing: dict, c
     return {"launches": launches, "errors": errors, "iteration": iteration, "children": children}
 
 
+# ---------------------------------------------------------------------------
+# --parent: this tree's E-step beside an older tree's, in turns
+# ---------------------------------------------------------------------------
+
+def estep_ms() -> dict:
+    """The bench-shape E-step and its softmax of the package on sys.path, as its EM loop runs them."""
+    import inspect
+
+    from demuxalot_tpu_torch.models.demux import _Likelihood
+    from demuxalot_tpu_torch.ops import likelihood as L
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+
+    genotypes, handler, packed, _truth = _bench_data()
+    cuda = torch.device("cuda")
+    lik = _Likelihood(packed, handler.n_barcodes, genotypes.genotype_names, DOUBLET_PRIOR, cuda)
+    reindex = packed.reindex
+    betas = torch.from_numpy(reindex.permute_rows(packed.betas_for(genotypes, False))).to(cuda)
+    gprob = L.probs_from_betas(betas, torch.from_numpy(reindex.variant2snp).to(cuda),
+                               int(packed.variant2snp.max()) + 1, 0.01, reindex.windowed_max_per_snp)
+    fused = "softmax" in inspect.signature(estep_logits).parameters
+    if fused:
+        step = lambda: estep_logits(gprob, lik.estep, softmax=True)  # noqa: E731
+    else:
+        step = lambda: torch.softmax(estep_logits(gprob, lik.estep), dim=-1)  # noqa: E731
+    return {"package": str(Path(inspect.getfile(estep_logits)).parents[2]), "fused": fused,
+            "estep_softmax_ms": [_time_ms(step) for _ in range(3)],
+            "estep_ms": [_time_ms(lambda: estep_logits(gprob, lik.estep)) for _ in range(3)]}
+
+
+def compare_with_parent(parent: Path, card: str) -> None:
+    """Each tree's E-step in its own process (one package per process), parent, this, this, parent."""
+    samples = {"parent": [], "this": []}
+    for which in ("parent", "this", "this", "parent"):
+        root = parent if which == "parent" else REPO
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--estep-ms", str(root)],
+                              capture_output=True, text=True, timeout=900)
+        require(proc.returncode == 0, f"E-step timing of {root} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        require(Path(result["package"]).resolve() == root.resolve(), f"{root}: imported {result['package']}")
+        samples[which].append(result)
+        say("parent", tree=which, card=card, **result)
+    mean = lambda key, which: sum(sum(r[key]) / len(r[key]) for r in samples[which]) / 2  # noqa: E731
+    say("parent", card=card, estep_softmax_ms={w: mean("estep_softmax_ms", w) for w in samples},
+        estep_ms={w: mean("estep_ms", w) for w in samples})
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=Path, help="compare this tree's E-step with the one under this directory")
+    parser.add_argument("--estep-ms", type=Path, help=argparse.SUPPRESS)  # a child of --parent
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    if args.estep_ms is not None:
+        print(json.dumps(estep_ms()), flush=True)
+        return 0
     report = phase_device()
+    if args.parent is not None:
+        phase_build()
+        compare_with_parent(args.parent, report["nvidia_smi"])
+        return 0
     card = report["nvidia_smi"]
     phase_build()
     phase_kernels()
@@ -1112,18 +1298,25 @@ def main() -> int:
         roofline = timing["bounds"][step]
         return {"bound_ms": roofline.speed_of_light_s() * 1e3, "bound_by": roofline.bound_by()}
 
-    # no single PyTorch call computes either function, so neither has a library time
+    # no single PyTorch call computes either function, so neither has a library time; the E-step's
+    # epilogue alone is torch.softmax (softmax_library_ms). The E-step's ms is its fused call, logits and
+    # posteriors, as the EM loop and predict make it. Every number here is measured in this run; the
+    # earlier kernel's time is in PERF.md
+    fused = t["estep_softmax"]["kernel_ms_mean"]
     kernels = [
         {"name": "estep_logits", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/likelihood.cu",
          "replaces": "demuxalot_tpu/ops/pallas_likelihood.py:180", **launches("estep_logits"),
          "max_abs_err": timing["estep_err"],
-         "ms": t["estep"]["kernel_ms_mean"], "plain_ms": t["estep"]["plain_ms_mean"], **bound("estep"),
-         "library_ms": None},
+         "posterior_max_abs_err": timing["fused_errors"]["fast_log"]["posteriors"],
+         "ms": fused, "plain_ms": t["estep_softmax"]["plain_ms_mean"], **bound("estep_softmax"),
+         "share_of_bound": bound("estep_softmax")["bound_ms"] / fused, "library_ms": None,
+         "logits_only_ms": t["estep"]["kernel_ms_mean"], "logf_ms": t["log_fold_ms"]["logf"],
+         "softmax_library_ms": t["torch_softmax_ms"]},
         {"name": "mstep_addition", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/mstep.cu",
          "replaces": "demuxalot_tpu/ops/pallas_mstep.py:56", **launches("mstep_addition"),
          "max_abs_err": timing["mstep_err"],
          "ms": t["mstep"]["kernel_ms_mean"], "plain_ms": t["mstep"]["plain_ms_mean"], **bound("mstep"),
-         "library_ms": None},
+         "share_of_bound": bound("mstep")["bound_ms"] / t["mstep"]["kernel_ms_mean"], "library_ms": None},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,6 +34,21 @@ __global__ void check_csr_kernel(const int64_t* __restrict__ row_ptr, int64_t n_
     }
 }
 
+// the E-step schedule, entries of `entry` ints: donor blocks of 4 (quad p,
+// q) in [0, n_blocks), donor blocks of 2 (duo r, s) in [0, 2 n_blocks), then
+// one output column per slot in [-1, n_pg) (-1: unused)
+__global__ void check_schedule_kernel(const int32_t* __restrict__ schedule, int64_t n, int entry, int n_blocks,
+                                      int n_pg) {
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+        const int64_t field = i % entry;
+        const int64_t v = schedule[i];
+        const int64_t lo = field < 4 ? 0 : -1;
+        const int64_t hi = field < 2 ? n_blocks : field < 4 ? 2 * (int64_t)n_blocks : n_pg;
+        if (v < lo || v >= hi) __trap();
+    }
+}
+
 unsigned int blocks_for(int64_t n) {
     const int64_t blocks = (n + kThreads - 1) / kThreads;
     return (unsigned int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
@@ -44,6 +59,15 @@ unsigned int blocks_for(int64_t n) {
 // Host launchers used by likelihood.cu and mstep.cu; each returns cudaGetLastError().
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream) {
     if (n > 0) check_index_kernel<<<blocks_for(n), kThreads, 0, stream>>>(idx, n, limit);
+    return (int)cudaGetLastError();
+}
+
+int demux_check_schedule(const int32_t* schedule, int64_t n_entries, int entry, int n_blocks, int n_pg,
+                         cudaStream_t stream) {
+    if (n_entries > 0) {
+        check_schedule_kernel<<<blocks_for(n_entries), kThreads, 0, stream>>>(schedule, n_entries, entry, n_blocks,
+                                                                               n_pg);
+    }
     return (int)cudaGetLastError();
 }
 

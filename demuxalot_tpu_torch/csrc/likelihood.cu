@@ -1,27 +1,56 @@
-// E-step likelihood kernel for Hopper (sm_90a).
+// E-step likelihood kernel with the row softmax fused, for Hopper (sm_90a).
 //
-// Replaces demuxalot_tpu/ops/pallas_likelihood.py:_likelihood_kernel together
-// with the gather and fold that XLA ran around it (pallas_likelihood.py,
-// tiled_logits_impl). Computes, for every barcode b and pseudogenotype g,
+// Replaces demuxalot_tpu/ops/pallas_likelihood.py:_likelihood_kernel (:180)
+// with its softmax_out epilogue (:317-329), and the gather and fold XLA ran
+// around it (tiled_logits_impl). For every barcode b and pseudogenotype g:
 //
-//   logits[b, g] = pen[g] + sum_{calls c of b} log(0.5 * (U[c, i_g] + U[c, j_g]))
-//   U[c, d]      = G[vid_c, d] * (1 - q_c) + max(q_c, 1e-4)
+//   logits[b, g] = pen[g] + sum_{calls c of b} log(U'[c, i_g] + U'[c, j_g])   (+ prior[b, g])
+//   U'[c, d]     = 0.5 * (G[vid_c, d] * (1 - q_c) + max(q_c, 1e-4))
+//   probs[b, :]  = softmax(logits[b, :])                                       (when probs is given)
 //
-// where (i_g, j_g) is the donor pair of column g (i == j for a singlet, and
-// 0.5 * (x + x) == x exactly). Calls arrive in CSR form sorted by barcode.
+// (i_g, j_g) is column g's donor pair, i == j for a singlet (U' + U' = U).
+// Halving before the add is exact for normal floats, so a column carries the
+// bits of 0.5 * (U_i + U_j). Calls arrive in CSR form sorted by barcode.
 //
-// What bounds it on the H100: the logs (one per 8 calls per column on the
-// MUFU units) and the gathers of G rows. G is [V, D] f32, so each call reads
-// one contiguous D * 4-byte row (128 bytes at D = 32), and at the bench shape
-// G (131,072 x 32 f32 = 16.8 MB) stays resident in the 50 MB L2. The design:
-// one block per barcode; the block stages a tile of its calls' U rows in
-// shared memory once, then every thread walks the tile for its columns, so
-// each G element is read once per call and the doublet expansion is two
-// shared-memory reads and an add. Up to 8 arguments are multiplied before one
-// logf: real arguments are >= 1e-4, so a product of 8 is >= 1e-32 and stays a
-// normal float. Padding calls (q = 1) give U = 1 exactly, and x * 1 == x, so
-// they change no bit of the result when they follow a barcode's real calls.
-// No tensor cores, TF32 or bf16: everything is f32 elementwise arithmetic.
+// What bounds it on the H100: instruction issue and shared-memory loads, at
+// the 4 warps per scheduler that 128 registers a thread allow (capping the
+// registers lower spills, and fewer warps hide less latency; PERF.md). A
+// doublet column needs no matrix product (it is an f32 add), so there is
+// nothing for the tensor cores; at the bench shape (32 donors, 528 columns)
+// the work is 2.2 G (call, column) terms of an add, a multiply and an eighth
+// of a log. The design spends as few instructions and loads per term as it
+// can:
+// - Register-tiled donor pairs. A lane owns a 4 x 4 tile of the pair
+//   triangle (donor blocks p <= q) and a 2 x 2 tile (blocks of 2 donors).
+//   Per call it reads U'[c, 4p..4p+3], U'[c, 4q..4q+3] (two 16-byte shared
+//   loads) and two 8-byte pairs, then updates 20 running products at one
+//   FADD and one FMUL each. The host's schedule (ops/likelihood_kernel.py:
+//   estep_schedule) maps slots to columns: at 32 donors one warp covers all
+//   528 columns in one pass, 20 slots per lane for a mean of 16.5 useful
+//   columns. More donors walk the calls again, one pass per 32 lanes of
+//   tiles. Unused slots have column -1.
+// - The log fold, unrolled: each column multiplies its barcode's arguments
+//   in call order and takes one log per 8 calls. Real arguments are >= 1e-4,
+//   so a product of 8 is >= 1e-32 and stays a normal float. A ragged last
+//   group is padded with rows of U' = 0.5 (argument exactly 1), so the loop
+//   has no counter and no branch, and padding calls (q = 1, argument 1)
+//   change no bit when they follow a barcode's real calls.
+// - One warp per barcode, warps persistent over a static stride of
+//   barcodes, only warp-level synchronisation. Each warp gathers its calls'
+//   G rows (128 bytes at 32 donors) into its own double-buffered ring of
+//   32-call tiles with cp.async, so the next tile arrives while this one is
+//   folded to U' and computed; the fold keeps four rounds of rows in flight.
+//   Hopper's TMA has no row gather, and a call's vid/q run is a few hundred
+//   bytes, so cp.async is the copy.
+// - The softmax epilogue: the warp stages its barcode's row of logits in
+//   shared memory, adds the optional prior, takes the row max and the sum of
+//   exponentials by warp shuffles, and writes logits and probs as coalesced
+//   16-byte stores (4-byte ones when the row width is not a multiple of 4).
+// No integer division runs in a loop. One column's calls are never split
+// across threads and nothing is summed with atomics, so two runs give the
+// same bits and a barcode's logits do not depend on what else is launched.
+// kFastLog takes log2 on the MUFU unit (lg2.approx) in place of logf and
+// scales each column's sum by ln 2 once.
 // The index inputs are bounds-checked by checks.cu's kernels before the
 // launch, so this kernel carries no trap.
 #include <cuda_runtime.h>
@@ -29,90 +58,349 @@
 
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream);
 int demux_check_csr(const int64_t* row_ptr, int64_t n_rows, int64_t n_entries, cudaStream_t stream);
+int demux_check_schedule(const int32_t* schedule, int64_t n_entries, int entry, int n_blocks, int n_pg,
+                         cudaStream_t stream);
 
 namespace {
 
-constexpr int kLogFold = 8;           // arguments multiplied per logf
-constexpr int kMaxThreads = 1024;     // columns a block covers per pass
-constexpr int kSharedFloats = 12288;  // 48 KB of staged U per block
-constexpr int kMaxTileCalls = 128;    // calls staged per tile
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarp = 32;
+constexpr int kTileCalls = 32;        // calls per ring slot
+constexpr int kLogFold = 8;           // arguments multiplied per log
+constexpr int kFoldRounds = 4;        // rounds of the U' fold in flight
+constexpr int kQuadSlots = 16;        // 4 x 4 donors
+constexpr int kSlots = kQuadSlots + 4;  // + 2 x 2 donors
+constexpr int kEntry = 4 + kSlots;    // per (pass, lane): quad p, q, duo r, s, then one column per slot
+constexpr int kMaxWarpsPerBlock = 4;
+constexpr float kLn2 = 0.693147180559945309f;
 
-__global__ void estep_logits_kernel(
-    const float* __restrict__ genotype_prob,  // [n_variants, n_donors]
-    int n_donors,
-    const int64_t* __restrict__ row_ptr,      // [n_barcodes + 1]
-    const int32_t* __restrict__ vid,          // [n_calls], barcode-sorted
-    const float* __restrict__ q,              // [n_calls]
-    const float* __restrict__ penalties,      // [n_pg]
-    const int32_t* __restrict__ col_i,        // [n_pg]
-    const int32_t* __restrict__ col_j,        // [n_pg]
-    int n_pg, int tile_calls,
-    float* __restrict__ logits)               // [n_barcodes, n_pg]
-{
-    extern __shared__ float u[];  // [tile_calls, n_donors]
-    const int64_t b = blockIdx.x;
-    const int64_t lo = row_ptr[b];
-    const int64_t hi = row_ptr[b + 1];
-
-    // columns beyond the block width take further passes over the calls
-    for (int g0 = 0; g0 < n_pg; g0 += blockDim.x) {
-        const int g = g0 + threadIdx.x;
-        const bool active = g < n_pg;
-        const int ci = active ? col_i[g] : 0;
-        const int cj = active ? col_j[g] : 0;
-        float sum = 0.f;
-        float prod = 1.f;
-        int in_prod = 0;
-        for (int64_t t0 = lo; t0 < hi; t0 += tile_calls) {
-            const int64_t left = hi - t0;
-            const int nt = left < tile_calls ? (int)left : tile_calls;
-            __syncthreads();  // the previous tile is consumed
-            for (int k = threadIdx.x; k < nt * n_donors; k += blockDim.x) {
-                const int c = k / n_donors;
-                const int d = k - c * n_donors;
-                const float qc = q[t0 + c];
-                u[k] = genotype_prob[(int64_t)vid[t0 + c] * n_donors + d] * (1.f - qc) + fmaxf(qc, 1e-4f);
-            }
-            __syncthreads();
-            if (active) {
-                for (int c = 0; c < nt; ++c) {
-                    const float* row = u + c * n_donors;
-                    prod *= 0.5f * (row[ci] + row[cj]);
-                    if (++in_prod == kLogFold) {
-                        sum += logf(prod);
-                        prod = 1.f;
-                        in_prod = 0;
-                    }
-                }
-            }
-        }
-        if (active) logits[b * n_pg + g] = penalties[g] + (sum + logf(prod));
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    if constexpr (kBytes == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
     }
 }
 
+// kFastLog: log2 on the MUFU unit (the argument is a normal float, so no
+// denormal handling), the sum scaled by ln 2 once at the end
+template <bool kFastLog>
+__device__ __forceinline__ float log_of(float x) {
+    if constexpr (kFastLog) {
+        float y;
+        asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+        return y;
+    } else {
+        return logf(x);
+    }
+}
+
+// A row-major [rows, per_row] walk spread over the warp: `step` rows per
+// round, this lane's row within the round and its first item in the row.
+struct Walk {
+    int step, sub, first;
+    bool active;
+    __device__ Walk(int per_row, int lane) {
+        if (per_row <= kWarp) {
+            step = kWarp / per_row;
+            sub = lane / per_row;
+            first = lane - sub * per_row;
+        } else {
+            step = 1;
+            sub = 0;
+            first = lane;
+        }
+        active = sub < step;
+    }
+};
+
+template <int W>
+struct Vec {
+    float v[W];
+};
+
+template <int W>
+__device__ __forceinline__ Vec<W> load(const float* p) {
+    Vec<W> r;
+    if constexpr (W == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(p);
+        r.v[0] = t.x; r.v[1] = t.y; r.v[2] = t.z; r.v[3] = t.w;
+    } else {
+        r.v[0] = *p;
+    }
+    return r;
+}
+
+template <int W>
+__device__ __forceinline__ void store(float* p, const Vec<W>& r) {
+    if constexpr (W == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
+    } else {
+        *p = r.v[0];
+    }
+}
+
+// The barcode's staged row → logits (+ prior) and, when probs is given, the
+// row softmax. W floats per lane and store; every pointer is at the row.
+template <int W>
+__device__ void epilogue(float* row, int n_pg, const float* prior, float* logits, float* probs, int lane) {
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int k = W * lane; k < n_pg; k += W * kWarp) {
+        Vec<W> l = load<W>(row + k);
+        if (prior != nullptr) {
+            const Vec<W> p = load<W>(prior + k);
+#pragma unroll
+            for (int i = 0; i < W; ++i) l.v[i] += p.v[i];
+        }
+        store<W>(logits + k, l);
+        store<W>(row + k, l);
+#pragma unroll
+        for (int i = 0; i < W; ++i) m = fmaxf(m, l.v[i]);
+    }
+    if (probs == nullptr) return;
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+    float s = 0.f;
+    for (int k = W * lane; k < n_pg; k += W * kWarp) {
+        Vec<W> e = load<W>(row + k);
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+            e.v[i] = expf(e.v[i] - m);
+            s += e.v[i];
+        }
+        store<W>(row + k, e);
+    }
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+    // one division per row: a division per column takes its slow path for
+    // every subnormal exponential, which most columns of a confident row are
+    const float inv = 1.f / s;
+    for (int k = W * lane; k < n_pg; k += W * kWarp) {
+        Vec<W> e = load<W>(row + k);
+#pragma unroll
+        for (int i = 0; i < W; ++i) e.v[i] *= inv;
+        store<W>(probs + k, e);
+    }
+}
+
+// kChunk: floats per cp.async of a G row (4 when rows are 16-byte aligned)
+template <bool kFastLog, int kChunk>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
+    const float* __restrict__ genotype_prob,  // [n_variants, n_donors]
+    int n_donors, int stride,                 // stride: n_donors rounded up to 4
+    const int64_t* __restrict__ row_ptr,      // [n_barcodes + 1]
+    const int32_t* __restrict__ vid,          // [n_calls], barcode-sorted
+    const float* __restrict__ q,              // [n_calls]
+    int64_t n_barcodes,
+    const float* __restrict__ penalties,      // [n_pg]
+    const int32_t* __restrict__ schedule,     // [n_passes, kWarp, kEntry]
+    int n_passes, int n_pg, int row_floats,   // row_floats: n_pg rounded up to 4
+    const float* __restrict__ prior,          // [n_barcodes, n_pg] or null
+    float* __restrict__ logits,               // [n_barcodes, n_pg]
+    float* __restrict__ probs,                // [n_barcodes, n_pg] or null
+    bool vec_rows)                            // the rows take 16-byte stores
+{
+    extern __shared__ __align__(16) float smem[];
+    const int lane = threadIdx.x & (kWarp - 1);
+    const int warp = threadIdx.x / kWarp;
+    const int tile_floats = kTileCalls * stride;
+    float* ring = smem + (size_t)warp * (2 * tile_floats + row_floats);
+    float* row = ring + 2 * tile_floats;  // the barcode's staged logits
+    const int row_chunks = n_donors / kChunk;
+    const int row_quads = stride / 4;
+    const Walk copy(row_chunks, lane);
+    const Walk fold(row_quads, lane);
+    const int64_t n_warps = (int64_t)gridDim.x * (blockDim.x / kWarp);
+
+    // one tile's calls into lane registers, then their G rows into `buf`
+    auto load_calls = [&](int64_t t, int n, int& v, float& qq) {
+        v = lane < n ? vid[t + lane] : 0;
+        qq = lane < n ? q[t + lane] : 1.f;
+    };
+    auto gather = [&](int n, int v, float* buf) {
+        for (int r0 = 0; r0 < n; r0 += copy.step) {
+            const int r = r0 + copy.sub;
+            const int vr = __shfl_sync(kFull, v, r & (kWarp - 1));
+            if (copy.active && r < n) {
+                const float* src = genotype_prob + (int64_t)vr * n_donors;
+                float* dst = buf + r * stride;
+                for (int k = copy.first; k < row_chunks; k += kWarp) {
+                    cp_async<4 * kChunk>(dst + k * kChunk, src + k * kChunk);
+                }
+            }
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+
+    for (int64_t b = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp; b < n_barcodes; b += n_warps) {
+        const int64_t lo = row_ptr[b];
+        const int64_t hi = row_ptr[b + 1];
+        for (int pass = 0; pass < n_passes; ++pass) {
+            const int32_t* entry = schedule + ((int64_t)pass * kWarp + lane) * kEntry;
+            const int off_a = 4 * entry[0], off_b = 4 * entry[1];
+            const int off_c = 2 * entry[2], off_d = 2 * entry[3];
+            float prod[kSlots], sum[kSlots];
+#pragma unroll
+            for (int s = 0; s < kSlots; ++s) {
+                prod[s] = 1.f;
+                sum[s] = 0.f;
+            }
+            __syncwarp();  // every lane is done with the ring and the row
+            int v_cur = 0;
+            float q_cur = 1.f;
+            int cur = 0;
+            if (lo < hi) {
+                const int n0 = (int)(hi - lo < kTileCalls ? hi - lo : kTileCalls);
+                load_calls(lo, n0, v_cur, q_cur);
+                gather(n0, v_cur, ring);
+            }
+            for (int64_t t0 = lo; t0 < hi; t0 += kTileCalls) {
+                const int nt = (int)(hi - t0 < kTileCalls ? hi - t0 : kTileCalls);
+                float* buf = ring + cur * tile_floats;
+                asm volatile("cp.async.wait_all;\n" ::: "memory");
+                __syncwarp();  // this tile's rows landed; the other slot is free
+                float q_next = 1.f;
+                const int64_t t1 = t0 + kTileCalls;
+                if (t1 < hi) {
+                    const int n1 = (int)(hi - t1 < kTileCalls ? hi - t1 : kTileCalls);
+                    int v_next;
+                    load_calls(t1, n1, v_next, q_next);
+                    gather(n1, v_next, ring + (cur ^ 1) * tile_floats);
+                }
+                // fold G rows into U' in place; rows [nt, rows) and donors
+                // past n_donors become 0.5, an argument of exactly 1
+                const int rows = (nt + kLogFold - 1) & ~(kLogFold - 1);
+                // kFoldRounds rounds at a time, all loads before all stores, so
+                // their shared-memory latencies overlap
+                for (int r0 = 0; r0 < rows; r0 += kFoldRounds * fold.step) {
+                    int r[kFoldRounds];
+                    float w[kFoldRounds], floor_q[kFoldRounds];
+#pragma unroll
+                    for (int u = 0; u < kFoldRounds; ++u) {
+                        r[u] = r0 + u * fold.step + fold.sub;
+                        const float qr = __shfl_sync(kFull, q_cur, r[u] & (kWarp - 1));
+                        w[u] = 1.f - qr;
+                        floor_q[u] = fmaxf(qr, 1e-4f);
+                    }
+                    for (int k = fold.first; k < row_quads; k += kWarp) {
+                        float4 g[kFoldRounds];
+#pragma unroll
+                        for (int u = 0; u < kFoldRounds; ++u) {
+                            if (fold.active && r[u] < rows) g[u] = reinterpret_cast<const float4*>(buf + r[u] * stride)[k];
+                        }
+                        const int d = 4 * k;
+#pragma unroll
+                        for (int u = 0; u < kFoldRounds; ++u) {
+                            if (!fold.active || r[u] >= rows) continue;
+                            const bool real = r[u] < nt;  // with kChunk 4, n_donors is a multiple of 4
+                            float4 v = g[u];
+                            v.x = real && (kChunk == 4 || d < n_donors) ? 0.5f * (v.x * w[u] + floor_q[u]) : 0.5f;
+                            v.y = real && (kChunk == 4 || d + 1 < n_donors) ? 0.5f * (v.y * w[u] + floor_q[u]) : 0.5f;
+                            v.z = real && (kChunk == 4 || d + 2 < n_donors) ? 0.5f * (v.z * w[u] + floor_q[u]) : 0.5f;
+                            v.w = real && (kChunk == 4 || d + 3 < n_donors) ? 0.5f * (v.w * w[u] + floor_q[u]) : 0.5f;
+                            reinterpret_cast<float4*>(buf + r[u] * stride)[k] = v;
+                        }
+                    }
+                }
+                __syncwarp();
+                for (int r = 0; r < rows; r += kLogFold) {
+#pragma unroll
+                    for (int c = 0; c < kLogFold; ++c) {
+                        const float* u = buf + (r + c) * stride;
+                        const float4 a = *reinterpret_cast<const float4*>(u + off_a);
+                        const float4 e = *reinterpret_cast<const float4*>(u + off_b);
+                        const float2 x = *reinterpret_cast<const float2*>(u + off_c);
+                        const float2 y = *reinterpret_cast<const float2*>(u + off_d);
+                        const float av[4] = {a.x, a.y, a.z, a.w};
+                        const float ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                            for (int j = 0; j < 4; ++j) prod[4 * i + j] *= av[i] + ev[j];
+                        }
+                        prod[kQuadSlots + 0] *= x.x + y.x;
+                        prod[kQuadSlots + 1] *= x.x + y.y;
+                        prod[kQuadSlots + 2] *= x.y + y.x;
+                        prod[kQuadSlots + 3] *= x.y + y.y;
+                    }
+#pragma unroll
+                    for (int s = 0; s < kSlots; ++s) {
+                        sum[s] += log_of<kFastLog>(prod[s]);
+                        prod[s] = 1.f;
+                    }
+                }
+                q_cur = q_next;
+                cur ^= 1;
+            }
+            // every group ended in a log, so prod is 1 and pen + (sum + log 1) is pen + sum
+#pragma unroll
+            for (int s = 0; s < kSlots; ++s) {
+                const int g = entry[4 + s];
+                if (g >= 0) row[g] = penalties[g] + (kFastLog ? sum[s] * kLn2 : sum[s]);
+            }
+        }
+        __syncwarp();
+        const int64_t at = b * (int64_t)n_pg;
+        const float* prior_row = prior != nullptr ? prior + at : nullptr;
+        float* probs_row = probs != nullptr ? probs + at : nullptr;
+        if (vec_rows) {
+            epilogue<4>(row, n_pg, prior_row, logits + at, probs_row, lane);
+        } else {
+            epilogue<1>(row, n_pg, prior_row, logits + at, probs_row, lane);
+        }
+    }
+}
+
+using Kernel = decltype(&estep_kernel<false, 4>);
+
+bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
+// prior_logits and probs may be null; fast_log != 0 takes __logf
 extern "C" int demux_estep_logits(
     const float* genotype_prob, int64_t n_variants, int n_donors,
     const int64_t* row_ptr, int64_t n_calls, const int32_t* vid, const float* q, int64_t n_barcodes,
-    const float* penalties, const int32_t* col_i, const int32_t* col_j, int n_pg,
-    float* logits, void* stream)
+    const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
+    const float* prior_logits, float* logits, float* probs, int fast_log, void* stream)
 {
-    if (n_barcodes <= 0 || n_pg <= 0 || n_donors <= 0) return (int)cudaErrorInvalidValue;
-    const int passes = (n_pg + kMaxThreads - 1) / kMaxThreads;
-    const int per_pass = (n_pg + passes - 1) / passes;
-    const int threads = ((per_pass + 31) / 32) * 32;
-    int tile_calls = kSharedFloats / n_donors;
-    if (tile_calls > kMaxTileCalls) tile_calls = kMaxTileCalls;
-    if (tile_calls < 1) return (int)cudaErrorInvalidValue;  // n_donors > kSharedFloats
-    const size_t shared = (size_t)tile_calls * n_donors * sizeof(float);
+    if (n_barcodes <= 0 || n_pg <= 0 || n_donors <= 0 || n_passes <= 0) return (int)cudaErrorInvalidValue;
+    const int n_blocks = (n_donors + 3) / 4;
+    const int stride = 4 * n_blocks;
+    const int row_floats = (n_pg + 3) & ~3;
+    const size_t warp_bytes = ((size_t)2 * kTileCalls * stride + row_floats) * sizeof(float);
+    int device, optin, n_sms, status;
+    if ((status = cudaGetDevice(&device)) != 0) return status;
+    if ((status = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != 0) return status;
+    if ((status = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, device)) != 0) return status;
+    const size_t fit = (size_t)optin / warp_bytes;  // the ring and the row must fit in shared memory
+    if (fit < 1) return (int)cudaErrorInvalidValue;
+    const int warps = (int)(fit < (size_t)kMaxWarpsPerBlock ? fit : kMaxWarpsPerBlock);
+    const size_t shared = warps * warp_bytes;
+
     cudaStream_t s = (cudaStream_t)stream;
-    int status;
     if ((status = demux_check_csr(row_ptr, n_barcodes, n_calls, s)) != 0) return status;
     if ((status = demux_check_index(vid, n_calls, n_variants, s)) != 0) return status;
-    if ((status = demux_check_index(col_i, n_pg, n_donors, s)) != 0) return status;
-    if ((status = demux_check_index(col_j, n_pg, n_donors, s)) != 0) return status;
-    estep_logits_kernel<<<(unsigned int)n_barcodes, threads, shared, s>>>(
-        genotype_prob, n_donors, row_ptr, vid, q, penalties, col_i, col_j, n_pg, tile_calls, logits);
+    if ((status = demux_check_schedule(schedule, (int64_t)n_passes * kWarp * kEntry, kEntry, n_blocks, n_pg, s)) != 0)
+        return status;
+
+    const bool rows16 = n_donors % 4 == 0 && aligned16(genotype_prob);
+    const Kernel kernel = fast_log ? (rows16 ? estep_kernel<true, 4> : estep_kernel<true, 1>)
+                                   : (rows16 ? estep_kernel<false, 4> : estep_kernel<false, 1>);
+    if ((status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared)) != 0)
+        return status;
+    int per_sm = 0;
+    if ((status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * kWarp, shared)) != 0)
+        return status;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const int64_t wanted = (n_barcodes + warps - 1) / warps;
+    const int64_t resident = (int64_t)per_sm * n_sms;
+    const unsigned int grid = (unsigned int)(wanted < resident ? wanted : resident);
+    const bool vec_rows = n_pg % 4 == 0 && aligned16(prior_logits) && aligned16(logits) && aligned16(probs);
+    kernel<<<grid, warps * kWarp, shared, s>>>(
+        genotype_prob, n_donors, stride, row_ptr, vid, q, n_barcodes, penalties, schedule, n_passes, n_pg,
+        row_floats, prior_logits, logits, probs, vec_rows);
     return (int)cudaGetLastError();
 }

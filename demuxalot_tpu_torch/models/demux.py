@@ -5,10 +5,11 @@ call tables once; they go to the device in the two CSR orders the kernels
 read, and every EM iteration then runs on the device:
 
 1. normalise betas into genotype probabilities (``ops.likelihood.probs_from_betas``);
-2. the E-step likelihood kernel (``ops.likelihood_kernel.estep_logits``);
-3. the row softmax;
-4. the M-step kernel (``ops.mstep_kernel.mstep_addition``);
-5. the optional anchor mask.
+2. the E-step likelihood kernel with the row softmax fused
+   (``ops.likelihood_kernel.estep_logits``, ``softmax=True``; iteration 0
+   adds the prior logits inside the same launch);
+3. the M-step kernel (``ops.mstep_kernel.mstep_addition``);
+4. the optional anchor mask.
 
 The EM state is variant-major [V, D]: a call's genotype row is then one
 contiguous read in the E-step and the M-step writes whole variant rows.
@@ -302,12 +303,22 @@ class _Likelihood:
     def tensors(self) -> list:
         """Every device tensor the E-step and M-step read."""
         groups = self.snp_groups.tensors() if self.snp_groups is not None else ()
-        return [*self.calls, self.estep.penalties, self.estep.col_i, self.estep.col_j, self.estep.mixing, *groups]
+        return [*self.calls, self.estep.penalties, self.estep.schedule, self.estep.mixing, *groups]
 
     def logits(self, genotype_prob: torch.Tensor) -> torch.Tensor:
         if self.snp_groups is not None:
             return self.snp_groups.logits(genotype_prob, self.estep.mixing, self.n_barcodes)
         return estep_logits(genotype_prob, self.estep)
+
+    def posteriors(self, genotype_prob: torch.Tensor,
+                   prior_logits: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits + prior_logits, their row softmax): one fused kernel launch on the kernel path."""
+        if self.snp_groups is None:
+            return estep_logits(genotype_prob, self.estep, prior_logits=prior_logits, softmax=True)
+        logits = self.logits(genotype_prob)
+        if prior_logits is not None:
+            logits = logits + prior_logits
+        return logits, torch.softmax(logits, dim=-1)
 
     def addition(self, probs: torch.Tensor, n_genotypes: int) -> torch.Tensor:
         return mstep_addition(probs, self.mstep, n_genotypes, float(Demultiplexer.contribution_power))
@@ -401,10 +412,8 @@ class _EMRun:
                 self.prior_betas_dev + addition, self.variant2snp, self.n_snps,
                 self.p_genotype_clip, max_per_snp=self.max_per_snp,
             )
-            logits = self.likelihood.logits(genotype_prob)
-            if iteration == 0 and self.prior_logits is not None:
-                logits = logits + self.prior_logits
-            probs = torch.softmax(logits, dim=-1)
+            logits, probs = self.likelihood.posteriors(
+                genotype_prob, self.prior_logits if iteration == 0 else None)
             yield EMState(probs, logits, addition)
             if iteration == self.n_iterations - 1:
                 break
@@ -662,8 +671,9 @@ class Demultiplexer:
         barcode_handler: BarcodeHandler,
         p_genotype_clip: float,
         doublet_prior: float,
-    ) -> Tuple[torch.Tensor, List[str]]:
-        """The posterior forward: (logits on the device, column names)."""
+        softmax: bool = False,
+    ) -> Tuple[object, List[str]]:
+        """The posterior forward: (logits on the device, or (logits, probs) with ``softmax``; column names)."""
         device = resolve_device(Demultiplexer.device)
         timings = STAGE_TIMINGS
         t_mark = time.perf_counter()
@@ -686,11 +696,11 @@ class Demultiplexer:
         genotype_prob = L.probs_from_betas(
             betas, variant2snp, n_snps, p_genotype_clip, max_per_snp=reindex.windowed_max_per_snp,
         )
-        logits = likelihood.logits(genotype_prob)
+        out = likelihood.posteriors(genotype_prob) if softmax else likelihood.logits(genotype_prob)
         if timings is not None:
-            _flush_device([logits])
+            _flush_device(out if softmax else [out])
         _stage_mark(timings, "forward_s", t_mark)
-        return logits, likelihood.column_names
+        return out, likelihood.column_names
 
     @staticmethod
     def predict_posteriors_core(
@@ -701,10 +711,11 @@ class Demultiplexer:
         doublet_prior: float = 0.35,
     ) -> Tuple[torch.Tensor, torch.Tensor, List[str]]:
         """Posterior inference without data frames: (logits, probs, column names)."""
-        logits, column_names = Demultiplexer._predict_logits(
+        (logits, probs), column_names = Demultiplexer._predict_logits(
             chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip, doublet_prior,
+            softmax=True,
         )
-        return logits, torch.softmax(logits, dim=-1), column_names
+        return logits, probs, column_names
 
     # -- public API ---------------------------------------------------------
     @staticmethod

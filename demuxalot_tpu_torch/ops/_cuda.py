@@ -41,8 +41,9 @@ _SIGNATURES = {
     "demux_estep_logits": (
         _vp, _i64, _i32,  # genotype_prob, n_variants, n_donors
         _vp, _i64, _vp, _vp, _i64,  # row_ptr, n_calls, vid, q, n_barcodes
-        _vp, _vp, _vp, _i32,  # penalties, col_i, col_j, n_pg
-        _vp, _vp,  # logits, stream
+        _vp, _vp, _i32, _i32,  # penalties, schedule, n_passes, n_pg
+        _vp, _vp, _vp,  # prior_logits (or null), logits, probs (or null)
+        _i32, _vp,  # fast_log, stream
     ),
     "demux_mstep_addition": (
         _vp, _i64, _i32, _i32,  # posterior, n_barcodes, n_pg, n_donors

@@ -11,14 +11,15 @@ before results leave the engine. Genotype tables are replicated, once per
 distinct device.
 
 One EM iteration runs, per shard, ``probs_from_betas`` on its device's
-copy of betas + addition, the E-step kernel (``estep_logits``), the
-softmax and the M-step kernel (``mstep_addition``) into a [V, D] partial.
+copy of betas + addition, the E-step kernel with its fused softmax
+(``estep_logits``, ``softmax=True``) and the M-step kernel
+(``mstep_addition``) into a [V, D] partial.
 The partials are then summed once, the counterpart of the JAX engine's
 psum: within a process in shard order on the first shard's device (no
 atomics, a fixed order), across processes by ``all_reduce(SUM)``. The
 anchor mask multiplies the sum, which is then copied to every shard device.
 
-Each barcode's E-step is one kernel block over that barcode's calls in
+Each barcode's E-step is one kernel warp over that barcode's calls in
 order, so the first E-step of an EM (addition 0) and every predict give
 the single-device engine's logits bit for bit on the same device. After an
 M-step the partial sums differ from one sequential per-variant sum in
@@ -176,8 +177,9 @@ class ShardedDemultiplexer:
 
     # -- the forward ---------------------------------------------------------
     def _forward(self, chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip: float,
-                 doublet_prior: float) -> Tuple[List[torch.Tensor], List[str]]:
-        """Predict logits of this process's shards (padded rows included) and column names."""
+                 doublet_prior: float, softmax: bool = False) -> Tuple[list, List[str]]:
+        """Predict logits of this process's shards (padded rows included), or (logits, probs) per shard
+        with ``softmax``, and column names."""
         _refuse_aggregate()
         timings = _dm.STAGE_TIMINGS
         t_mark = time.perf_counter()
@@ -196,7 +198,7 @@ class ShardedDemultiplexer:
         if timings is not None:
             timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _dm._flush_device([
                 *betas.values(), *variant2snp.values(), *(t for s in shards for t in s[1:]),
-                *(t for o in operands for t in o[:4])])
+                *(t for o in operands for t in o[:3])])
             t_mark = _dm._stage_mark(timings, "upload_flush_s", t_mark)
         n_snps = int(packed.variant2snp.max()) + 1 if n_variants else 0
         genotype_prob = {
@@ -204,19 +206,20 @@ class ShardedDemultiplexer:
                                        max_per_snp=reindex.windowed_max_per_snp)
             for device in betas
         }
-        logits = [estep_logits(genotype_prob[s.device], o) for s, o in zip(shards, operands)]
+        out = [estep_logits(genotype_prob[s.device], o, softmax=softmax) for s, o in zip(shards, operands)]
         if timings is not None:
-            _dm._flush_device(logits)
+            _dm._flush_device([t for block in out for t in (block if softmax else [block])])
         _dm._stage_mark(timings, "forward_s", t_mark)
-        return logits, L.pseudogenotype_names(genotypes.genotype_names, doublet_prior)
+        return out, L.pseudogenotype_names(genotypes.genotype_names, doublet_prior)
 
     # -- public API ----------------------------------------------------------
     def predict_posteriors(self, chromosome2compressed_snp_calls, genotypes, barcode_handler,
                            p_genotype_clip: float = 0.01, doublet_prior: float = 0.35):
         """(logits_df, probs_df) as ``Demultiplexer.predict_posteriors`` gives them."""
-        logits, column_names = self._forward(
-            chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip, doublet_prior)
-        probs = [torch.softmax(block, dim=-1) for block in logits]
+        blocks, column_names = self._forward(
+            chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip, doublet_prior,
+            softmax=True)
+        logits, probs = [block[0] for block in blocks], [block[1] for block in blocks]
         timings = _dm.STAGE_TIMINGS
         n_barcodes = barcode_handler.n_barcodes
         t_mark = time.perf_counter()
@@ -382,7 +385,7 @@ class _ShardedEM:
             timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _dm._flush_device([
                 *self.prior_betas_dev.values(), *self.variant2snp.values(), self.anchor_mask,
                 *(self.prior_logits or ()), *(t for s in self.shards for t in s[1:]),
-                *(t for o in self.mstep for t in o), *(t for o in self.estep for t in o[:4])])
+                *(t for o in self.mstep for t in o), *(t for o in self.estep for t in o[:3])])
             _dm._stage_mark(timings, "upload_flush_s", t_mark)
 
     def _reduce(self, partials: List[torch.Tensor]) -> dict:
@@ -408,10 +411,12 @@ class _ShardedEM:
                                            max_per_snp=self.reindex.windowed_max_per_snp)
                 for device in self.devices
             }
-            logits = [estep_logits(genotype_prob[s.device], o) for s, o in zip(self.shards, self.estep)]
+            priors = [None] * len(self.shards)
             if iteration == 0 and self.prior_logits is not None:
-                logits = [block + prior for block, prior in zip(logits, self.prior_logits)]
-            probs = [torch.softmax(block, dim=-1) for block in logits]
+                priors = self.prior_logits
+            blocks = [estep_logits(genotype_prob[s.device], o, prior_logits=prior, softmax=True)
+                      for s, o, prior in zip(self.shards, self.estep, priors)]
+            logits, probs = [block[0] for block in blocks], [block[1] for block in blocks]
             yield _ShardedState(probs, logits, addition[self.devices[0]])
             if iteration == self.n_iterations - 1:
                 break

@@ -75,12 +75,17 @@ class Roofline(_Bound):
     """Speed of light of the E-step likelihood kernel (``csrc/likelihood.cu``).
 
     Bytes: every call's variant id and ``q`` (4 + 4), the barcode row
-    pointers (8 per barcode), the genotype table (4·V·D), the column pairs
-    and penalties (12 per column) and the logits written once (4·B·PG).
-    Operations per call: per pseudogenotype the mean of two donor terms
-    (add, multiply), the running product (multiply) and a share of the log
-    and the sum (counted as one); per donor the term
+    pointers (8 per barcode), the genotype table (4·V·D), the column
+    schedule and penalties (counted as 12 per column) and the logits
+    written once (4·B·PG). Operations per call: per pseudogenotype the mean
+    of two donor terms (add, multiply), the running product (multiply) and
+    a share of the log and the sum (counted as one); per donor the term
     ``G·(1−q) + max(q, 1e-4)`` (multiply, add, max).
+
+    ``softmax``: the fused row softmax also writes the probs (4·B·PG bytes)
+    and per (barcode, column) takes the max, the difference, the exponential,
+    the sum and the division (5 operations). ``prior``: the prior logits are
+    read (4·B·PG bytes) and added (1 operation per (barcode, column)).
     """
 
     n_calls: int
@@ -88,15 +93,20 @@ class Roofline(_Bound):
     n_pseudogenotypes: int
     n_barcodes: int = 0
     n_variants: int = 0
+    softmax: bool = False
+    prior: bool = False
     hbm_bytes_per_s: float = H100_HBM_BYTES_PER_S
     f32_flops_per_s: float = H100_FP32_FLOPS_PER_S
 
     def bytes_moved(self) -> int:
         n, d, pg, b, v = self.n_calls, self.n_donors, self.n_pseudogenotypes, self.n_barcodes, self.n_variants
-        return 8 * n + 8 * (b + 1) + 4 * v * d + 12 * pg + 4 * b * pg
+        rows = 1 + self.softmax + self.prior  # [B, PG] arrays: logits, probs, prior
+        return 8 * n + 8 * (b + 1) + 4 * v * d + 12 * pg + 4 * b * pg * rows
 
     def operations(self) -> int:
-        return self.n_calls * (4 * self.n_pseudogenotypes + 3 * self.n_donors)
+        per_cell = 5 * self.softmax + self.prior  # per (barcode, column)
+        pg = self.n_pseudogenotypes
+        return self.n_calls * (4 * pg + 3 * self.n_donors) + per_cell * self.n_barcodes * pg
 
 
 @dataclass

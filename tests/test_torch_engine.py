@@ -127,6 +127,33 @@ def test_learn_genotypes_matches_jax(dataset, priorless_dataset, priors, jax_pat
         np.testing.assert_array_equal(learnt.get_betas()[zero_rows], 0.0)
 
 
+def test_learn_with_prior_logits_runs_the_fused_estep(dataset, monkeypatch):
+    """Each EM iteration is one fused E-step call (logits, posteriors); iteration 0 passes the prior logits
+    into it. The result meets the JAX engine at the learn test's bars."""
+    from demuxalot_tpu_torch.models import demux
+
+    calls, genotypes, handler = dataset["port"]
+    kwargs = _learn_kwargs("prior-logits", handler, len(genotypes.genotype_names))
+    seen = []
+    fused = demux._Likelihood.posteriors
+
+    def recording(self, genotype_prob, prior_logits=None):
+        seen.append(prior_logits)
+        return fused(self, genotype_prob, prior_logits)
+
+    monkeypatch.setattr(demux._Likelihood, "posteriors", recording)
+    learnt, probs = Demultiplexer.learn_genotypes(calls, genotypes, handler, n_iterations=3, **kwargs)
+    assert len(seen) == 3 and seen[1] is None and seen[2] is None
+    np.testing.assert_array_equal(seen[0].numpy(), kwargs["barcode_prior_logits"])
+    jax_calls, jax_genotypes, jax_handler = dataset["jax"]
+    jax_learnt, jax_probs = _jax_run(False, lambda: JaxDemultiplexer.learn_genotypes(
+        jax_calls, jax_genotypes, jax_handler, n_iterations=3, **kwargs,
+    ))
+    np.testing.assert_allclose(probs.values, jax_probs.values, atol=1e-5)
+    np.testing.assert_array_equal(probs.values.argmax(1), jax_probs.values.argmax(1))
+    np.testing.assert_allclose(learnt.get_betas(), jax_learnt.get_betas(), rtol=1e-4, atol=1e-2)
+
+
 @pytest.mark.parametrize("jax_path", ["xla", "pallas"])
 @pytest.mark.parametrize("doublet_prior", [0.25, 0.35])
 def test_predict_posteriors_matches_jax(dataset, jax_path, doublet_prior):

@@ -20,6 +20,7 @@ import torch
 
 from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, sim
 from demuxalot_tpu_torch.models import demux
+from demuxalot_tpu_torch.ops import likelihood_kernel
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
 from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain
 from oracle import oracle_barcode_logits
@@ -50,7 +51,7 @@ def test_gpu_estep_kernel_matches_plain(n_donors, doublet_prior):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_donors", [32, 65])
 def test_gpu_estep_kernel_across_tiles(n_donors):
-    """Barcodes of ~375 calls each span several staged tiles (128 calls at these D).
+    """Barcodes of ~375 calls each span several staged tiles (32 calls each).
 
     Over that many calls the plain version's own f32 sums drift from float64
     by about the posterior bar, so the kernel is held to the float64 oracle
@@ -73,14 +74,93 @@ def test_gpu_estep_kernel_across_tiles(n_donors):
 
 @pytest.mark.gpu
 def test_gpu_estep_padding_is_bit_exact():
+    """Padding calls after the last barcode's calls change no bit of the logits nor of the fused probs."""
     _need_card()
     gprob, vid, cb, q, n_barcodes, n_donors, prior = estep_problem(n_donors=32)
-    base = estep_logits(*estep_args((gprob, vid, cb, q, n_barcodes, n_donors, prior), "cuda"))
+    args = estep_args((gprob, vid, cb, q, n_barcodes, n_donors, prior), "cuda")
+    base = estep_logits(*args)
     pad = 777
     padded = (gprob, np.concatenate([vid, np.zeros(pad, np.int32)]),
               np.concatenate([cb, np.full(pad, cb[-1], np.int32)]),
               np.concatenate([q, np.ones(pad, np.float32)]), n_barcodes, n_donors, prior)
-    assert torch.equal(base, estep_logits(*estep_args(padded, "cuda")))
+    padded_args = estep_args(padded, "cuda")
+    assert torch.equal(base, estep_logits(*padded_args))
+    for got, want in zip(estep_logits(*padded_args, softmax=True), estep_logits(*args, softmax=True)):
+        assert torch.equal(got, want)
+
+
+@contextlib.contextmanager
+def _log(fast: bool):
+    """The kernel's log fold on the MUFU unit (fast) or through logf."""
+    saved = likelihood_kernel.FAST_LOG
+    likelihood_kernel.FAST_LOG = fast
+    try:
+        yield
+    finally:
+        likelihood_kernel.FAST_LOG = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fast_log", [True, False])
+@pytest.mark.parametrize("n_donors", [1, 2, 32, 33, 65])
+@pytest.mark.parametrize("doublet_prior", [0.0, 0.35])
+def test_gpu_fused_estep_matches_plain(n_donors, doublet_prior, fast_log):
+    """softmax=True: one launch; logits as the logits-only call's bits, posteriors at 3e-5 from the plain
+    version's logits + torch.softmax."""
+    _need_card()
+    args = estep_args(estep_problem(n_donors=n_donors, doublet_prior=doublet_prior), "cuda")
+    with _log(fast_log):
+        launches = estep_logits.launches
+        logits, probs = estep_logits(*args, softmax=True)
+        assert estep_logits.launches == launches + 1
+        assert torch.equal(logits, estep_logits(*args))
+    want_logits, want_probs = estep_logits_plain(*args, softmax=True)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(logits.cpu().numpy(), want_logits.cpu().numpy(), rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(probs.cpu().numpy(), want_probs.cpu().numpy(), atol=3e-5)
+    assert float((probs.sum(dim=1) - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fast_log", [True, False])
+@pytest.mark.parametrize("n_donors", [32, 65])
+def test_gpu_fused_estep_across_tiles_matches_oracle(n_donors, fast_log):
+    """Barcodes of ~375 calls span twelve 32-call tiles: held to the float64 oracle at both bars."""
+    _need_card()
+    problem = estep_problem(n_donors=n_donors, n_barcodes=16, n_calls=6000)
+    gprob, vid, cb, q, n_barcodes, _, prior = problem
+    with _log(fast_log):
+        logits, probs = estep_logits(*estep_args(problem, "cuda"), softmax=True)
+    torch.cuda.synchronize()
+    ref, _ = oracle_barcode_logits([f"D{i}" for i in range(n_donors)], gprob, vid, cb, q, n_barcodes, prior)
+    np.testing.assert_allclose(logits.cpu().numpy(), ref, rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(probs.cpu().numpy(), torch.softmax(torch.from_numpy(ref), -1).numpy(), atol=3e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_donors", [2, 32])
+def test_gpu_fused_estep_with_prior_logits(n_donors):
+    """prior_logits enter before the softmax: the logits are the plain logits + prior at the bars, and the
+    kernel's own logits-only call + prior bit for bit."""
+    _need_card()
+    args = estep_args(estep_problem(n_donors=n_donors), "cuda")
+    n_pg = args[1].penalties.shape[0]
+    prior = torch.from_numpy(np.random.RandomState(2).randn(args[1].n_barcodes, n_pg).astype(np.float32)).cuda()
+    logits, probs = estep_logits(*args, prior_logits=prior, softmax=True)
+    assert torch.equal(logits, estep_logits(*args) + prior)
+    want_logits, want_probs = estep_logits_plain(*args, prior_logits=prior, softmax=True)
+    np.testing.assert_allclose(logits.cpu().numpy(), want_logits.cpu().numpy(), rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(probs.cpu().numpy(), want_probs.cpu().numpy(), atol=3e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_fused_estep_runs_are_bit_equal():
+    """Each barcode's columns are one warp's in-order sums: two runs give the same bits."""
+    _need_card()
+    args = estep_args(estep_problem(n_donors=32, n_barcodes=400, n_calls=30000), "cuda")
+    first = estep_logits(*args, softmax=True)
+    second = estep_logits(*args, softmax=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu

@@ -3,17 +3,19 @@
 On the CPU each kernel wrapper runs its plain PyTorch version; that is
 compared with the TPU kernel it replaces, run by JAX in interpret mode as
 tests/test_pallas_kernel.py runs it (logits rtol=1e-4, atol=5e-3 as the
-Pallas kernel is held to the oracle; additions rtol=1e-4, atol=1e-5).
+Pallas kernel is held to the oracle; posteriors atol=3e-5, the bar the
+TPU kernel met against full f32; additions rtol=1e-4, atol=1e-5).
 The CUDA kernels against the plain versions on a card are in
 tests/test_torch_gpu.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from demuxalot_tpu.ops import likelihood as JL
-from demuxalot_tpu.ops.pallas_likelihood import barcode_logits_tiled
+from demuxalot_tpu.ops.pallas_likelihood import TiledDeviceCalls, barcode_logits_tiled, tiled_logits_impl
 from demuxalot_tpu.ops.pallas_mstep import TiledMstepCalls
 from demuxalot_tpu.ops.tiling import tile_barcode_calls
 from demuxalot_tpu_torch.ops import likelihood as TL
@@ -32,6 +34,30 @@ def _pallas_logits(problem):
     penalties = JL.doublet_penalties(n_donors, doublet_prior)
     tiled = tile_barcode_calls(cb, vid, q, n_barcodes, tile_barcodes=16, chunk_calls=128)
     return np.asarray(barcode_logits_tiled(jnp.asarray(gprob), mixing, penalties, tiled, interpret=True))
+
+
+def _pallas_fused(problem):
+    """(logits, probs) of the TPU kernel with its in-kernel softmax (softmax_out=True), interpret mode,
+    called as tests/test_pallas_kernel.py calls it."""
+    gprob, vid, cb, q, n_barcodes, n_donors, doublet_prior = problem
+    mixing, _ = JL.pseudogenotype_mixing([f"Donor{i:02}" for i in range(n_donors)], doublet_prior)
+    penalties = JL.doublet_penalties(n_donors, doublet_prior)
+    tiled = tile_barcode_calls(cb, vid, q, n_barcodes, tile_barcodes=16, chunk_calls=128)
+    dev = TiledDeviceCalls(mixing, penalties, tiled)
+    n_pg = mixing.shape[1]
+    logits, probs = tiled_logits_impl(
+        jnp.asarray(gprob), dev.mixing_sl, dev.penalties_p, dev.vid, dev.seg_group, dev.q, dev.chunk_bounds,
+        dev.chunk_suboff, n_super=dev.n_super, tbs=dev.tbs, tb=dev.tile_barcodes, tc=dev.chunk_calls,
+        band_specs=dev.band_specs, interpret=True, softmax_out=True, n_pseudogenotypes=n_pg,
+    )
+    return np.asarray(logits)[:n_barcodes, :n_pg], np.asarray(probs)[:n_barcodes, :n_pg]
+
+
+def _assert_fused_matches(logits, probs, want_logits, want_probs):
+    """Logits at the oracle tolerance, posteriors at the TPU kernel's 3e-5 bar, rows summing to 1."""
+    np.testing.assert_allclose(logits, want_logits, rtol=1e-4, atol=5e-3)
+    np.testing.assert_allclose(probs, want_probs, rtol=0, atol=3e-5)
+    np.testing.assert_allclose(probs.sum(axis=1), 1.0, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("n_donors", [2, 8])
@@ -59,6 +85,54 @@ def test_estep_empty_barcodes_get_penalties():
     assert len(empty) > 0
     penalties = args[1].penalties.numpy()
     np.testing.assert_array_equal(ours[empty], np.broadcast_to(penalties, (len(empty), len(penalties))))
+
+
+@pytest.mark.parametrize("n_donors", [2, 8])
+@pytest.mark.parametrize("doublet_prior", [0.0, 0.35])
+def test_fused_estep_matches_pallas_softmax_out(n_donors, doublet_prior):
+    """softmax=True against the TPU kernel's in-kernel softmax: (logits, probs) of one call."""
+    problem = estep_problem(n_donors=n_donors, doublet_prior=doublet_prior)
+    launches = estep_logits.launches
+    logits, probs = estep_logits(*estep_args(problem), softmax=True)
+    assert estep_logits.launches == launches  # CPU tensors: plain version, no launch
+    assert torch.equal(logits, estep_logits(*estep_args(problem)))
+    _assert_fused_matches(logits.numpy(), probs.numpy(), *_pallas_fused(problem))
+
+
+@pytest.mark.parametrize("n_donors", [2, 8])
+@pytest.mark.parametrize("doublet_prior", [0.0, 0.35])
+def test_fused_estep_with_prior_logits_matches_pallas(n_donors, doublet_prior):
+    """prior_logits are added before the softmax: against the TPU kernel's logits + prior, then softmax."""
+    problem = estep_problem(n_donors=n_donors, doublet_prior=doublet_prior)
+    gprob, operands = estep_args(problem)
+    n_pg = operands.penalties.shape[0]
+    prior = np.random.RandomState(5).randn(problem[4], n_pg).astype(np.float32) * 2
+    logits, probs = estep_logits(gprob, operands, prior_logits=t(prior), softmax=True)
+    want = _pallas_fused(problem)[0] + prior
+    want_probs = np.asarray(jax.nn.softmax(jnp.asarray(want), axis=-1))
+    _assert_fused_matches(logits.numpy(), probs.numpy(), want, want_probs)
+    assert torch.equal(estep_logits(gprob, operands, prior_logits=t(prior)), logits)
+
+
+def test_fused_estep_empty_barcodes_get_softmax_of_penalties():
+    problem = estep_problem(n_calls=50, n_barcodes=200)
+    args = estep_args(problem)
+    logits, probs = estep_logits(*args, softmax=True)
+    _assert_fused_matches(logits.numpy(), probs.numpy(), *_pallas_fused(problem))
+    empty = np.setdiff1d(np.arange(200), problem[2])
+    assert len(empty) > 0
+    penalties = args[1].penalties
+    np.testing.assert_array_equal(probs.numpy()[empty],
+                                  np.broadcast_to(torch.softmax(penalties, -1).numpy(), (len(empty), len(penalties))))
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device"])
+def test_estep_wrapper_rejects_bad_prior_logits(bad):
+    gprob, operands = estep_args(estep_problem(n_donors=2))
+    prior = torch.zeros(operands.n_barcodes, operands.penalties.shape[0])
+    prior = {"shape": prior[:, :-1], "dtype": prior.double(), "device": prior.to("meta")}[bad]
+    with pytest.raises((TypeError, ValueError)):
+        estep_logits(gprob, operands, prior_logits=prior, softmax=True)
 
 
 @pytest.mark.parametrize("power", [2.0, 1.0])

@@ -248,6 +248,23 @@ def test_roofline_counts():
     assert mstep.operations() == 3 * 1000 * 4 and mstep.bound_by() == "bytes"
 
 
+def test_estep_roofline_counts_the_fused_softmax():
+    """Bench shape (32 donors, 528 columns, 65,536 barcodes, 4,192,362 calls): the fused softmax adds the
+    probs written and 5 operations per (barcode, column); a prior adds its read and an add."""
+    shape = dict(n_calls=4_192_362, n_donors=32, n_pseudogenotypes=528, n_barcodes=65_536, n_variants=131_072)
+    logits = Roofline(**shape)
+    assert logits.operations() == 9_256_735_296 and logits.bytes_moved() == 189_258_776
+    cells = 65_536 * 528
+    fused = Roofline(**shape, softmax=True)
+    assert fused.operations() == logits.operations() + 5 * cells == 9_429_750_336
+    assert fused.bytes_moved() == logits.bytes_moved() + 4 * cells == 327_670_808
+    with_prior = Roofline(**shape, softmax=True, prior=True)
+    assert with_prior.operations() == fused.operations() + cells
+    assert with_prior.bytes_moved() == fused.bytes_moved() + 4 * cells
+    assert fused.bound_by() == "operations"
+    assert fused.speed_of_light_s() == fused.operations() / 67e12
+
+
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with device_trace(str(tmp_path / "trace")) as prof:
         torch.ones(64).cumsum(0)
