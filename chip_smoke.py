@@ -66,15 +66,37 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    8,192 barcodes (``tests/torch_sharded_worker.py``, under a timeout),
    against (a)'s engine in this process at that size. (d) ``python -m
    demuxalot_tpu_torch demux --sharded --compact`` on phase 6's BAM against
-   phase 6's CLI run.
+   phase 6's CLI run;
+9. the in-kernel-gather experiments (``demuxalot_tpu_torch.experiments``).
+   (a) The banded E-step (1 and 12 bands over 400 variants, 60 over 40,
+   some empty; donors 2, 7, 32, 64; padding calls), the banded M-step (2
+   and 40 bands, p = 1 and 2, variants with no calls, a band too large for
+   shared memory), the row gather and the gather-sum against their plain
+   versions (the gather bit for bit, the sum against float64), two runs
+   bit-equal. (b) The A/B at
+   the JAX harness's shape (``benchmarks/exp_inkernel_gather_estep.py:28-32``:
+   32 donors, 65,536 SNPs, 65,536 barcodes x 64 calls, prior 0.35, 12
+   variant bands; learnt-beta G from one EM step of the mainline kernels):
+   mainline fused, mainline logits-only and banded E-step, mainline and
+   banded M-step, in turns, the banded results at the mainline's bars. (c)
+   The same with 400,000 SNPs (800,000 variants, a 102.4 MB G past the
+   50 MB L2: the PMBC shape's variant count). (d) The gather rate: both
+   gather kernels with 1,048,576 uniform indices (seed 0) on [8192, 64]
+   (the TPU bench's table), [131,072, 32] (the bench G) and [800,000, 32];
+   (b)-(d) are the experiments' path, counted. Then the plain versions'
+   and the library calls' times on the same inputs.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` sums the runs of phases 4, 6, 7 and 8a, ``launches_by_path``
-keeps them apart; ``bound_ms`` is the least time the card could take for
-the bench-shape call that ``ms`` times, from ``utils.profiling``; the
+(``launches``: the mainline kernels' runs on the package paths, phases 4,
+6, 7 and 8a, which ``launches_by_path`` keeps apart, with the A/B's runs
+of them in ``ab_launches``; the experiments' kernels' runs in 9b-d;
+``bound_ms`` is the least time the card could take for the call that
+``ms`` times, from ``utils.profiling``, the banded kernels' that of the
+function they compute, with their band CSRs in ``layout_bytes``; the
 E-step's ``ms`` is its fused call, logits and posteriors, as the EM loop
-and predict make it); the line before it is nvidia-smi's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.
+and predict make it; the gathers' ``ms`` is the TPU bench's table);
+the line before it is nvidia-smi's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --parent DIR`` runs only the comparison of this
 tree's E-step with the one under ``DIR`` (an unpacked older commit):
@@ -137,6 +159,13 @@ DISCOVERY_THRESHOLDS = dict(
     minimum_coverage=int(_E2E_DEPTH / 2),
     minimum_alternative_coverage=int(_E2E_DEPTH / E2E_FIXTURE["n_genotypes"] / 2),
 )
+# phase 9c: the bench shape's widths with the PMBC shape's ~800,000 variants
+# (E2E_PMBC_r05.json), so G (102.4 MB at 32 donors) outgrows the 50 MB L2
+PAST_L2_SNPS = 400_000
+# 1M gathered rows summed in f32 against float64: sound sums land within
+# 2.1e-7 (H100); one row of N dropped or added moves the sum by about 1/N,
+# 9.5e-7 at N = 1,048,576
+GATHER_SUM_RTOL = 5e-7
 
 
 def say(phase: str, **fields) -> None:
@@ -1212,6 +1241,194 @@ def phase_sharded(genotypes, handler, packed, truth, main: dict, timing: dict, c
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the in-kernel-gather experiments
+# ---------------------------------------------------------------------------
+
+def _experiment_kernels() -> dict:
+    """{name: wrapper} of the experiments' four kernels (each wrapper carries ``.launches``)."""
+    from demuxalot_tpu_torch.experiments import inkernel_gather as IG
+    from demuxalot_tpu_torch.experiments import kernel_gather as KG
+
+    return {"estep_logits_banded": IG.estep_logits_banded, "mstep_addition_banded": IG.mstep_addition_banded,
+            "gather_rows": KG.gather_rows, "gather_sum": KG.gather_sum}
+
+
+def phase_gather_kernels() -> None:
+    """Phase 9a: the experiments' kernels against their plain versions at edge shapes."""
+    from demuxalot_tpu_torch.experiments import inkernel_gather as IG
+    from demuxalot_tpu_torch.experiments import kernel_gather as KG
+
+    cuda = torch.device("cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+
+    def banded_estep(p: dict, n_bands: int):
+        gprob, _ = _estep_tensors(p, cuda)
+        return gprob, IG.banded_estep_operands(p["n_donors"], p["doublet_prior"], t(p["cb"]), t(p["vid"]), t(p["q"]),
+                                               p["n_barcodes"], len(p["variant2snp"]), n_bands)
+
+    # every third barcode has no calls, and with 12 bands over 400 variants most
+    # barcodes have none in most bands; 60 bands over 40 variants leave some empty
+    for n_donors in (2, 7, 32, 64):
+        for n_snps, n_bands in ((200, 1), (200, 12), (20, 60)):
+            args = banded_estep(_estep_inputs(n_donors, DOUBLET_PRIOR, seed=n_donors, n_snps=n_snps), n_bands)
+            got = IG.estep_logits_banded(*args)
+            want = IG.estep_logits_banded_plain(*args)
+            what = f"banded estep D={n_donors} K={n_bands}"
+            err = compare(what, got, want, **LOGITS_TOL)
+            require(torch.equal(got.argmax(1), want.argmax(1)), f"{what}: same argmax")
+            require(torch.equal(got, IG.estep_logits_banded(*args)), f"{what}: two runs bit-equal")
+            ptr = args[1].band_ptr
+            empty = float((ptr[:, 1:] == ptr[:, :-1]).float().mean())
+            say("experiments", kernel="estep_logits_banded", n_donors=n_donors, n_bands=n_bands, max_abs_err=err,
+                empty_band_barcode_share=empty, runs="bit-equal")
+    p = _estep_inputs(32, DOUBLET_PRIOR, seed=7)
+    pad = 1234
+    rng = np.random.RandomState(8)
+    cb = np.concatenate([p["cb"], rng.randint(0, p["n_barcodes"], pad).astype(np.int32)])
+    vid = np.concatenate([p["vid"], rng.randint(0, len(p["variant2snp"]), pad).astype(np.int32)])
+    q = np.concatenate([p["q"], np.ones(pad, np.float32)])
+    order = np.argsort(cb, kind="stable")  # padding after each barcode's real calls
+    padded = dict(p, cb=cb[order], vid=vid[order], q=q[order])
+    base, with_pad = (IG.estep_logits_banded(*banded_estep(x, 12)) for x in (p, padded))
+    require(torch.equal(base, with_pad), "padding calls must leave the banded E-step logits bit-equal")
+    say("experiments", kernel="estep_logits_banded", padding_noop="bit-equal", pad_calls=pad)
+
+    for n_donors in (7, 32):
+        for n_bands in (2, 40):
+            for power in (1.0, 2.0):
+                rng = np.random.RandomState(200 + n_donors)
+                n_variants, n_barcodes, n_calls = 300, 150, 20_000
+                n_pg = n_donors + n_donors * (n_donors - 1) // 2
+                vid = np.sort(rng.randint(0, n_variants // 2, n_calls) * 2).astype(np.int32)  # odd rows empty
+                cb = rng.randint(0, n_barcodes, n_calls).astype(np.int32)
+                q = (rng.rand(n_calls) * 0.7).astype(np.float32)
+                q[::97] = 1.0
+                post = rng.rand(n_barcodes, n_pg).astype(np.float32)
+                post /= post.sum(axis=1, keepdims=True)
+                operands = IG.banded_mstep_operands(t(vid), t(cb), t(q), n_variants, n_barcodes, n_bands)
+                args = (t(post), operands, n_donors, power)
+                got = IG.mstep_addition_banded(*args)
+                what = f"banded mstep D={n_donors} K={n_bands} p={power}"
+                err = compare(what, got, IG.mstep_addition_banded_plain(*args), **ADDITION_TOL)
+                require(not bool(got[1::2].any()), f"{what}: variants with no calls add 0")
+                require(torch.equal(got, IG.mstep_addition_banded(*args)), f"{what}: two runs bit-equal")
+                say("experiments", kernel="mstep_addition_banded", n_donors=n_donors, n_bands=n_bands, power=power,
+                    band_rows=operands.band_rows, max_abs_err=err, runs="bit-equal")
+    # two bands of 35,000 barcodes x 32 donors (4.5 MB each) cannot sit in shared memory
+    rng = np.random.RandomState(3)
+    vid = np.sort(rng.randint(0, 100, 5000)).astype(np.int32)
+    too_big = IG.banded_mstep_operands(t(vid), t(rng.randint(0, 70_000, 5000).astype(np.int32)),
+                                       t(np.zeros(5000, np.float32)), 100, 70_000, 2)
+    try:
+        IG.mstep_addition_banded(torch.rand(70_000, 32, device=cuda), too_big, 32, 2.0)
+        raised = None
+    except ValueError as error:
+        raised = str(error)
+    require(raised is not None and "shared memory" in raised, "a band past shared memory raises")
+    say("experiments", kernel="mstep_addition_banded", band_past_shared_memory=raised)
+
+    for shape, n_idx in (((8192, 64), 1 << 20), ((1000, 7), 100_003)):
+        table, idx = KG.rate_inputs(*shape, n_idx=n_idx, seed=1, device=cuda)
+        require(torch.equal(KG.gather_rows(table, idx), KG.gather_rows_plain(table, idx)),
+                f"gather_rows {shape}: bit-equal to table[idx]")
+        got, plain = float(KG.gather_sum(table, idx)), float(KG.gather_sum_plain(table, idx))
+        exact = float(table.double()[idx.long()].sum())
+        for name, value in (("kernel", got), ("plain", plain)):
+            require(abs(value - exact) <= GATHER_SUM_RTOL * abs(exact),
+                    f"gather_sum {shape} {name}: {value} vs {exact}")
+        require(float(KG.gather_sum(table, idx)) == got, f"gather_sum {shape}: two runs bit-equal")
+        say("experiments", kernel="gather_rows, gather_sum", table=list(shape), n_idx=n_idx, rows="bit-equal",
+            sum_rel_err=abs(got - exact) / abs(exact), plain_sum_rel_err=abs(plain - exact) / abs(exact))
+
+
+def phase_experiments(card: str) -> dict:
+    """Phase 9b-d: the experiments' path (counted), then the plain versions' and library calls' times."""
+    from demuxalot_tpu_torch.experiments import inkernel_gather as IG
+    from demuxalot_tpu_torch.experiments import kernel_gather as KG
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
+    from demuxalot_tpu_torch.utils.profiling import GatherRoofline, MStepRoofline, Roofline
+
+    cuda = torch.device("cuda")
+    counted = {"estep_logits": estep_logits, "mstep_addition": mstep_addition, **_experiment_kernels()}
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    bench = IG.bench_workload(device=cuda)
+    ab = IG.run_ab(bench)
+    past = IG.bench_workload(n_snps=PAST_L2_SNPS, device=cuda)
+    ab_past = IG.run_ab(past)
+    rate = KG.run_rate(cuda)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: wrapper.launches for name, wrapper in counted.items()}
+    for name in _experiment_kernels():
+        require(launches[name] > 0, f"the experiments' path launched {name} {launches[name]} times")
+    del past
+    for name, result in (("bench shape", ab), ("G past L2", ab_past)):
+        say("experiments", stage=f"A/B, {name}", card=card,
+            **{key: value for key, value in result.items() if key != "ms"},
+            ms={key: value["mean"] for key, value in result["ms"].items()},
+            samples={key: value["samples"] for key, value in result["ms"].items()})
+    say("experiments", stage="path", card=card, launches=launches, wall_s=wall)
+
+    # the banded kernels against their plain versions at the bench shape, and the plain versions' times
+    w = bench
+    estep_args = (w.genotype_prob, w.estep_banded)
+    mstep_args = (w.posterior, w.mstep_banded, w.n_genotypes, w.power)
+    got, want = IG.estep_logits_banded(*estep_args), IG.estep_logits_banded_plain(*estep_args)
+    estep_err = compare("bench-shape banded estep vs plain", got, want, **LOGITS_TOL)
+    require(torch.equal(got.argmax(1), want.argmax(1)), "bench-shape banded estep: same argmax as plain")
+    mstep_err = compare("bench-shape banded mstep vs plain", IG.mstep_addition_banded(*mstep_args),
+                        IG.mstep_addition_banded_plain(*mstep_args), **ADDITION_TOL)
+    plain_ms = {"estep_logits_banded": _time_ms(lambda: IG.estep_logits_banded_plain(*estep_args), repeats=2),
+                "mstep_addition_banded": _time_ms(lambda: IG.mstep_addition_banded_plain(*mstep_args), repeats=2)}
+    shape = dict(n_calls=ab["n_calls"], n_donors=ab["n_donors"], n_pseudogenotypes=ab["n_pg"],
+                 n_barcodes=ab["n_barcodes"], n_variants=ab["n_variants"])
+    # the bounds are the function's own work, the unbanded one; the band CSRs
+    # are the layout's cost, reported beside them (layout_bytes)
+    bounds = {"estep_logits_banded": Roofline(**shape),
+              "mstep_addition_banded": MStepRoofline(n_calls=ab["n_calls"], n_donors=ab["n_donors"],
+                                                     n_barcodes=ab["n_barcodes"], n_variants=ab["n_variants"])}
+    layout_bytes = {name: 8 * (o.band_ptr.numel() + o.band_edges.numel())
+                    for name, o in (("estep_logits_banded", w.estep_banded), ("mstep_addition_banded", w.mstep_banded))}
+    say("experiments", stage="banded vs plain, bench shape", card=card, estep_max_abs_err=estep_err,
+        mstep_max_abs_err=mstep_err, plain_ms=plain_ms, layout_bytes=layout_bytes,
+        bound_ms={name: bound.speed_of_light_s() * 1e3 for name, bound in bounds.items()})
+
+    # the gathers: plain versions and the library calls on the rate runner's inputs, and the bounds
+    gathers = []
+    for result in rate:
+        table, idx = KG.rate_inputs(*result["table"], n_idx=result["n_idx"], seed=0, device=cuda)
+        touched = int(torch.unique(idx).numel())
+        entry = {"table": result["table"], "table_bytes": result["table_bytes"], "rows_touched": touched}
+        for name, rows_out, plain, library in (
+            ("gather_rows", True, lambda: KG.gather_rows_plain(table, idx), lambda: torch.index_select(table, 0, idx)),
+            ("gather_sum", False, lambda: KG.gather_sum_plain(table, idx),
+             lambda: torch.index_select(table, 0, idx).sum()),
+        ):
+            bound = GatherRoofline(n_idx=result["n_idx"], n_rows_touched=touched, width=result["table"][1],
+                                   rows_out=rows_out)
+            entry[name] = {**result[name], "plain_ms": _time_ms(plain), "library_ms": _time_ms(library),
+                           "bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by()}
+            entry[name]["share_of_bound"] = entry[name]["bound_ms"] / entry[name]["ms_mean"]
+        # the kernels against their plain versions on the same inputs: the rows bit for bit, the sums
+        # (f32, in other orders) within GATHER_SUM_RTOL of the float64 sum, as each is of it
+        require(bool(torch.equal(KG.gather_rows(table, idx), KG.gather_rows_plain(table, idx))),
+                f"gather_rows {result['table']}: bit-equal to table[idx]")
+        exact, plain_sum = result["float64_sum"], float(KG.gather_sum_plain(table, idx))
+        entry["sum_abs_err"] = abs(result["sum"] - plain_sum)
+        entry["sum_rel_err_vs_float64"] = {"kernel": abs(result["sum"] - exact) / abs(exact),
+                                           "plain": abs(plain_sum - exact) / abs(exact)}
+        require(entry["sum_abs_err"] <= GATHER_SUM_RTOL * abs(exact),
+                f"gather_sum {result['table']}: {result['sum']} vs plain {plain_sum}")
+        gathers.append(entry)
+        say("experiments", stage="gather rate", card=card, **entry)
+    return {"launches": launches, "ab": ab, "ab_past": ab_past, "gathers": gathers, "plain_ms": plain_ms,
+            "bounds": bounds, "layout_bytes": layout_bytes, "estep_err": estep_err, "mstep_err": mstep_err}
+
+
+# ---------------------------------------------------------------------------
 # --parent: this tree's E-step beside an older tree's, in turns
 # ---------------------------------------------------------------------------
 
@@ -1276,23 +1493,48 @@ def main() -> int:
         compare_with_parent(args.parent, report["nvidia_smi"])
         return 0
     card = report["nvidia_smi"]
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:  # the host seconds of each phase since the last lap
+        now = time.perf_counter()
+        seconds[name] = now - mark[0]
+        mark[0] = now
+
     phase_build()
+    lap("build")
     phase_kernels()
+    lap("kernels")
     genotypes, handler, packed, truth = _bench_data()
     main_result = phase_main(genotypes, handler, packed, truth)
+    lap("main")
     timing = phase_timing(genotypes, handler, packed, main_result, card)
+    lap("timing")
     with tempfile.TemporaryDirectory() as tmp:
         bam_result = phase_bam(card, Path(tmp))
+        lap("bam")
         aggregate = phase_aggregate(genotypes, handler, packed, truth, timing["gprob"], card)
+        lap("aggregate")
         discovery = phase_discovery(card, bam_result["fixture"], Path(tmp))
+        lap("discovery")
         sharded = phase_sharded(genotypes, handler, packed, truth, main_result, timing, card, bam_result, Path(tmp))
+        lap("sharded")
+    phase_gather_kernels()
+    lap("gather_kernels")
+    experiments = phase_experiments(card)
+    lap("experiments")
+    say("smoke", phase_seconds=seconds, total_s=sum(seconds.values()))
     t = timing["timings"]
 
     def launches(name: str) -> dict:
+        if name in _experiment_kernels():  # no package path calls them
+            return {"launches": experiments["launches"][name],
+                    "launches_by_path": {"experiments": experiments["launches"][name]}}
+        # the package paths; the A/B's warm-ups and repeats of the mainline kernels stand apart (ab_launches)
         by_path = {"packed_calls": main_result["launches"][name], "bam_flow": bam_result["launches"][name],
                    "aggregate_em": aggregate["launches"][name], "detect_snps": discovery["launches"][name],
                    "sharded": sharded["launches"][name]}
-        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path,
+                "ab_launches": experiments["launches"][name]}
 
     def bound(step: str) -> dict:
         roofline = timing["bounds"][step]
@@ -1318,6 +1560,37 @@ def main() -> int:
          "ms": t["mstep"]["kernel_ms_mean"], "plain_ms": t["mstep"]["plain_ms_mean"], **bound("mstep"),
          "share_of_bound": bound("mstep")["bound_ms"] / t["mstep"]["kernel_ms_mean"], "library_ms": None},
     ]
+    # the experiments' kernels: the banded ones at the JAX harness's shape (phase 9b, G past L2 beside
+    # it), the gathers on the TPU bench's [8192, 64] table (the other tables beside it)
+    ab, ab_past, e = experiments["ab"], experiments["ab_past"], experiments
+    for name, step, mainline, replaces, source in (
+        ("estep_logits_banded", "estep_banded", "estep_logits", "benchmarks/inkernel_gather_kernels.py:78",
+         "demuxalot_tpu_torch/csrc/likelihood.cu"),
+        ("mstep_addition_banded", "mstep_banded", "mstep", "benchmarks/inkernel_gather_kernels.py:252",
+         "demuxalot_tpu_torch/csrc/banded.cu"),
+    ):
+        ms, roofline = ab["ms"][step]["mean"], e["bounds"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, **launches(name),
+            "max_abs_err": e["estep_err" if step == "estep_banded" else "mstep_err"], "ms": ms,
+            "plain_ms": e["plain_ms"][name], "bound_ms": roofline.speed_of_light_s() * 1e3,
+            "bound_by": roofline.bound_by(), "share_of_bound": roofline.speed_of_light_s() * 1e3 / ms,
+            "library_ms": None, "library_ms_reason": "no single PyTorch call computes it",
+            "layout_bytes": e["layout_bytes"][name], "mainline_ms": ab["ms"][mainline]["mean"],
+            "past_l2_ms": ab_past["ms"][step]["mean"], "past_l2_mainline_ms": ab_past["ms"][mainline]["mean"],
+            "n_bands": ab["estep_bands" if step == "estep_banded" else "mstep_bands"]})
+    tpu_table, *other_tables = e["gathers"]
+    for name, replaces in (("gather_rows", "benchmarks/exp_kernel_gather.py:39"),
+                           ("gather_sum", "benchmarks/exp_kernel_gather.py:63")):
+        g = tpu_table[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "demuxalot_tpu_torch/csrc/gather.cu", "replaces": replaces,
+            **launches(name), "max_abs_err": 0.0 if name == "gather_rows" else tpu_table["sum_abs_err"],
+            "ms": g["ms_mean"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+            "share_of_bound": g["share_of_bound"], "library_ms": g["library_ms"], "ns_per_row": g["ns_per_row"],
+            "table": tpu_table["table"],
+            "by_table": [{"table": o["table"], "ms": o[name]["ms_mean"], "ns_per_row": o[name]["ns_per_row"],
+                          "library_ms": o[name]["library_ms"], "bound_ms": o[name]["bound_ms"]} for o in other_tables]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,23 @@ __global__ void check_csr_kernel(const int64_t* __restrict__ row_ptr, int64_t n_
     }
 }
 
+// band-local ids: the calls of band k = blockIdx.y, [band_ptr[k][0],
+// band_ptr[k][n_rows]) of a band-major [n_bands, n_rows + 1] CSR, lie in
+// [0, min(edges[k + 1] - edges[k], cap))
+__global__ void check_banded_index_kernel(const int32_t* __restrict__ idx, const int64_t* __restrict__ band_ptr,
+                                          const int64_t* __restrict__ edges, int64_t n_rows, int64_t cap) {
+    const int64_t k = blockIdx.y;
+    const int64_t lo = band_ptr[k * (n_rows + 1)];
+    const int64_t hi = band_ptr[k * (n_rows + 1) + n_rows];
+    const int64_t height = edges[k + 1] - edges[k];
+    const int64_t limit = height < cap ? height : cap;
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t i = lo + (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < hi; i += stride) {
+        const int64_t v = idx[i];
+        if (v < 0 || v >= limit) __trap();
+    }
+}
+
 // the E-step schedule, entries of `entry` ints: donor blocks of 4 (quad p,
 // q) in [0, n_blocks), donor blocks of 2 (duo r, s) in [0, 2 n_blocks), then
 // one output column per slot in [-1, n_pg) (-1: unused)
@@ -56,7 +73,8 @@ unsigned int blocks_for(int64_t n) {
 
 }  // namespace
 
-// Host launchers used by likelihood.cu and mstep.cu; each returns cudaGetLastError().
+// Host launchers used by likelihood.cu, mstep.cu, banded.cu and gather.cu;
+// each returns cudaGetLastError().
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream) {
     if (n > 0) check_index_kernel<<<blocks_for(n), kThreads, 0, stream>>>(idx, n, limit);
     return (int)cudaGetLastError();
@@ -73,5 +91,16 @@ int demux_check_schedule(const int32_t* schedule, int64_t n_entries, int entry, 
 
 int demux_check_csr(const int64_t* row_ptr, int64_t n_rows, int64_t n_entries, cudaStream_t stream) {
     if (n_rows > 0) check_csr_kernel<<<blocks_for(n_rows), kThreads, 0, stream>>>(row_ptr, n_rows, n_entries);
+    return (int)cudaGetLastError();
+}
+
+// run after demux_check_csr of edges and of the flattened band_ptr
+int demux_check_banded_index(const int32_t* idx, const int64_t* band_ptr, const int64_t* edges, int n_bands,
+                             int64_t n_rows, int64_t cap, int64_t n_entries, cudaStream_t stream) {
+    if (n_entries > 0 && n_bands > 0) {
+        const unsigned int per_band = (blocks_for(n_entries) + n_bands - 1) / n_bands;
+        const dim3 grid(per_band, (unsigned int)n_bands);
+        check_banded_index_kernel<<<grid, kThreads, 0, stream>>>(idx, band_ptr, edges, n_rows, cap);
+    }
     return (int)cudaGetLastError();
 }

@@ -53,6 +53,27 @@
 // scales each column's sum by ln 2 once.
 // The index inputs are bounds-checked by checks.cu's kernels before the
 // launch, so this kernel carries no trap.
+//
+// The banded E-step (demux_estep_logits_banded) is the same kernel with
+// kBanded set. It replaces benchmarks/inkernel_gather_kernels.py:
+// _likelihood_kernel_ig (:78), the TPU's in-kernel-gather E-step: the
+// variants are cut into K bands (edges[k], edges[k+1]), each call carries a
+// band-local variant id, and the calls lie band-major, a barcode CSR per
+// band (band_ptr [K, n_barcodes + 1]). A barcode's warp walks its calls
+// band by band and reads each row from its band's slice of G,
+// G[edges[k] + vid]; the running sums carry over from band to band, so
+// the logits are summed in band order, then in call order. Each band's
+// calls end in a log (a ragged group is padded as above), so a call's
+// log argument never multiplies with another band's. The TPU kept one band
+// of G in VMEM beside a super-tile of output rows; here a block's 227 KB
+// could not hold a band beside more than a few dozen barcodes' 528 running
+// sums, so the band stays in L2 (as G does on the main path) and the sums
+// stay in registers. What bounds it is the main path's bound, plus one
+// ragged log group and one exposed gather per (barcode, band) that has
+// calls. Only the logits are written (no prior, no softmax). It runs 3
+// blocks per SM (up to 168 registers) where the main path runs 4: capped at
+// 128 registers, the band loop's state spilled in ptxas for some
+// instantiations on the H100 (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,6 +81,8 @@ int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t
 int demux_check_csr(const int64_t* row_ptr, int64_t n_rows, int64_t n_entries, cudaStream_t stream);
 int demux_check_schedule(const int32_t* schedule, int64_t n_entries, int entry, int n_blocks, int n_pg,
                          cudaStream_t stream);
+int demux_check_banded_index(const int32_t* idx, const int64_t* band_ptr, const int64_t* edges, int n_bands,
+                             int64_t n_rows, int64_t cap, int64_t n_entries, cudaStream_t stream);
 
 namespace {
 
@@ -185,13 +208,17 @@ __device__ void epilogue(float* row, int n_pg, const float* prior, float* logits
     }
 }
 
-// kChunk: floats per cp.async of a G row (4 when rows are 16-byte aligned)
-template <bool kFastLog, int kChunk>
-__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
+// kChunk: floats per cp.async of a G row (4 when rows are 16-byte aligned).
+// kBanded: row_ptr is the band-major [n_bands, n_barcodes + 1] CSR, vid is
+// band-local and band k's rows start at G[band_edges[k]].
+template <bool kFastLog, int kChunk, bool kBanded>
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, kBanded ? 3 : 4) estep_kernel(
     const float* __restrict__ genotype_prob,  // [n_variants, n_donors]
     int n_donors, int stride,                 // stride: n_donors rounded up to 4
-    const int64_t* __restrict__ row_ptr,      // [n_barcodes + 1]
-    const int32_t* __restrict__ vid,          // [n_calls], barcode-sorted
+    const int64_t* __restrict__ band_edges,   // [n_bands + 1] (kBanded)
+    int n_bands,                              // 1 unless kBanded
+    const int64_t* __restrict__ row_ptr,      // [n_barcodes + 1], or [n_bands, n_barcodes + 1]
+    const int32_t* __restrict__ vid,          // [n_calls], barcode-sorted (band-major if kBanded)
     const float* __restrict__ q,              // [n_calls]
     int64_t n_barcodes,
     const float* __restrict__ penalties,      // [n_pg]
@@ -213,10 +240,12 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
     const Walk copy(row_chunks, lane);
     const Walk fold(row_quads, lane);
     const int64_t n_warps = (int64_t)gridDim.x * (blockDim.x / kWarp);
+    const int segments = kBanded ? n_bands : 1;  // a barcode's call ranges: one, or one per band
 
-    // one tile's calls into lane registers, then their G rows into `buf`
-    auto load_calls = [&](int64_t t, int n, int& v, float& qq) {
-        v = lane < n ? vid[t + lane] : 0;
+    // one tile's calls into lane registers (band-local ids made global by
+    // adding their band's first row), then their G rows into `buf`
+    auto load_calls = [&](int64_t t, int n, int& v, float& qq, int base) {
+        v = lane < n ? vid[t + lane] + base : 0;
         qq = lane < n ? q[t + lane] : 1.f;
     };
     auto gather = [&](int n, int v, float* buf) {
@@ -235,8 +264,8 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
     };
 
     for (int64_t b = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp; b < n_barcodes; b += n_warps) {
-        const int64_t lo = row_ptr[b];
-        const int64_t hi = row_ptr[b + 1];
+        int64_t lo = kBanded ? 0 : row_ptr[b];  // the banded kernel reads one range per band
+        int64_t hi = kBanded ? 0 : row_ptr[b + 1];
         for (int pass = 0; pass < n_passes; ++pass) {
             const int32_t* entry = schedule + ((int64_t)pass * kWarp + lane) * kEntry;
             const int off_a = 4 * entry[0], off_b = 4 * entry[1];
@@ -247,92 +276,98 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
                 prod[s] = 1.f;
                 sum[s] = 0.f;
             }
-            __syncwarp();  // every lane is done with the ring and the row
-            int v_cur = 0;
-            float q_cur = 1.f;
-            int cur = 0;
-            if (lo < hi) {
-                const int n0 = (int)(hi - lo < kTileCalls ? hi - lo : kTileCalls);
-                load_calls(lo, n0, v_cur, q_cur);
-                gather(n0, v_cur, ring);
-            }
-            for (int64_t t0 = lo; t0 < hi; t0 += kTileCalls) {
-                const int nt = (int)(hi - t0 < kTileCalls ? hi - t0 : kTileCalls);
-                float* buf = ring + cur * tile_floats;
-                asm volatile("cp.async.wait_all;\n" ::: "memory");
-                __syncwarp();  // this tile's rows landed; the other slot is free
-                float q_next = 1.f;
-                const int64_t t1 = t0 + kTileCalls;
-                if (t1 < hi) {
-                    const int n1 = (int)(hi - t1 < kTileCalls ? hi - t1 : kTileCalls);
-                    int v_next;
-                    load_calls(t1, n1, v_next, q_next);
-                    gather(n1, v_next, ring + (cur ^ 1) * tile_floats);
+            for (int segment = 0; segment < segments; ++segment) {
+                if constexpr (kBanded) {
+                    lo = row_ptr[segment * (n_barcodes + 1) + b];
+                    hi = row_ptr[segment * (n_barcodes + 1) + b + 1];
                 }
-                // fold G rows into U' in place; rows [nt, rows) and donors
-                // past n_donors become 0.5, an argument of exactly 1
-                const int rows = (nt + kLogFold - 1) & ~(kLogFold - 1);
-                // kFoldRounds rounds at a time, all loads before all stores, so
-                // their shared-memory latencies overlap
-                for (int r0 = 0; r0 < rows; r0 += kFoldRounds * fold.step) {
-                    int r[kFoldRounds];
-                    float w[kFoldRounds], floor_q[kFoldRounds];
-#pragma unroll
-                    for (int u = 0; u < kFoldRounds; ++u) {
-                        r[u] = r0 + u * fold.step + fold.sub;
-                        const float qr = __shfl_sync(kFull, q_cur, r[u] & (kWarp - 1));
-                        w[u] = 1.f - qr;
-                        floor_q[u] = fmaxf(qr, 1e-4f);
+                __syncwarp();  // every lane is done with the ring and the row
+                int v_cur = 0;
+                float q_cur = 1.f;
+                int cur = 0;
+                if (lo < hi) {
+                    const int n0 = (int)(hi - lo < kTileCalls ? hi - lo : kTileCalls);
+                    load_calls(lo, n0, v_cur, q_cur, kBanded ? (int)band_edges[segment] : 0);
+                    gather(n0, v_cur, ring);
+                }
+                for (int64_t t0 = lo; t0 < hi; t0 += kTileCalls) {
+                    const int nt = (int)(hi - t0 < kTileCalls ? hi - t0 : kTileCalls);
+                    float* buf = ring + cur * tile_floats;
+                    asm volatile("cp.async.wait_all;\n" ::: "memory");
+                    __syncwarp();  // this tile's rows landed; the other slot is free
+                    float q_next = 1.f;
+                    const int64_t t1 = t0 + kTileCalls;
+                    if (t1 < hi) {
+                        const int n1 = (int)(hi - t1 < kTileCalls ? hi - t1 : kTileCalls);
+                        int v_next;
+                        load_calls(t1, n1, v_next, q_next, kBanded ? (int)band_edges[segment] : 0);
+                        gather(n1, v_next, ring + (cur ^ 1) * tile_floats);
                     }
-                    for (int k = fold.first; k < row_quads; k += kWarp) {
-                        float4 g[kFoldRounds];
+                    // fold G rows into U' in place; rows [nt, rows) and donors
+                    // past n_donors become 0.5, an argument of exactly 1
+                    const int rows = (nt + kLogFold - 1) & ~(kLogFold - 1);
+                    // kFoldRounds rounds at a time, all loads before all stores, so
+                    // their shared-memory latencies overlap
+                    for (int r0 = 0; r0 < rows; r0 += kFoldRounds * fold.step) {
+                        int r[kFoldRounds];
+                        float w[kFoldRounds], floor_q[kFoldRounds];
 #pragma unroll
                         for (int u = 0; u < kFoldRounds; ++u) {
-                            if (fold.active && r[u] < rows) g[u] = reinterpret_cast<const float4*>(buf + r[u] * stride)[k];
+                            r[u] = r0 + u * fold.step + fold.sub;
+                            const float qr = __shfl_sync(kFull, q_cur, r[u] & (kWarp - 1));
+                            w[u] = 1.f - qr;
+                            floor_q[u] = fmaxf(qr, 1e-4f);
                         }
-                        const int d = 4 * k;
+                        for (int k = fold.first; k < row_quads; k += kWarp) {
+                            float4 g[kFoldRounds];
 #pragma unroll
-                        for (int u = 0; u < kFoldRounds; ++u) {
-                            if (!fold.active || r[u] >= rows) continue;
-                            const bool real = r[u] < nt;  // with kChunk 4, n_donors is a multiple of 4
-                            float4 v = g[u];
-                            v.x = real && (kChunk == 4 || d < n_donors) ? 0.5f * (v.x * w[u] + floor_q[u]) : 0.5f;
-                            v.y = real && (kChunk == 4 || d + 1 < n_donors) ? 0.5f * (v.y * w[u] + floor_q[u]) : 0.5f;
-                            v.z = real && (kChunk == 4 || d + 2 < n_donors) ? 0.5f * (v.z * w[u] + floor_q[u]) : 0.5f;
-                            v.w = real && (kChunk == 4 || d + 3 < n_donors) ? 0.5f * (v.w * w[u] + floor_q[u]) : 0.5f;
-                            reinterpret_cast<float4*>(buf + r[u] * stride)[k] = v;
+                            for (int u = 0; u < kFoldRounds; ++u) {
+                                if (fold.active && r[u] < rows) g[u] = reinterpret_cast<const float4*>(buf + r[u] * stride)[k];
+                            }
+                            const int d = 4 * k;
+#pragma unroll
+                            for (int u = 0; u < kFoldRounds; ++u) {
+                                if (!fold.active || r[u] >= rows) continue;
+                                const bool real = r[u] < nt;  // with kChunk 4, n_donors is a multiple of 4
+                                float4 v = g[u];
+                                v.x = real && (kChunk == 4 || d < n_donors) ? 0.5f * (v.x * w[u] + floor_q[u]) : 0.5f;
+                                v.y = real && (kChunk == 4 || d + 1 < n_donors) ? 0.5f * (v.y * w[u] + floor_q[u]) : 0.5f;
+                                v.z = real && (kChunk == 4 || d + 2 < n_donors) ? 0.5f * (v.z * w[u] + floor_q[u]) : 0.5f;
+                                v.w = real && (kChunk == 4 || d + 3 < n_donors) ? 0.5f * (v.w * w[u] + floor_q[u]) : 0.5f;
+                                reinterpret_cast<float4*>(buf + r[u] * stride)[k] = v;
+                            }
                         }
                     }
+                    __syncwarp();
+                    for (int r = 0; r < rows; r += kLogFold) {
+#pragma unroll
+                        for (int c = 0; c < kLogFold; ++c) {
+                            const float* u = buf + (r + c) * stride;
+                            const float4 a = *reinterpret_cast<const float4*>(u + off_a);
+                            const float4 e = *reinterpret_cast<const float4*>(u + off_b);
+                            const float2 x = *reinterpret_cast<const float2*>(u + off_c);
+                            const float2 y = *reinterpret_cast<const float2*>(u + off_d);
+                            const float av[4] = {a.x, a.y, a.z, a.w};
+                            const float ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+                            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                                for (int j = 0; j < 4; ++j) prod[4 * i + j] *= av[i] + ev[j];
+                            }
+                            prod[kQuadSlots + 0] *= x.x + y.x;
+                            prod[kQuadSlots + 1] *= x.x + y.y;
+                            prod[kQuadSlots + 2] *= x.y + y.x;
+                            prod[kQuadSlots + 3] *= x.y + y.y;
+                        }
+#pragma unroll
+                        for (int s = 0; s < kSlots; ++s) {
+                            sum[s] += log_of<kFastLog>(prod[s]);
+                            prod[s] = 1.f;
+                        }
+                    }
+                    q_cur = q_next;
+                    cur ^= 1;
                 }
-                __syncwarp();
-                for (int r = 0; r < rows; r += kLogFold) {
-#pragma unroll
-                    for (int c = 0; c < kLogFold; ++c) {
-                        const float* u = buf + (r + c) * stride;
-                        const float4 a = *reinterpret_cast<const float4*>(u + off_a);
-                        const float4 e = *reinterpret_cast<const float4*>(u + off_b);
-                        const float2 x = *reinterpret_cast<const float2*>(u + off_c);
-                        const float2 y = *reinterpret_cast<const float2*>(u + off_d);
-                        const float av[4] = {a.x, a.y, a.z, a.w};
-                        const float ev[4] = {e.x, e.y, e.z, e.w};
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-                            for (int j = 0; j < 4; ++j) prod[4 * i + j] *= av[i] + ev[j];
-                        }
-                        prod[kQuadSlots + 0] *= x.x + y.x;
-                        prod[kQuadSlots + 1] *= x.x + y.y;
-                        prod[kQuadSlots + 2] *= x.y + y.x;
-                        prod[kQuadSlots + 3] *= x.y + y.y;
-                    }
-#pragma unroll
-                    for (int s = 0; s < kSlots; ++s) {
-                        sum[s] += log_of<kFastLog>(prod[s]);
-                        prod[s] = 1.f;
-                    }
-                }
-                q_cur = q_next;
-                cur ^= 1;
             }
             // every group ended in a log, so prod is 1 and pen + (sum + log 1) is pen + sum
 #pragma unroll
@@ -353,22 +388,17 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
     }
 }
 
-using Kernel = decltype(&estep_kernel<false, 4>);
-
 bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-}  // namespace
-
-// prior_logits and probs may be null; fast_log != 0 takes __logf
-extern "C" int demux_estep_logits(
-    const float* genotype_prob, int64_t n_variants, int n_donors,
-    const int64_t* row_ptr, int64_t n_calls, const int32_t* vid, const float* q, int64_t n_barcodes,
-    const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
-    const float* prior_logits, float* logits, float* probs, int fast_log, void* stream)
+// Sizes and launches estep_kernel<., ., kBanded> after the caller's checks.
+template <bool kBanded>
+int launch_estep(const float* genotype_prob, int n_donors, const int64_t* band_edges, int n_bands,
+                 const int64_t* row_ptr, const int32_t* vid, const float* q, int64_t n_barcodes,
+                 const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
+                 const float* prior_logits, float* logits, float* probs, int fast_log, cudaStream_t s)
 {
-    if (n_barcodes <= 0 || n_pg <= 0 || n_donors <= 0 || n_passes <= 0) return (int)cudaErrorInvalidValue;
-    const int n_blocks = (n_donors + 3) / 4;
-    const int stride = 4 * n_blocks;
+    using Kernel = decltype(&estep_kernel<false, 4, kBanded>);
+    const int stride = 4 * ((n_donors + 3) / 4);
     const int row_floats = (n_pg + 3) & ~3;
     const size_t warp_bytes = ((size_t)2 * kTileCalls * stride + row_floats) * sizeof(float);
     int device, optin, n_sms, status;
@@ -380,15 +410,9 @@ extern "C" int demux_estep_logits(
     const int warps = (int)(fit < (size_t)kMaxWarpsPerBlock ? fit : kMaxWarpsPerBlock);
     const size_t shared = warps * warp_bytes;
 
-    cudaStream_t s = (cudaStream_t)stream;
-    if ((status = demux_check_csr(row_ptr, n_barcodes, n_calls, s)) != 0) return status;
-    if ((status = demux_check_index(vid, n_calls, n_variants, s)) != 0) return status;
-    if ((status = demux_check_schedule(schedule, (int64_t)n_passes * kWarp * kEntry, kEntry, n_blocks, n_pg, s)) != 0)
-        return status;
-
     const bool rows16 = n_donors % 4 == 0 && aligned16(genotype_prob);
-    const Kernel kernel = fast_log ? (rows16 ? estep_kernel<true, 4> : estep_kernel<true, 1>)
-                                   : (rows16 ? estep_kernel<false, 4> : estep_kernel<false, 1>);
+    const Kernel kernel = fast_log ? (rows16 ? estep_kernel<true, 4, kBanded> : estep_kernel<true, 1, kBanded>)
+                                   : (rows16 ? estep_kernel<false, 4, kBanded> : estep_kernel<false, 1, kBanded>);
     if ((status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared)) != 0)
         return status;
     int per_sm = 0;
@@ -400,7 +424,56 @@ extern "C" int demux_estep_logits(
     const unsigned int grid = (unsigned int)(wanted < resident ? wanted : resident);
     const bool vec_rows = n_pg % 4 == 0 && aligned16(prior_logits) && aligned16(logits) && aligned16(probs);
     kernel<<<grid, warps * kWarp, shared, s>>>(
-        genotype_prob, n_donors, stride, row_ptr, vid, q, n_barcodes, penalties, schedule, n_passes, n_pg,
-        row_floats, prior_logits, logits, probs, vec_rows);
+        genotype_prob, n_donors, stride, band_edges, n_bands, row_ptr, vid, q, n_barcodes, penalties, schedule,
+        n_passes, n_pg, row_floats, prior_logits, logits, probs, vec_rows);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// prior_logits and probs may be null; fast_log != 0 takes the MUFU log2
+extern "C" int demux_estep_logits(
+    const float* genotype_prob, int64_t n_variants, int n_donors,
+    const int64_t* row_ptr, int64_t n_calls, const int32_t* vid, const float* q, int64_t n_barcodes,
+    const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
+    const float* prior_logits, float* logits, float* probs, int fast_log, void* stream)
+{
+    if (n_barcodes <= 0 || n_pg <= 0 || n_donors <= 0 || n_passes <= 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    int status;
+    if ((status = demux_check_csr(row_ptr, n_barcodes, n_calls, s)) != 0) return status;
+    if ((status = demux_check_index(vid, n_calls, n_variants, s)) != 0) return status;
+    if ((status = demux_check_schedule(schedule, (int64_t)n_passes * kWarp * kEntry, kEntry, (n_donors + 3) / 4,
+                                       n_pg, s)) != 0)
+        return status;
+    return launch_estep<false>(genotype_prob, n_donors, nullptr, 1, row_ptr, vid, q, n_barcodes, penalties, schedule,
+                               n_passes, n_pg, prior_logits, logits, probs, fast_log, s);
+}
+
+// The banded E-step: band_edges [n_bands + 1] cut the variants, band_ptr
+// [n_bands, n_barcodes + 1] is each band's barcode CSR over the band-major
+// calls, vid is band-local. Logits only.
+extern "C" int demux_estep_logits_banded(
+    const float* genotype_prob, int64_t n_variants, int n_donors,
+    const int64_t* band_edges, int n_bands, const int64_t* band_ptr,
+    int64_t n_calls, const int32_t* vid, const float* q, int64_t n_barcodes,
+    const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
+    float* logits, int fast_log, void* stream)
+{
+    // global variant ids are ints inside the kernel
+    if (n_barcodes <= 0 || n_pg <= 0 || n_donors <= 0 || n_passes <= 0 || n_bands <= 0 || n_variants > INT32_MAX)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    int status;
+    // edges non-decreasing in [0, n_variants]; the flattened band CSR non-decreasing in [0, n_calls]
+    if ((status = demux_check_csr(band_edges, n_bands, n_variants, s)) != 0) return status;
+    if ((status = demux_check_csr(band_ptr, (int64_t)n_bands * (n_barcodes + 1) - 1, n_calls, s)) != 0)
+        return status;
+    if ((status = demux_check_banded_index(vid, band_ptr, band_edges, n_bands, n_barcodes, INT64_MAX, n_calls, s)) != 0)
+        return status;
+    if ((status = demux_check_schedule(schedule, (int64_t)n_passes * kWarp * kEntry, kEntry, (n_donors + 3) / 4,
+                                       n_pg, s)) != 0)
+        return status;
+    return launch_estep<true>(genotype_prob, n_donors, band_edges, n_bands, band_ptr, vid, q, n_barcodes, penalties,
+                              schedule, n_passes, n_pg, nullptr, logits, nullptr, fast_log, s);
 }

@@ -1,11 +1,12 @@
 """On-demand build of the CUDA kernels: ``csrc/*.cu`` → one shared library.
 
 The counterpart of ``demuxalot_tpu.native``'s on-demand g++ build. At first
-use ``nvcc`` compiles every source under ``demuxalot_tpu_torch/csrc`` for
-Hopper (``sm_90a``) into ``demuxalot_tpu_torch/_build/``, under a file name
-keyed by a hash of the sources and flags; the library has a plain C
-interface and is loaded with ``ctypes``. A missing ``nvcc`` or a failed
-build raises: there is no fallback.
+use one ``nvcc`` per source under ``demuxalot_tpu_torch/csrc``, all started
+together, compiles it for Hopper (``sm_90a``); one more links the objects
+into ``demuxalot_tpu_torch/_build/``, under a file name keyed by a hash of
+the sources and flags. The library has a plain C interface and is loaded
+with ``ctypes``. A missing ``nvcc`` or a failed build raises: there is no
+fallback.
 
 Nothing here runs at import time, so the package loads where there is no
 CUDA toolchain.
@@ -29,7 +30,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 FALLBACK_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 )
 
@@ -49,6 +50,27 @@ _SIGNATURES = {
         _vp, _i64, _i32, _i32,  # posterior, n_barcodes, n_pg, n_donors
         _vp, _i64, _vp, _vp, _i64,  # var_ptr, n_calls, cb, q, n_variants
         ctypes.c_float, _vp, _vp,  # power, addition, stream
+    ),
+    "demux_estep_logits_banded": (
+        _vp, _i64, _i32,  # genotype_prob, n_variants, n_donors
+        _vp, _i32, _vp,  # band_edges, n_bands, band_ptr
+        _i64, _vp, _vp, _i64,  # n_calls, vid (band-local), q, n_barcodes
+        _vp, _vp, _i32, _i32,  # penalties, schedule, n_passes, n_pg
+        _vp, _i32, _vp,  # logits, fast_log, stream
+    ),
+    "demux_mstep_addition_banded": (
+        _vp, _i32, _i32, _i32,  # table, n_bands, band_rows, n_donors
+        _vp, _i64,  # band_edges, n_barcodes
+        _vp, _i64, _vp, _vp, _i64,  # band_ptr, n_calls, cb (band-local), q2, n_variants
+        _vp, _vp,  # addition, stream
+    ),
+    "demux_gather_rows": (
+        _vp, _i64, _i32, _vp, _i64,  # table, n_rows, width, idx, n
+        _vp, _vp,  # out, stream
+    ),
+    "demux_gather_sum": (
+        _vp, _i64, _i32, _vp, _i64, _i64,  # table, n_rows, width, idx, n, step
+        _vp, _vp, _vp,  # partial, total, stream
     ),
 }
 
@@ -106,23 +128,25 @@ def build() -> BuildResult:
         return _build
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build beside the target and rename: concurrent builders never load a
-    # half-written library
-    fd, partial = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", partial, *map(str, sources())]
     start = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
+    # objects and the library are built in a scratch directory beside the
+    # target and renamed: concurrent builds never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as scratch:
+        commands = [[nvcc, *NVCC_FLAGS, "-c", str(source), "-o", str(Path(scratch) / f"{source.stem}.o")]
+                    for source in sources()]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in commands]
+        logs = [proc.communicate()[0] for proc in procs]
+        partial = Path(scratch) / target.name
+        link = [nvcc, "-shared", "-o", str(partial), *(cmd[-1] for cmd in commands)]
+        for cmd, proc, log in zip(commands, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        linked = subprocess.run(link, capture_output=True, text=True)
+        if linked.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({linked.returncode}):\n{' '.join(link)}\n{linked.stdout}{linked.stderr}")
         os.replace(partial, target)
-    finally:
-        if os.path.exists(partial):
-            os.unlink(partial)
-    _build = BuildResult(target, time.perf_counter() - start, proc.stdout + proc.stderr)
+    _build = BuildResult(target, time.perf_counter() - start, "".join(logs) + linked.stdout + linked.stderr)
     return _build
 
 

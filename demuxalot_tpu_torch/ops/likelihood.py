@@ -130,7 +130,10 @@ def probs_from_betas(
     :class:`ops.packing.VariantReindex` produces). The denominator is then a
     windowed sum of shifted rows, elementwise work with no scatter; the
     additions run in the same order as the JAX package's, so the two agree
-    bit for bit. 0 = no ordering assumption: segment sum over SNPs.
+    bit for bit. 0 = no ordering assumption: the variants are stably sorted
+    by SNP and each SNP's run is summed in order (``torch.segment_reduce``),
+    so two calls give the same bits on the card too (``index_add_`` would
+    sum in atomic order there).
 
     (reference: demuxalot/demux.py:267-274)
     """
@@ -142,7 +145,9 @@ def probs_from_betas(
             denom[:-d] += torch.where(same, betas[d:], 0.0)
             denom[d:] += torch.where(same, betas[:-d], 0.0)
     else:
-        per_snp = betas.new_zeros((n_snps, betas.shape[1])).index_add_(0, variant2snp, betas)
+        order = torch.argsort(variant2snp, stable=True)
+        per_snp = torch.segment_reduce(betas[order], "sum", unsafe=True,
+                                       lengths=torch.bincount(variant2snp, minlength=n_snps))
         denom = per_snp[variant2snp]
     probs = betas / denom.clamp(min=1e-7)
     return probs.clamp(p_genotype_clip, 1 - p_genotype_clip)

@@ -9,7 +9,7 @@ from .encoding import (
 )
 from .files import as_str
 from .lookup import FeatureLookup
-from .profiling import MStepRoofline, Roofline, device_trace
+from .profiling import GatherRoofline, MStepRoofline, Roofline, device_trace
 from .summary import _compute_qualities, compute_qualities, summarize_counted_SNPs
 from .timing import Timer
 
@@ -24,6 +24,7 @@ def read_vcf_to_header_and_pandas(vcf_filename):
 __all__ = [
     "BarcodeHandler",
     "FeatureLookup",
+    "GatherRoofline",
     "MStepRoofline",
     "Roofline",
     "Timer",

@@ -1,8 +1,9 @@
 """Profiling helpers: device traces and kernel speed-of-light bounds on an H100.
 
 The counterpart of ``demuxalot_tpu.utils.profiling``: :func:`device_trace`
-records a ``torch.profiler`` trace, and :class:`Roofline` (E-step) and
-:class:`MStepRoofline` give the least time one NVIDIA H100 could take for a
+records a ``torch.profiler`` trace, and :class:`Roofline` (E-step),
+:class:`MStepRoofline` and :class:`GatherRoofline` (``experiments.
+kernel_gather``) give the least time one NVIDIA H100 could take for a
 kernel's work, the larger of its bytes over the HBM rate and its FP32
 operations over the FP32 rate. Bytes count each input read once and each
 output written once, whatever the kernel reads again; operations count
@@ -133,3 +134,29 @@ class MStepRoofline(_Bound):
 
     def operations(self) -> int:
         return 3 * self.n_calls * self.n_donors
+
+
+@dataclass
+class GatherRoofline(_Bound):
+    """Speed of light of a row gather (``rows_out``) or a gather-sum (``csrc/gather.cu``).
+
+    Bytes: the indices (4 per index), the table rows they touch (4·W per
+    distinct row; each input byte counts once, however often it is
+    gathered) and the output, the gathered rows (4·N·W) or one f32.
+    Operations: none for the gather, one add per gathered element for the
+    sum.
+    """
+
+    n_idx: int
+    n_rows_touched: int
+    width: int
+    rows_out: bool
+    hbm_bytes_per_s: float = H100_HBM_BYTES_PER_S
+    f32_flops_per_s: float = H100_FP32_FLOPS_PER_S
+
+    def bytes_moved(self) -> int:
+        out = 4 * self.n_idx * self.width if self.rows_out else 4
+        return 4 * self.n_idx + 4 * self.n_rows_touched * self.width + out
+
+    def operations(self) -> int:
+        return 0 if self.rows_out else self.n_idx * self.width

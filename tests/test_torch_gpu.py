@@ -453,3 +453,185 @@ def test_gpu_sharded_matches_single_device(engine_problem, extra_barcodes):
     if extra_barcodes:
         penalties = demux.L.doublet_penalties(genotypes.n_genotypes, 0.35)
         np.testing.assert_array_equal(logits.values[400:], np.broadcast_to(penalties, (extra_barcodes, len(penalties))))
+
+
+# ---------------------------------------------------------------------------
+# F1: probs_from_betas' general branch sums each SNP in order
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_gpu_compute_probs_from_betas_is_deterministic(monkeypatch):
+    """A shuffled variant2snp takes the segment-sum branch: two calls on the card give the same bits."""
+    _need_card()
+    from oracle import oracle_probs_from_betas
+
+    monkeypatch.setattr(Demultiplexer, "device", "cuda")
+    rng = np.random.RandomState(4)
+    variant2snp = np.repeat(np.arange(0, 60_000, 3), rng.randint(1, 6, 20_000)).astype(np.int32)
+    variant2snp = variant2snp[rng.permutation(len(variant2snp))]
+    betas = (rng.rand(len(variant2snp), 32) * 50).astype(np.float32)
+    first = Demultiplexer._compute_probs_from_betas(variant2snp, betas, 0.01)
+    np.testing.assert_array_equal(first, Demultiplexer._compute_probs_from_betas(variant2snp, betas, 0.01))
+    np.testing.assert_allclose(first, oracle_probs_from_betas(variant2snp, betas, 0.01), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the experiments' kernels: banded E-step and M-step, row gather, gather-sum
+# ---------------------------------------------------------------------------
+
+def _banded_estep_args(n_donors, n_bands, device="cuda", n_barcodes=100, n_calls=6000, pad=0):
+    from demuxalot_tpu_torch.experiments.inkernel_gather import banded_estep_operands
+
+    gprob, vid, cb, q, n_barcodes, n_donors, prior = estep_problem(n_donors=n_donors, n_barcodes=n_barcodes,
+                                                                   n_calls=n_calls)
+    if pad:  # padding calls (q = 1) after each barcode's real calls
+        rng = np.random.RandomState(9)
+        vid = np.concatenate([vid, rng.randint(0, gprob.shape[0], pad).astype(np.int32)])
+        cb = np.concatenate([cb, rng.randint(0, n_barcodes, pad).astype(np.int32)])
+        q = np.concatenate([q, np.ones(pad, np.float32)])
+        order = np.argsort(cb, kind="stable")
+        vid, cb, q = vid[order], cb[order], q[order]
+    operands = banded_estep_operands(n_donors, prior, t(cb, device), t(vid, device), t(q, device), n_barcodes,
+                                     gprob.shape[0], n_bands)
+    return t(gprob, device), operands
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bands", [1, 12, 300])
+@pytest.mark.parametrize("n_donors", [2, 7, 32, 64])
+def test_gpu_estep_banded_matches_plain(n_donors, n_bands):
+    """One band, 12 bands, and 300 bands over 200 variants (empty bands; most barcodes lack calls in most bands)."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments.inkernel_gather import estep_logits_banded, estep_logits_banded_plain
+
+    args = _banded_estep_args(n_donors, n_bands)
+    launches = estep_logits_banded.launches
+    got = estep_logits_banded(*args)
+    assert estep_logits_banded.launches == launches + 1
+    want = estep_logits_banded_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=5e-3)
+    assert torch.equal(got.argmax(1), want.argmax(1))
+    assert torch.equal(got, estep_logits_banded(*args))
+
+
+@pytest.mark.gpu
+def test_gpu_estep_banded_padding_is_bit_exact():
+    _need_card()
+    from demuxalot_tpu_torch.experiments.inkernel_gather import estep_logits_banded
+
+    assert torch.equal(estep_logits_banded(*_banded_estep_args(32, 12)),
+                       estep_logits_banded(*_banded_estep_args(32, 12, pad=999)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("power", [1.0, 2.0])
+@pytest.mark.parametrize("n_bands", [2, 40])
+@pytest.mark.parametrize("n_donors", [1, 7, 32, 65])
+def test_gpu_mstep_banded_matches_plain(n_donors, n_bands, power):
+    """Two bands and 40 bands of 150 barcodes; every odd variant has no call, q = 1 calls add exactly 0."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments.inkernel_gather import (
+        banded_mstep_operands, mstep_addition_banded, mstep_addition_banded_plain,
+    )
+
+    post, vid, cb, q, n_variants, n_donors = mstep_problem(n_donors=n_donors)
+    vid = vid // 2 * 2
+    q[::53] = 1.0
+    operands = banded_mstep_operands(t(vid, "cuda"), t(cb, "cuda"), t(q, "cuda"), n_variants, post.shape[0], n_bands)
+    args = (t(post, "cuda"), operands, n_donors, power)
+    launches = mstep_addition_banded.launches
+    got = mstep_addition_banded(*args)
+    assert mstep_addition_banded.launches == launches + 1
+    want = mstep_addition_banded_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    assert not got[1::2].any()
+    assert torch.equal(got, mstep_addition_banded(*args))
+
+
+@pytest.mark.gpu
+def test_gpu_mstep_banded_band_past_shared_memory_raises():
+    """Two bands of 35,000 barcodes x 32 donors (4.5 MB each) cannot sit in a block's shared memory."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments.inkernel_gather import banded_mstep_operands, mstep_addition_banded
+
+    post, vid, cb, q, n_variants, _ = mstep_problem(n_donors=32, n_barcodes=70_000)
+    operands = banded_mstep_operands(t(vid, "cuda"), t(cb, "cuda"), t(q, "cuda"), n_variants, 70_000, 2)
+    launches = mstep_addition_banded.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        mstep_addition_banded(t(post, "cuda"), operands, 32, 2.0)
+    assert mstep_addition_banded.launches == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8192, 64), (131_072, 32), (1000, 7)])
+def test_gpu_gather_rows_is_bit_equal(shape):
+    """16-byte rows (widths 64, 32) and 4-byte ones (width 7)."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments.kernel_gather import gather_rows, rate_inputs
+
+    table, idx = rate_inputs(*shape, n_idx=100_003, seed=1)
+    launches = gather_rows.launches
+    got = gather_rows(table, idx)
+    assert gather_rows.launches == launches + 1
+    assert torch.equal(got, table[idx.long()])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, n_idx, step", [((8192, 64), 1 << 20, 4096), ((1000, 7), 10_001, 4096),
+                                                ((131_072, 32), 5000, 1)])
+def test_gpu_gather_sum_matches_float64(shape, n_idx, step):
+    _need_card()
+    from demuxalot_tpu_torch.experiments.kernel_gather import gather_sum, gather_sum_plain, rate_inputs
+
+    table, idx = rate_inputs(*shape, n_idx=n_idx, seed=2)
+    got = gather_sum(table, idx, step)
+    exact = float(table.double()[idx.long()].sum())
+    assert float(got) == pytest.approx(exact, rel=1e-5)
+    assert float(gather_sum_plain(table, idx, step)) == pytest.approx(exact, rel=1e-5)
+    assert torch.equal(got, gather_sum(table, idx, step))
+
+
+_BANDED_TRAP_SCRIPT = """
+import sys
+import torch
+sys.path[:0] = {paths!r}
+from demuxalot_tpu_torch.experiments import inkernel_gather as IG
+from demuxalot_tpu_torch.experiments import kernel_gather as KG
+from torch_problems import estep_problem, mstep_problem, t
+if {kernel!r} == "estep_banded":
+    gprob, vid, cb, q, n_barcodes, n_donors, prior = estep_problem(n_donors=4)
+    operands = IG.banded_estep_operands(n_donors, prior, t(cb, "cuda"), t(vid, "cuda"), t(q, "cuda"), n_barcodes,
+                                        gprob.shape[0], 4)
+    bad = operands.vid.clone()
+    bad[len(bad) // 2] = 50  # band 2 of 200 variants holds 50: one past its last
+    launch = lambda: IG.estep_logits_banded(t(gprob, "cuda"), operands._replace(vid=bad))
+elif {kernel!r} == "mstep_banded":
+    post, vid, cb, q, n_variants, n_donors = mstep_problem()
+    operands = IG.banded_mstep_operands(t(vid, "cuda"), t(cb, "cuda"), t(q, "cuda"), n_variants, post.shape[0], 3)
+    bad = operands.cb.clone()
+    bad[len(bad) // 2] = 50  # band 1 of 150 barcodes holds 50: one past its last
+    launch = lambda: IG.mstep_addition_banded(t(post, "cuda"), operands._replace(cb=bad), n_donors, 2.0)
+else:
+    table, idx = KG.rate_inputs(100, 8, 1000)
+    idx[500] = 100
+    launch = lambda: KG.gather_sum(table, idx)
+try:
+    launch()
+    torch.cuda.synchronize()
+except Exception as error:
+    print(type(error).__name__, error)
+    sys.exit(3)
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["estep_banded", "mstep_banded", "gather"])
+def test_gpu_banded_out_of_range_index_traps(kernel):
+    """A band-local id past its band (or an index past the table) traps in checks.cu, in a child process."""
+    _need_card()
+    tests = Path(__file__).resolve().parent
+    script = _BANDED_TRAP_SCRIPT.format(paths=[str(tests.parent), str(tests)], kernel=kernel)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 3, proc.stdout + proc.stderr

@@ -18,6 +18,9 @@ MODULES = [
     "demuxalot_tpu_torch.bamio",
     "demuxalot_tpu_torch.cli",
     "demuxalot_tpu_torch.convert",
+    "demuxalot_tpu_torch.experiments",
+    "demuxalot_tpu_torch.experiments.inkernel_gather",
+    "demuxalot_tpu_torch.experiments.kernel_gather",
     "demuxalot_tpu_torch.frontend",
     "demuxalot_tpu_torch.frontend.native_counter",
     "demuxalot_tpu_torch.models.demux",

@@ -205,3 +205,41 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda.build()
     assert not (tmp_path / "build").exists()
+
+
+_FAKE_NVCC = """#!/bin/sh
+# records its arguments, writes its -o file, and says what ptxas would
+echo "$@" >> "{calls}"
+out=""
+prev=""
+for arg in "$@"; do
+    if [ "$prev" = "-o" ]; then out="$arg"; fi
+    prev="$arg"
+done
+case " $* " in *" -c "*) echo "ptxas info    : Used 8 registers for $out";; esac
+printf x > "$out"
+"""
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """One nvcc per csrc/*.cu with -c, then one -shared link of the objects into the hashed library name."""
+    from demuxalot_tpu_torch.ops import _cuda
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(calls=tmp_path / "calls.txt"))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "_build", None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    (tmp_path / "cuda" / "bin").mkdir(parents=True)
+    nvcc.rename(tmp_path / "cuda" / "bin" / "nvcc")
+    result = _cuda.build()
+    calls = (tmp_path / "calls.txt").read_text().splitlines()
+    sources = _cuda.sources()
+    assert len(calls) == len(sources) + 1
+    compiled = sorted(call.split(" -c ")[1].split()[0] for call in calls if " -c " in call)
+    assert compiled == sorted(str(s) for s in sources)
+    assert calls[-1].startswith("-shared -o ") and calls[-1].count(".o") == len(sources)
+    assert result.path == _cuda.library_path() and result.path.read_text() == "x"
+    assert result.log.count("ptxas info") == len(sources)
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [result.path.name]

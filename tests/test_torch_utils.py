@@ -23,7 +23,8 @@ from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, convert
 from demuxalot_tpu_torch.models import demux as demux_mod
 from demuxalot_tpu_torch.ops import packing as P
 from demuxalot_tpu_torch.utils import (
-    FeatureLookup, MStepRoofline, Roofline, Timer, compute_qualities, device_trace, summarize_counted_SNPs,
+    FeatureLookup, GatherRoofline, MStepRoofline, Roofline, Timer, compute_qualities, device_trace,
+    summarize_counted_SNPs,
 )
 from oracle import iterate_pseudogenotypes, oracle_barcode_logits, oracle_probs_from_betas
 
@@ -142,6 +143,20 @@ def test_demultiplexer_parity_helpers():
     np.testing.assert_array_equal(dispatched, logits)
     np.testing.assert_array_equal(Demultiplexer._doublet_penalties(6, 0.35),
                                   JaxDemultiplexer._doublet_penalties(6, 0.35))
+
+
+def test_compute_probs_from_betas_on_shuffled_snps():
+    """A shuffled, non-contiguous variant2snp (SNPs of 1 to 5 variants, some SNP ids unused) takes the
+    fixed-order segment sum: within 1e-6 of the JAX package's helper and of the oracle."""
+    rng = np.random.RandomState(4)
+    variant2snp = np.repeat(np.arange(0, 600, 3), rng.randint(1, 6, 200)).astype(np.int32)
+    variant2snp = variant2snp[rng.permutation(len(variant2snp))]
+    betas = (rng.rand(len(variant2snp), 7) * 50).astype(np.float32)
+    gprob = Demultiplexer._compute_probs_from_betas(variant2snp, betas, 0.01)
+    np.testing.assert_allclose(gprob, JaxDemultiplexer._compute_probs_from_betas(variant2snp, betas, 0.01),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(gprob, oracle_probs_from_betas(variant2snp, betas, 0.01), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(gprob, Demultiplexer._compute_probs_from_betas(variant2snp, betas, 0.01))
 
 
 def test_compute_barcode_logits_aggregating_matches_jax(monkeypatch):
@@ -263,6 +278,21 @@ def test_estep_roofline_counts_the_fused_softmax():
     assert with_prior.bytes_moved() == fused.bytes_moved() + 4 * cells
     assert fused.bound_by() == "operations"
     assert fused.speed_of_light_s() == fused.operations() / 67e12
+
+
+def test_banded_and_gather_roofline_counts():
+    """The banded kernels are held to the function's own work, the unbanded bounds (a band layout is the
+    kernel's choice, not work the function must do); a gather counts each touched row once."""
+    for bound in (Roofline, MStepRoofline):
+        assert "n_bands" not in bound.__dataclass_fields__
+    mstep = MStepRoofline(n_calls=1000, n_donors=4, n_barcodes=50, n_variants=200)
+    assert mstep.bytes_moved() == 8 * 1000 + 8 * 201 + 4 * 50 * 4 + 4 * 200 * 4
+    rows = GatherRoofline(n_idx=1 << 20, n_rows_touched=8192, width=64, rows_out=True)
+    assert rows.bytes_moved() == 4 * (1 << 20) + 4 * 8192 * 64 + 4 * (1 << 20) * 64
+    assert rows.operations() == 0 and rows.bound_by() == "bytes"
+    total = GatherRoofline(n_idx=1 << 20, n_rows_touched=8192, width=64, rows_out=False)
+    assert total.bytes_moved() == 4 * (1 << 20) + 4 * 8192 * 64 + 4
+    assert total.operations() == (1 << 20) * 64
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
