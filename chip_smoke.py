@@ -84,17 +84,36 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    gather kernels with 1,048,576 uniform indices (seed 0) on [8192, 64]
    (the TPU bench's table), [131,072, 32] (the bench G) and [800,000, 32];
    (b)-(d) are the experiments' path, counted. Then the plain versions'
-   and the library calls' times on the same inputs.
+   and the library calls' times on the same inputs;
+10. the E-step variants (``experiments.folded_estep``, ``split_estep``,
+   ``group_estep``). (a) Each kernel against its plain version at edge
+   shapes: donors 2, 7, 32, 64 (2,080 columns), prior 0.25, two barcodes
+   in three without calls and one of 1,200; folded with and without the
+   log, split at the harness's five word pairs (all twelve at 7 and 64
+   donors), group at G 4 and 8 with 0-2 words; two runs bit-equal, and 999
+   padding calls leaving every kernel's logits bit-equal. (b) The A/B of
+   ``estep_variants.run_ab`` at the JAX harnesses' shape
+   (``synthesize_device_workload(65536, 32, 65536, 64, seed=3)``, prior
+   0.25): the mainline fused and logits-only E-step, ``fold_calls``,
+   ``folded_logits`` and the two together, split at its five pairs, group
+   at G 4 and 8 with 2 words, in turns, each at the mainline's logits bar
+   (split (1,1) and (2,1) at their plain version's), folded, split (2,2)
+   and (3,2) within 3e-5 of the mainline's posteriors; the experiments'
+   path, counted. (c) Each kernel against its plain version there and the
+   plain versions' times.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the mainline kernels' runs on the package paths, phases 4,
 6, 7 and 8a, which ``launches_by_path`` keeps apart, with the A/B's runs
-of them in ``ab_launches``; the experiments' kernels' runs in 9b-d;
+of them in ``ab_launches``; the experiments' kernels' runs in 9b-d and 10b;
 ``bound_ms`` is the least time the card could take for the call that
 ``ms`` times, from ``utils.profiling``, the banded kernels' that of the
 function they compute, with their band CSRs in ``layout_bytes``; the
 E-step's ``ms`` is its fused call, logits and posteriors, as the EM loop
-and predict make it; the gathers' ``ms`` is the TPU bench's table);
+and predict make it; the gathers' ``ms`` is the TPU bench's table; the
+variants' bound is the E-step's own, with their U bytes in
+``layout_bytes`` and their logs in ``log_count``, split's ``ms`` at (2,2),
+group's at G 4);
 the line before it is nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -1429,6 +1448,174 @@ def phase_experiments(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the E-step variants
+# ---------------------------------------------------------------------------
+
+def _variant_kernels() -> dict:
+    """{name: wrapper} of the E-step variants' three kernels (each wrapper carries ``.launches``)."""
+    from demuxalot_tpu_torch.experiments.folded_estep import folded_logits
+    from demuxalot_tpu_torch.experiments.group_estep import group_logits
+    from demuxalot_tpu_torch.experiments.split_estep import split_logits
+
+    return {"folded_logits": folded_logits, "split_logits": split_logits, "group_logits": group_logits}
+
+
+def _variant_inputs(n_donors: int, pad: int = 0) -> dict:
+    """:func:`_estep_inputs` at the variants' prior (calls on every third barcode) plus 1,200 calls of barcode 1;
+    ``pad`` q = 1 calls after each barcode's real calls."""
+    from demuxalot_tpu_torch.experiments.estep_variants import DOUBLET_PRIOR as VARIANT_PRIOR
+
+    p = _estep_inputs(n_donors, VARIANT_PRIOR, seed=n_donors)
+    rng = np.random.RandomState(n_donors + 100)
+    n_variants = len(p["variant2snp"])
+    vid = np.concatenate([p["vid"], rng.randint(0, n_variants, 1200).astype(np.int32)])
+    q = np.concatenate([p["q"], (rng.rand(1200) * 0.5).astype(np.float32), np.ones(pad, np.float32)])
+    cb = np.concatenate([p["cb"], np.ones(1200, np.int32), rng.randint(0, p["n_barcodes"], pad).astype(np.int32)])
+    vid = np.concatenate([vid, rng.randint(0, n_variants, pad).astype(np.int32)])
+    order = np.argsort(cb, kind="stable")
+    return dict(p, cb=cb[order], vid=vid[order], q=q[order])
+
+
+def _variant_cases(gprob, estep, pairs) -> list:
+    """(name, kernel, plain, args, kwargs) of every variant kernel on one input: folded with and without the
+    log, split at ``pairs``, group at G 4 and 8 with 0-2 words."""
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    from demuxalot_tpu_torch.experiments import group_estep as GE
+    from demuxalot_tpu_torch.experiments import split_estep as SE
+
+    u, ops = FE.fold_calls(gprob, estep), FE.variant_operands(estep)
+    cases = [(f"folded use_log={use_log}", FE.folded_logits, FE.folded_logits_plain, (u, ops), {"use_log": use_log})
+             for use_log in (True, False)]
+    cases += [(f"split ({e},{s})", SE.split_logits, SE.split_logits_plain, (u, ops, e, s), {}) for e, s in pairs]
+    for group in GE.HARNESS_GROUPS:
+        calls = GE.group_layout(estep, group)
+        ug = FE.fold_calls(gprob, calls)
+        cases += [(f"group G={group} words={w}", GE.group_logits, GE.group_logits_plain, (ug, calls, w), {})
+                  for w in (0, 1, 2)]
+    return cases
+
+
+def phase_variant_kernels() -> None:
+    """Phase 10a: the variants' kernels against their plain versions at edge shapes, padding, repeat runs."""
+    from demuxalot_tpu_torch.experiments.split_estep import HARNESS_PAIRS, MAX_EXP_WORDS, MAX_SC_WORDS
+
+    cuda = torch.device("cuda")
+    every_pair = [(e, s) for e in range(MAX_EXP_WORDS + 1) for s in range(MAX_SC_WORDS + 1)]
+    # 64 donors: 2,080 columns, no multiple of the MMA's or the staging tile's; 7: the MMA's K padded
+    for n_donors in (2, 7, 32, 64):
+        p = _variant_inputs(n_donors)
+        gprob, estep = _estep_tensors(p, cuda)
+        errors = {}
+        for name, kernel, plain, args, kwargs in _variant_cases(gprob, estep,
+                                                                every_pair if n_donors in (7, 64) else HARNESS_PAIRS):
+            got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+            what = f"{name} D={n_donors}"
+            errors[name] = compare(what, got, want, **LOGITS_TOL)
+            if kwargs.get("use_log", True):
+                require(torch.equal(got.argmax(1), want.argmax(1)), f"{what}: same argmax")
+            require(torch.equal(got, kernel(*args, **kwargs)), f"{what}: two runs bit-equal")
+        counts = np.bincount(p["cb"], minlength=p["n_barcodes"])
+        say("variants", n_donors=n_donors, max_abs_err=errors, runs="bit-equal",
+            empty_barcodes=int((counts == 0).sum()), largest_barcode_calls=int(counts.max()))
+    pad = 999
+    cases = [_variant_cases(*_estep_tensors(_variant_inputs(32, p), cuda), HARNESS_PAIRS) for p in (0, pad)]
+    for (name, kernel, _, args, kwargs), (_, _, _, padded_args, _) in zip(*cases):
+        if not kwargs.get("use_log", True):
+            continue  # the nolog ablation sums arguments, and a padding call's is 1
+        require(torch.equal(kernel(*args, **kwargs), kernel(*padded_args, **kwargs)),
+                f"{name}: padding calls must leave the logits bit-equal")
+    say("variants", padding_noop="bit-equal", pad_calls=pad,
+        kernels=[name for name, *_, kwargs in cases[0] if kwargs.get("use_log", True)])
+
+
+def phase_variants(card: str) -> dict:
+    """Phase 10b-c: the A/B at the JAX harnesses' shape (counted), then each kernel against its plain version
+    there and the plain versions' times."""
+    from demuxalot_tpu_torch.experiments import estep_variants as EV
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    from demuxalot_tpu_torch.experiments import group_estep as GE
+    from demuxalot_tpu_torch.experiments import split_estep as SE
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.utils.profiling import Roofline
+
+    cuda = torch.device("cuda")
+    counted = {"estep_logits": estep_logits, **_variant_kernels()}
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    w = EV.variants_workload(cuda)
+    ab = EV.run_ab(w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: wrapper.launches for name, wrapper in counted.items()}
+    for name in _variant_kernels():
+        require(launches[name] > 0, f"the experiments' path launched {name} {launches[name]} times")
+    say("variants", stage="A/B, harness shape", card=card, **{key: value for key, value in ab.items() if key != "ms"},
+        ms={key: value["mean"] for key, value in ab["ms"].items()},
+        samples={key: value["samples"] for key, value in ab["ms"].items()})
+    say("variants", stage="path", card=card, launches=launches, wall_s=wall)
+
+    # each kernel against its plain version at the harness shape (split at (2,2), group at G 4, 2 words),
+    # then the plain versions' times
+    u = FE.fold_calls(w.genotype_prob, w.estep)
+    calls = w.groups[4]
+    ug = FE.fold_calls(w.genotype_prob, calls)
+    runs = {
+        "folded_logits": (lambda: FE.folded_logits(u, w.operands), lambda: FE.folded_logits_plain(u, w.operands)),
+        "split_logits": (lambda: SE.split_logits(u, w.operands, 2, 2),
+                         lambda: SE.split_logits_plain(u, w.operands, 2, 2)),
+        "group_logits": (lambda: GE.group_logits(ug, calls, EV.GROUP_WORDS),
+                         lambda: GE.group_logits_plain(ug, calls, EV.GROUP_WORDS)),
+    }
+    errors, plain_ms = {}, {}
+    for name, (kernel, plain) in runs.items():
+        got, want = kernel(), plain()
+        errors[name] = compare(f"harness-shape {name} vs plain", got, want, **LOGITS_TOL)
+        require(torch.equal(got.argmax(1), want.argmax(1)), f"harness-shape {name}: same argmax as plain")
+        plain_ms[name] = _time_ms(plain, repeats=2)
+    del u, ug
+    # the bound is the function's own, the E-step's; the variants' extra logs and U bytes stand beside it
+    bound = Roofline(n_calls=ab["n_calls"], n_donors=ab["n_donors"], n_pseudogenotypes=ab["n_pg"],
+                     n_barcodes=ab["n_barcodes"], n_variants=ab["n_variants"])
+    say("variants", stage="kernels vs plain, harness shape", card=card, max_abs_err=errors, plain_ms=plain_ms,
+        bound_ms=bound.speed_of_light_s() * 1e3, bound_by=bound.bound_by())
+    return {"ab": ab, "launches": launches, "errors": errors, "plain_ms": plain_ms, "bound": bound}
+
+
+def _variant_entries(variants: dict, launches) -> list:
+    """The kernels line's entries of phase 10's three kernels; ``launches(name)`` gives their launch fields."""
+    # the E-step variants at the JAX harnesses' shape (phase 10b-c): split's ms at (2,2), the pair that meets
+    # the posterior bar, group's at G 4 (TC 512), 2 words; the other settings beside them
+    v = variants
+    entries = []
+    ab, bound = v["ab"], v["bound"]
+    mean = lambda step: ab["ms"][step]["mean"]  # noqa: E731
+    by_kernel = {
+        "folded_logits": ("folded", "benchmarks/exp_estep.py:40", ab["u_bytes"], ab["log_count"],
+                          {"fold_calls_ms": mean("fold_calls"), "fold_and_folded_ms": mean("fold_and_folded")}),
+        "split_logits": ("split_22", "benchmarks/exp_split.py:62", ab["u_bytes"], ab["log_count"],
+                         {"by_pair": {name[6:]: {"ms": mean(name), **ab["checks"][name]}
+                                      for name in ab["checks"] if name.startswith("split_")}}),
+        "group_logits": ("group_G4", "benchmarks/exp_group.py:123", ab["groups"][4]["u_bytes"],
+                         ab["groups"][4]["log_count"],
+                         {"by_group": {g: {"ms": mean(f"group_G{g}"), "n_calls": x["n_calls"],
+                                           **ab["checks"][f"group_G{g}"]} for g, x in ab["groups"].items()}}),
+    }
+    for name, (step, replaces, layout_bytes, log_count, extra) in by_kernel.items():
+        ms = mean(step)
+        entries.append({
+            "name": name, "route": "cuda", "source": f"demuxalot_tpu_torch/csrc/{name.split('_')[0]}.cu",
+            "replaces": replaces, **launches(name), "max_abs_err": v["errors"][name],
+            "posterior_max_abs_err": ab["checks"][step]["posterior_max_abs_err"], "ms": ms,
+            "plain_ms": v["plain_ms"][name], "bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by(),
+            "share_of_bound": bound.speed_of_light_s() * 1e3 / ms, "library_ms": None,
+            "library_ms_reason": "no single PyTorch call computes it", "mainline_ms": mean("estep_logits"),
+            "mainline_fused_ms": mean("estep_fused"), "layout_bytes": layout_bytes, "log_count": log_count,
+            **extra})
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # --parent: this tree's E-step beside an older tree's, in turns
 # ---------------------------------------------------------------------------
 
@@ -1522,19 +1709,23 @@ def main() -> int:
     lap("gather_kernels")
     experiments = phase_experiments(card)
     lap("experiments")
+    phase_variant_kernels()
+    lap("variant_kernels")
+    variants = phase_variants(card)
+    lap("variants")
     say("smoke", phase_seconds=seconds, total_s=sum(seconds.values()))
     t = timing["timings"]
 
     def launches(name: str) -> dict:
-        if name in _experiment_kernels():  # no package path calls them
-            return {"launches": experiments["launches"][name],
-                    "launches_by_path": {"experiments": experiments["launches"][name]}}
+        if name in _experiment_kernels() or name in _variant_kernels():  # no package path calls them
+            counts = experiments["launches"] if name in _experiment_kernels() else variants["launches"]
+            return {"launches": counts[name], "launches_by_path": {"experiments": counts[name]}}
         # the package paths; the A/B's warm-ups and repeats of the mainline kernels stand apart (ab_launches)
         by_path = {"packed_calls": main_result["launches"][name], "bam_flow": bam_result["launches"][name],
                    "aggregate_em": aggregate["launches"][name], "detect_snps": discovery["launches"][name],
                    "sharded": sharded["launches"][name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path,
-                "ab_launches": experiments["launches"][name]}
+                "ab_launches": experiments["launches"][name] + variants["launches"].get(name, 0)}
 
     def bound(step: str) -> dict:
         roofline = timing["bounds"][step]
@@ -1591,6 +1782,7 @@ def main() -> int:
             "table": tpu_table["table"],
             "by_table": [{"table": o["table"], "ms": o[name]["ms_mean"], "ns_per_row": o[name]["ns_per_row"],
                           "library_ms": o[name]["library_ms"], "bound_ms": o[name]["bound_ms"]} for o in other_tables]})
+    kernels += _variant_entries(variants, launches)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

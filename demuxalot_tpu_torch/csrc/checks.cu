@@ -73,7 +73,8 @@ unsigned int blocks_for(int64_t n) {
 
 }  // namespace
 
-// Host launchers used by likelihood.cu, mstep.cu, banded.cu and gather.cu;
+// Host launchers used by likelihood.cu, mstep.cu, banded.cu, gather.cu, folded.cu, split.cu
+// and group.cu;
 // each returns cudaGetLastError().
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream) {
     if (n > 0) check_index_kernel<<<blocks_for(n), kThreads, 0, stream>>>(idx, n, limit);

@@ -1,14 +1,20 @@
-"""The port's counterparts of the JAX package's in-kernel-gather experiments.
+"""The port's counterparts of the JAX package's kernel experiments under ``benchmarks/``.
 
 - :mod:`.inkernel_gather`: ``benchmarks/inkernel_gather_kernels.py`` (the
   variant-banded E-step and the barcode-banded M-step) and the A/B of
   ``benchmarks/exp_inkernel_gather_estep.py``;
 - :mod:`.kernel_gather`: ``benchmarks/exp_kernel_gather.py`` (the row-gather
-  canary and the gather-rate bench).
+  canary and the gather-rate bench);
+- :mod:`.folded_estep`, :mod:`.split_estep`, :mod:`.group_estep`:
+  ``benchmarks/exp_estep.py``, ``exp_split.py`` and ``exp_group.py`` (the
+  E-step variants: folded, split-word bf16 on the tensor cores, group-G),
+  and :mod:`.estep_variants`, their shared workload and A/B against the
+  mainline E-step.
 
 Each kernel is hand-written CUDA (``csrc/likelihood.cu``'s banded
-instantiation, ``csrc/banded.cu``, ``csrc/gather.cu``) beside a plain
-PyTorch version; the wrappers launch the kernel for CUDA tensors and run the
-plain version for CPU tensors. No package path calls them. Run them with
-``python -m demuxalot_tpu_torch.experiments.<module> [--device cpu]``.
+instantiation, ``csrc/banded.cu``, ``csrc/gather.cu``, ``csrc/folded.cu``,
+``csrc/split.cu``, ``csrc/group.cu``) beside a plain PyTorch version; the
+wrappers launch the kernel for CUDA tensors and run the plain version for
+CPU tensors. No package path calls them. Run them with ``python -m
+demuxalot_tpu_torch.experiments.<module> [--device cpu]``.
 """

@@ -72,6 +72,21 @@ _SIGNATURES = {
         _vp, _i64, _i32, _vp, _i64, _i64,  # table, n_rows, width, idx, n, step
         _vp, _vp, _vp,  # partial, total, stream
     ),
+    "demux_folded_logits": (
+        _vp, _i64, _i32, _vp, _i64,  # u, n_calls, n_donors, row_ptr, n_barcodes
+        _vp, _vp, _i32, _vp,  # pairs, penalties, n_pg, logits
+        _i32, _vp,  # use_log, stream
+    ),
+    "demux_split_logits": (
+        _vp, _i64, _i32, _vp, _i64,  # u, n_calls, n_donors, row_ptr, n_barcodes
+        _vp, _vp, _i32, _vp,  # pairs, penalties, n_pg, logits
+        _i32, _i32, _vp,  # exp_words, sc_words, stream
+    ),
+    "demux_group_logits": (
+        _vp, _i64, _i32, _vp, _i64, _i32,  # u, n_calls, n_donors, row_ptr, n_barcodes, group
+        _vp, _vp, _i32, _vp,  # pairs, penalties, n_pg, logits
+        _i32, _i32, _vp,  # n_words, use_log, stream
+    ),
 }
 
 
@@ -137,11 +152,12 @@ def build() -> BuildResult:
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for cmd in commands]
         logs = [proc.communicate()[0] for proc in procs]
+        failed = [f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
+                  for cmd, proc, log in zip(commands, procs, logs) if proc.returncode != 0]
+        if failed:  # every source's errors, not only the first's
+            raise RuntimeError("\n".join(failed))
         partial = Path(scratch) / target.name
         link = [nvcc, "-shared", "-o", str(partial), *(cmd[-1] for cmd in commands)]
-        for cmd, proc, log in zip(commands, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
         linked = subprocess.run(link, capture_output=True, text=True)
         if linked.returncode != 0:
             raise RuntimeError(f"nvcc failed ({linked.returncode}):\n{' '.join(link)}\n{linked.stdout}{linked.stderr}")

@@ -635,3 +635,109 @@ def test_gpu_banded_out_of_range_index_traps(kernel):
     script = _BANDED_TRAP_SCRIPT.format(paths=[str(tests.parent), str(tests)], kernel=kernel)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=600)
     assert proc.returncode == 3, proc.stdout + proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the E-step variants: folded, split-word (tensor cores), group-G
+# ---------------------------------------------------------------------------
+
+def _variant_problem(n_donors, pad=0, seed=0):
+    """Calls on every third of 60 barcodes, barcode 1 with 1,200 of its own; ``pad`` q = 1 calls after each
+    barcode's real calls."""
+    gprob, vid, cb, q, n_barcodes, _, _ = estep_problem(seed=seed, n_donors=n_donors, n_barcodes=60, n_calls=3000)
+    rng = np.random.RandomState(seed + 1)
+    n_variants = gprob.shape[0]
+    vid = np.concatenate([vid, rng.randint(0, n_variants, 1200).astype(np.int32)])
+    q = np.concatenate([q, (rng.rand(1200) * 0.5).astype(np.float32), np.ones(pad, np.float32)])
+    # the padding is drawn last, so the real calls are the same with and without it
+    vid = np.concatenate([vid, rng.randint(0, n_variants, pad).astype(np.int32)])
+    cb = np.concatenate([cb // 3 * 3, np.ones(1200, np.int32), rng.randint(0, n_barcodes, pad).astype(np.int32)])
+    order = np.argsort(cb, kind="stable")
+    return gprob, vid[order], cb[order], q[order], n_barcodes
+
+
+def _variant_args(n_donors, pad=0, device="cuda"):
+    """(genotype_prob, EStepOperands) of :func:`_variant_problem` at doublet prior 0.25 on ``device``."""
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_operands
+    from demuxalot_tpu_torch.ops.packing import csr_row_pointers
+
+    gprob, vid, cb, q, n_barcodes = _variant_problem(n_donors, pad)
+    estep = estep_operands(n_donors, 0.25, t(csr_row_pointers(cb, n_barcodes), device), t(cb, device),
+                           t(vid, device), t(q, device))
+    return t(gprob, device), estep
+
+
+def _held_to_plain(kernel, plain, *args, argmax=True, **kwargs):
+    """One launch of ``kernel``; its logits at the logits bar of ``plain``'s (same arguments), the same argmax,
+    two runs bit-equal."""
+    launches = kernel.launches
+    got = kernel(*args, **kwargs)
+    assert kernel.launches == launches + 1
+    want = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=5e-3)
+    if argmax:
+        assert torch.equal(got.argmax(1), want.argmax(1))
+    assert torch.equal(got, kernel(*args, **kwargs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_log", [True, False])
+@pytest.mark.parametrize("n_donors", [2, 7, 32, 64])
+def test_gpu_folded_matches_plain(n_donors, use_log):
+    _need_card()
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+
+    gprob, estep = _variant_args(n_donors)
+    u, ops = FE.fold_calls(gprob, estep), FE.variant_operands(estep)
+    _held_to_plain(FE.folded_logits, FE.folded_logits_plain, u, ops, use_log=use_log, argmax=use_log)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sc_words", [0, 1, 2])
+@pytest.mark.parametrize("exp_words", [0, 1, 2, 3])
+@pytest.mark.parametrize("n_donors", [2, 7, 32, 64])
+def test_gpu_split_matches_plain(n_donors, exp_words, sc_words):
+    """64 donors give 2,080 columns, not a multiple of the 32-column staging tile; 7 donors pad the MMA's K."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    from demuxalot_tpu_torch.experiments import split_estep as SE
+
+    gprob, estep = _variant_args(n_donors)
+    u, ops = FE.fold_calls(gprob, estep), FE.variant_operands(estep)
+    _held_to_plain(SE.split_logits, SE.split_logits_plain, u, ops, exp_words, sc_words)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_words", [0, 1, 2])
+@pytest.mark.parametrize("group", [4, 8])
+@pytest.mark.parametrize("n_donors", [2, 7, 32, 64])
+def test_gpu_group_matches_plain(n_donors, group, n_words):
+    _need_card()
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    from demuxalot_tpu_torch.experiments import group_estep as GE
+
+    gprob, estep = _variant_args(n_donors)
+    calls = GE.group_layout(estep, group)
+    u = FE.fold_calls(gprob, calls)
+    _held_to_plain(GE.group_logits, GE.group_logits_plain, u, calls, n_words)
+
+
+@pytest.mark.gpu
+def test_gpu_variants_padding_is_bit_exact():
+    """q = 1 calls after each barcode's real calls change no bit of any variant kernel's logits."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    from demuxalot_tpu_torch.experiments import group_estep as GE
+    from demuxalot_tpu_torch.experiments import split_estep as SE
+
+    runs = []
+    for pad in (0, 999):
+        gprob, estep = _variant_args(32, pad)
+        u, ops = FE.fold_calls(gprob, estep), FE.variant_operands(estep)
+        got = [FE.folded_logits(u, ops)] + [SE.split_logits(u, ops, e, s) for e, s in SE.HARNESS_PAIRS]
+        for group in GE.HARNESS_GROUPS:
+            calls = GE.group_layout(estep, group)
+            got += [GE.group_logits(FE.fold_calls(gprob, calls), calls, w) for w in (0, 1, 2)]
+        runs.append(got)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -19,8 +19,12 @@ MODULES = [
     "demuxalot_tpu_torch.cli",
     "demuxalot_tpu_torch.convert",
     "demuxalot_tpu_torch.experiments",
+    "demuxalot_tpu_torch.experiments.estep_variants",
+    "demuxalot_tpu_torch.experiments.folded_estep",
+    "demuxalot_tpu_torch.experiments.group_estep",
     "demuxalot_tpu_torch.experiments.inkernel_gather",
     "demuxalot_tpu_torch.experiments.kernel_gather",
+    "demuxalot_tpu_torch.experiments.split_estep",
     "demuxalot_tpu_torch.frontend",
     "demuxalot_tpu_torch.frontend.native_counter",
     "demuxalot_tpu_torch.models.demux",
