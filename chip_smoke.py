@@ -100,12 +100,33 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    (split (1,1) and (2,1) at their plain version's), folded, split (2,2)
    and (3,2) within 3e-5 of the mainline's posteriors; the experiments'
    path, counted. (c) Each kernel against its plain version there and the
-   plain versions' times.
+   plain versions' times;
+11. the last three TPU harnesses (``experiments.dma_pattern``,
+   ``gather_forms``, ``gather_operand``). (a) Each kernel against its plain
+   version: the streams on ragged N (66,313 and 70,001) at steps of 512,
+   4,096 and 32,768 and D of 32 and 7, against float64 at 1e-6;
+   take_along_axis on both axes with widths of 7 and 33 and at D2's and
+   E2's shapes, bit for bit; the cluster gather-sum with a ragged last
+   step, every index in CTA 0's slice, a width of 7 and 1M indices on the
+   harness's table, against float64 at 1e-6, and a 16 MiB table that must
+   raise; tiny bit for bit; two runs bit-equal. (b) The stream rates at the
+   harness's shape (570.4 MB; widths and rows of 512, 2,048, 8,192 and
+   32,768), each failing above 1.05 of its bytes' bound. (c) The forms probe
+   (A-E2 on ``main``'s inputs) and the microbench (4,194,304 indices on
+   [8192, 32]: ``index_select(...).sum()``, ``gather_sum``,
+   ``cluster_gather_sum``). (d) The gather-operand stages of phases 1-3 at
+   the harness's shape (post [131,072, 528], 10,652,672 gathered columns,
+   the mainline E-step on 131,072 barcodes x 72 calls over 327,680 SNPs);
+   (b)-(d) are the experiments' path, counted. Then each kernel against its
+   plain version at those shapes, the plain versions' and the library
+   calls' times (``torch.sum`` over the streamed bytes, ``torch.gather``,
+   ``index_select``, ``torch.mul``).
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the mainline kernels' runs on the package paths, phases 4,
 6, 7 and 8a, which ``launches_by_path`` keeps apart, with the A/B's runs
-of them in ``ab_launches``; the experiments' kernels' runs in 9b-d and 10b;
+of them in ``ab_launches``; the experiments' kernels' runs in 9b-d, 10b
+and 11b-d;
 ``bound_ms`` is the least time the card could take for the call that
 ``ms`` times, from ``utils.profiling``, the banded kernels' that of the
 function they compute, with their band CSRs in ``layout_bytes``; the
@@ -113,7 +134,9 @@ E-step's ``ms`` is its fused call, logits and posteriors, as the EM loop
 and predict make it; the gathers' ``ms`` is the TPU bench's table; the
 variants' bound is the E-step's own, with their U bytes in
 ``layout_bytes`` and their logs in ``log_count``, split's ``ms`` at (2,2),
-group's at G 4);
+group's at G 4; the streams' ``ms`` at step 512 with every step in
+``by_step``, take_along_axis's at form D2 with every form in ``by_form``,
+the tiny kernel's with the gather-operand stages in ``stages_ms``);
 the line before it is nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -1616,6 +1639,229 @@ def _variant_entries(variants: dict, launches) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the DMA streams, the gather forms and the tiny kernel beside a gather
+# ---------------------------------------------------------------------------
+
+def _last_kernels() -> dict:
+    """{name: wrapper} of phase 11's five kernels (each wrapper carries ``.launches``)."""
+    from demuxalot_tpu_torch.experiments import dma_pattern as DP
+    from demuxalot_tpu_torch.experiments import gather_forms as GF
+    from demuxalot_tpu_torch.experiments import gather_operand as GO
+
+    return {"stream_cols": DP.stream_cols, "stream_rows": DP.stream_rows, "take_along_axis": GF.take_along_axis,
+            "cluster_gather_sum": GF.cluster_gather_sum, "tiny": GO.tiny}
+
+
+def phase_last_kernels() -> None:
+    """Phase 11a: the streams, take_along_axis, the cluster gather-sum and tiny against their plain versions."""
+    from demuxalot_tpu_torch.experiments import dma_pattern as DP
+    from demuxalot_tpu_torch.experiments import gather_forms as GF
+    from demuxalot_tpu_torch.experiments import gather_operand as GO
+
+    cuda = torch.device("cuda")
+    # ragged tails (66,313 = 2 x 32,768 + 777), steps of 512 and 32,768, and D = 7 (unaligned runs)
+    for cols, kernel, plain in ((True, DP.stream_cols, DP.stream_cols_plain),
+                                (False, DP.stream_rows, DP.stream_rows_plain)):
+        for n_slots, d, step in ((65_536 + 777, 32, 512), (65_536 + 777, 32, 32_768), (70_001, 7, 4096)):
+            x = DP.stream_inputs(n_slots, d, seed=step, device=cuda, cols=cols)
+            got, want = float(kernel(x, step)), float(plain(x, step))
+            exact = float(plain(x.double(), step))
+            for name, value in (("kernel", got), ("plain", want)):
+                require(abs(value - exact) <= DP.SUM_RTOL * abs(exact),
+                        f"{kernel.__name__}({step}) on {tuple(x.shape)} {name}: {value} vs float64 {exact}")
+            require(float(kernel(x, step)) == got, f"{kernel.__name__}({step}): two runs bit-equal")
+            say("last", kernel=kernel.__name__, shape=list(x.shape), step=step, rel_err=abs(got - exact) / exact,
+                plain_rel_err=abs(want - exact) / exact, runs="bit-equal")
+    # both axes, widths of 7 and 33 (no multiple of 4), and the harness's D2 and E2
+    rng = np.random.RandomState(11)
+    for axis, shape, out_rows in ((0, (50, 7), 13), (0, (8192, 128), 8192), (1, (9, 33), 9), (1, (256, 512), 256)):
+        table = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+        idx_shape = (out_rows, shape[1]) if axis == 0 else (shape[0], 2 * shape[1] + 1)
+        idx = torch.from_numpy(rng.randint(0, shape[axis], idx_shape).astype(np.int32)).to(cuda)
+        got = GF.take_along_axis(table, idx, axis)
+        require(torch.equal(got, GF.take_along_axis_plain(table, idx, axis)),
+                f"take_along_axis axis {axis} {shape}: bit-equal to the plain version")
+        require(torch.equal(got, GF.take_along_axis(table, idx, axis)), f"take_along_axis {shape}: runs bit-equal")
+        say("last", kernel="take_along_axis", axis=axis, table=list(shape), idx=list(idx_shape), out="bit-equal")
+    # a ragged last step, every index in CTA 0's slice (rows < 1,024), a width of 7, the harness's table
+    for shape, n_idx, step, high in (((8192, 32), 10_001, 8192, 8192), ((8192, 32), 50_000, 8192, 1024),
+                                     ((1000, 7), 5000, 1, 1000), ((8192, 32), 1 << 20, 8192, 8192)):
+        table = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+        idx = torch.from_numpy(rng.randint(0, high, n_idx).astype(np.int32)).to(cuda)
+        got, want = float(GF.cluster_gather_sum(table, idx, step)), float(GF.cluster_gather_sum_plain(table, idx, step))
+        exact = float(table.double()[idx.long()].sum())
+        for name, value in (("kernel", got), ("plain", want)):
+            require(abs(value - exact) <= GF.SUM_RTOL * abs(exact),
+                    f"cluster_gather_sum {shape} n={n_idx} {name}: {value} vs float64 {exact}")
+        require(float(GF.cluster_gather_sum(table, idx, step)) == got, f"cluster_gather_sum {shape}: runs bit-equal")
+        say("last", kernel="cluster_gather_sum", table=list(shape), n_idx=n_idx, step=step, index_below=high,
+            cluster_size=GF.cluster_gather_sum.cluster_size, rel_err=abs(got - exact) / exact,
+            plain_rel_err=abs(want - exact) / exact, runs="bit-equal")
+    try:  # a 16 MiB table fits no cluster: it raises, and nothing falls back
+        GF.cluster_gather_sum(torch.rand(131_072, 32, device=cuda), torch.zeros(8, dtype=torch.int32, device=cuda))
+        raised = None
+    except RuntimeError as error:
+        raised = str(error)
+    require(raised is not None and "does not fit" in raised, "a table past the cluster's shared memory raises")
+    for shape in ((8, 128), (3, 5)):
+        x = torch.randn(shape, device=cuda)
+        require(torch.equal(GO.tiny(x), GO.tiny_plain(x)), f"tiny {shape}: bit-equal to x * 2")
+    say("last", kernel="tiny", shapes=[[8, 128], [3, 5]], out="bit-equal", table_past_cluster=raised)
+
+
+def phase_last(card: str) -> dict:
+    """Phase 11b-d: the stream rates, the forms probe and microbench, the gather-operand stages (counted), then
+    each kernel against its plain version at the harnesses' shapes and the plain versions' and library calls'
+    times."""
+    from demuxalot_tpu_torch.experiments import dma_pattern as DP
+    from demuxalot_tpu_torch.experiments import gather_forms as GF
+    from demuxalot_tpu_torch.experiments import gather_operand as GO
+    from demuxalot_tpu_torch.experiments import kernel_gather as KG
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.utils.profiling import GatherRoofline, StreamRoofline
+
+    cuda = torch.device("cuda")
+    counted = {"estep_logits": estep_logits, "gather_rows": KG.gather_rows, "gather_sum": KG.gather_sum,
+               **_last_kernels()}
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    streams = DP.run_stream(cuda)
+    forms = GF.probe_forms(cuda)
+    bench = GF.microbench(cuda)
+    post, cb = GO.operand_inputs(device=cuda)
+    stages = {1: GO.run_stages(GO.stages(1, cb), post)}
+    estep = GO.pmbc_estep(cuda)
+    for phase in (2, 3):
+        stages[phase] = GO.run_stages(GO.stages(phase, cb, estep), post)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: wrapper.launches for name, wrapper in counted.items()}
+    for name in _last_kernels():
+        require(launches[name] > 0, f"the experiments' path launched {name} {launches[name]} times")
+    require(all(r["ok"] for r in forms.values()), f"forms: {[f for f, r in forms.items() if not r['ok']]} differ")
+    del post, cb, estep
+    for r in streams:
+        say("last", stage="stream rate", card=card, **r)
+    say("last", stage="forms", card=card,
+        **{form: {k: v for k, v in r.items() if k != "output"} for form, r in forms.items()})
+    say("last", stage="microbench", card=card, **bench)
+    for phase, result in stages.items():
+        say("last", stage=f"gather operand, phase {phase}", card=card, **result)
+    say("last", stage="path", card=card, launches=launches, wall_s=wall)
+
+    # the streams at the harness's shape: kernel against plain (both f32, in other orders, against float64),
+    # the plain version's time and torch.sum over the same bytes
+    entries = {}
+    for cols, kernel, plain in ((True, DP.stream_cols, DP.stream_cols_plain),
+                                (False, DP.stream_rows, DP.stream_rows_plain)):
+        x = DP.stream_inputs(device=cuda, cols=cols)
+        step = (DP.WIDTHS if cols else DP.ROWS)[0]
+        got, want = float(kernel(x, step)), float(plain(x, step))
+        exact = float(plain(x.double(), step))
+        require(abs(want - exact) <= DP.SUM_RTOL * abs(exact), f"{kernel.__name__} plain: {want} vs {exact}")
+        entries[kernel.__name__] = {
+            "max_abs_err": abs(got - want), "float64_rel_err": abs(got - exact) / exact,
+            "plain_ms": _time_ms(lambda: plain(x, step), repeats=3), "library_ms": _time_ms(lambda: torch.sum(x)),
+            "by_step": [r for r in streams if r["layout"] == ("cols" if cols else "rows")]}
+        del x
+    # take_along_axis on the forms' inputs: each form's time beside torch.gather's (A and B: gather_rows
+    # beside index_select), the entry's at D2, the largest
+    by_form = {}
+    for form, (table_np, idx_np, axis) in GF.form_inputs(np.random.default_rng(0)).items():
+        table, idx = torch.from_numpy(table_np).to(cuda), torch.from_numpy(idx_np).to(cuda)
+        idx_long = idx.long()
+        if axis is None:
+            library = lambda: torch.index_select(table, 0, idx)  # noqa: E731
+            flat = idx_long
+            width = table.shape[1]
+        else:
+            library = lambda: torch.gather(table, axis, idx_long)  # noqa: E731
+            cols = torch.arange(idx.shape[1], device=cuda)
+            rows = torch.arange(idx.shape[0], device=cuda)[:, None]
+            flat = (idx_long * table.shape[1] + cols) if axis == 0 else (rows * table.shape[1] + idx_long)
+            width = 1
+        bound = GatherRoofline(n_idx=idx.numel(), n_rows_touched=int(torch.unique(flat).numel()), width=width,
+                               rows_out=True)
+        run = lambda: GF.run_form(table, idx, axis)  # noqa: E731
+        ms = _time_ms(run)
+        by_form[form] = {"table": list(table.shape), "idx": list(idx.shape), "axis": axis,
+                         "kernel": "gather_rows" if axis is None else "take_along_axis", "ms": ms,
+                         "plain_ms": _time_ms(lambda: GF.take_along_axis_plain(table, idx, axis) if axis is not None
+                                              else KG.gather_rows_plain(table, idx)),
+                         "library_ms": _time_ms(library), "bound_ms": bound.speed_of_light_s() * 1e3,
+                         "bound_by": bound.bound_by(), "share_of_bound": bound.speed_of_light_s() * 1e3 / ms}
+    say("last", stage="forms timed", card=card, by_form=by_form)
+    # the cluster gather-sum at the microbench's shape: against its plain version, the plain version's time
+    rng = np.random.default_rng(0)
+    GF.form_inputs(rng)
+    table, idx = GF.microbench_inputs(rng, cuda)
+    got, want = float(GF.cluster_gather_sum(table, idx)), float(GF.cluster_gather_sum_plain(table, idx))
+    require(abs(got - want) <= GF.SUM_RTOL * abs(bench["float64_sum"]), f"cluster_gather_sum {got} vs plain {want}")
+    entries["cluster_gather_sum"] = {"max_abs_err": abs(got - want),
+                                     "plain_ms": _time_ms(lambda: GF.cluster_gather_sum_plain(table, idx), repeats=3)}
+    del table, idx
+    # tiny at its shape, beside x * 2 and torch.mul
+    x = torch.randn(GO.TINY_SHAPE, device=cuda)
+    entries["tiny"] = {"ms": _time_ms(lambda: GO.tiny(x), repeats=100),
+                       "plain_ms": _time_ms(lambda: GO.tiny_plain(x), repeats=100),
+                       "library_ms": _time_ms(lambda: torch.mul(x, 2.0), repeats=100),
+                       "bound": StreamRoofline(bytes_read=x.numel() * 4, bytes_written=x.numel() * 4,
+                                               n_operations=x.numel())}
+    say("last", stage="kernels vs plain", card=card,
+        **{name: {k: v for k, v in e.items() if k not in ("by_step", "bound")} for name, e in entries.items()})
+    return {"launches": launches, "streams": streams, "bench": bench, "by_form": by_form, "stages": stages,
+            "entries": entries, "wall_s": wall}
+
+
+def _last_entries(last: dict, launches) -> list:
+    """The kernels line's entries of phase 11's five kernels; ``launches(name)`` gives their launch fields."""
+    e = last["entries"]
+    entries = []
+    # the streams: ms at the TPU harness's first width / row count (512), every step beside it
+    for name, replaces in (("stream_cols", "benchmarks/exp_dma_pattern.py:32"),
+                           ("stream_rows", "benchmarks/exp_dma_pattern.py:71")):
+        first, *_ = e[name]["by_step"]
+        entries.append({
+            "name": name, "route": "cuda", "source": "demuxalot_tpu_torch/csrc/stream.cu", "replaces": replaces,
+            **launches(name), "max_abs_err": e[name]["max_abs_err"], "ms": first["ms_mean"],
+            "plain_ms": e[name]["plain_ms"], "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "share_of_bound": first["share_of_bound"], "library_ms": e[name]["library_ms"],
+            "library_ms_reason": "torch.sum over the same bytes: a call that sums only the corners skips the "
+                                 "bytes whose streaming the kernel measures",
+            "shape": first["shape"], "gb_per_s": first["gb_per_s"],
+            "by_step": [{"step": r.get("width", r.get("rows")), "run_bytes": r["run_bytes"], "ms": r["ms_mean"],
+                         "gb_per_s": r["gb_per_s"], "bound_ms": r["bound_ms"], "share_of_bound": r["share_of_bound"]}
+                        for r in e[name]["by_step"]]})
+    d2 = last["by_form"]["D2"]
+    entries.append({
+        "name": "take_along_axis", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/forms.cu",
+        "replaces": "benchmarks/exp_gather_forms.py:38", **launches("take_along_axis"), "max_abs_err": 0.0,
+        "ms": d2["ms"], "plain_ms": d2["plain_ms"], "bound_ms": d2["bound_ms"], "bound_by": d2["bound_by"],
+        "share_of_bound": d2["share_of_bound"], "library_ms": d2["library_ms"], "form": "D2",
+        "by_form": last["by_form"]})
+    b = last["bench"]
+    entries.append({
+        "name": "cluster_gather_sum", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/forms.cu",
+        "replaces": "benchmarks/exp_gather_forms.py:183", **launches("cluster_gather_sum"),
+        "max_abs_err": e["cluster_gather_sum"]["max_abs_err"], "ms": b["cluster_gather_sum"]["ms_mean"],
+        "plain_ms": e["cluster_gather_sum"]["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "share_of_bound": b["bound_ms"] / b["cluster_gather_sum"]["ms_mean"],
+        "library_ms": b["library"]["ms_mean"], "ns_per_row": b["cluster_gather_sum"]["ns_per_row"],
+        "cluster_size": b["cluster_size"], "gather_sum_ms": b["gather_sum"]["ms_mean"],
+        "table": b["table"], "n_idx": b["n_idx"]})
+    tiny, bound = e["tiny"], e["tiny"]["bound"]
+    entries.append({
+        "name": "tiny", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/tiny.cu",
+        "replaces": "benchmarks/exp_gather_operand.py:108", **launches("tiny"), "max_abs_err": 0.0,
+        "ms": tiny["ms"], "plain_ms": tiny["plain_ms"], "bound_ms": bound.speed_of_light_s() * 1e3,
+        "bound_by": bound.bound_by(), "share_of_bound": bound.speed_of_light_s() * 1e3 / tiny["ms"],
+        "library_ms": tiny["library_ms"],
+        "stages_ms": {str(p): {n: s["ms"] for n, s in r.items()} for p, r in last["stages"].items()}})
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # --parent: this tree's E-step beside an older tree's, in turns
 # ---------------------------------------------------------------------------
 
@@ -1713,19 +1959,26 @@ def main() -> int:
     lap("variant_kernels")
     variants = phase_variants(card)
     lap("variants")
+    phase_last_kernels()
+    lap("last_kernels")
+    last = phase_last(card)
+    lap("last")
     say("smoke", phase_seconds=seconds, total_s=sum(seconds.values()))
     t = timing["timings"]
 
     def launches(name: str) -> dict:
-        if name in _experiment_kernels() or name in _variant_kernels():  # no package path calls them
-            counts = experiments["launches"] if name in _experiment_kernels() else variants["launches"]
-            return {"launches": counts[name], "launches_by_path": {"experiments": counts[name]}}
-        # the package paths; the A/B's warm-ups and repeats of the mainline kernels stand apart (ab_launches)
+        # no package path calls the experiments' kernels; phase 11's probe and microbench also run the gathers
+        if name in _experiment_kernels() or name in _variant_kernels() or name in _last_kernels():
+            by_path = {"experiments": sum(r["launches"].get(name, 0) for r in (experiments, variants, last))}
+            if name in ("gather_rows", "gather_sum"):
+                by_path = {"experiments": experiments["launches"][name], "forms": last["launches"][name]}
+            return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+        # the package paths; the A/Bs' warm-ups and repeats of the mainline kernels stand apart (ab_launches)
         by_path = {"packed_calls": main_result["launches"][name], "bam_flow": bam_result["launches"][name],
                    "aggregate_em": aggregate["launches"][name], "detect_snps": discovery["launches"][name],
                    "sharded": sharded["launches"][name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path,
-                "ab_launches": experiments["launches"][name] + variants["launches"].get(name, 0)}
+                "ab_launches": sum(r["launches"].get(name, 0) for r in (experiments, variants, last))}
 
     def bound(step: str) -> dict:
         roofline = timing["bounds"][step]
@@ -1783,6 +2036,7 @@ def main() -> int:
             "by_table": [{"table": o["table"], "ms": o[name]["ms_mean"], "ns_per_row": o[name]["ns_per_row"],
                           "library_ms": o[name]["library_ms"], "bound_ms": o[name]["bound_ms"]} for o in other_tables]})
     kernels += _variant_entries(variants, launches)
+    kernels += _last_entries(last, launches)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -87,6 +87,20 @@ _SIGNATURES = {
         _vp, _vp, _i32, _vp,  # pairs, penalties, n_pg, logits
         _i32, _i32, _vp,  # n_words, use_log, stream
     ),
+    "demux_stream_sum": (
+        _vp, _i64, _i64, _i64,  # x, ld, step_offset, n_steps
+        _i32, _i32, _i32, _i32,  # h, w, corner rows, corner columns
+        _vp, _vp, _vp,  # partial, total, stream
+    ),
+    "demux_take_along_axis": (
+        _vp, _i64, _i64, _vp, _i64, _i64, _i32,  # table, n_rows, n_cols, idx, rows_out, cols_out, axis
+        _vp, _vp,  # out, stream
+    ),
+    "demux_cluster_gather_sum": (
+        _vp, _i64, _i32, _vp, _i64, _i64,  # table, n_rows, width, idx, n, step
+        _vp, _vp, _vp, _vp,  # partial, total, cluster_size (int*), stream
+    ),
+    "demux_tiny": (_vp, _i64, _vp, _vp),  # x, n, out, stream
 }
 
 

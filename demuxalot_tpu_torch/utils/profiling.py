@@ -2,8 +2,9 @@
 
 The counterpart of ``demuxalot_tpu.utils.profiling``: :func:`device_trace`
 records a ``torch.profiler`` trace, and :class:`Roofline` (E-step),
-:class:`MStepRoofline` and :class:`GatherRoofline` (``experiments.
-kernel_gather``) give the least time one NVIDIA H100 could take for a
+:class:`MStepRoofline`, :class:`GatherRoofline` (``experiments.
+kernel_gather``, ``gather_forms``) and :class:`StreamRoofline`
+(``experiments.dma_pattern``, ``gather_operand``'s tiny kernel) give the least time one NVIDIA H100 could take for a
 kernel's work, the larger of its bytes over the HBM rate and its FP32
 operations over the FP32 rate. Bytes count each input read once and each
 output written once, whatever the kernel reads again; operations count
@@ -160,3 +161,25 @@ class GatherRoofline(_Bound):
 
     def operations(self) -> int:
         return 0 if self.rows_out else self.n_idx * self.width
+
+
+@dataclass
+class StreamRoofline(_Bound):
+    """Speed of light of a kernel that streams bytes and does little with them (``csrc/stream.cu``, ``tiny.cu``).
+
+    Bytes: ``bytes_read`` (each input byte the function must read, once) and
+    ``bytes_written``. Operations: ``n_operations`` (the streams add their
+    corners' elements; the tiny kernel multiplies each element).
+    """
+
+    bytes_read: int
+    bytes_written: int
+    n_operations: int = 0
+    hbm_bytes_per_s: float = H100_HBM_BYTES_PER_S
+    f32_flops_per_s: float = H100_FP32_FLOPS_PER_S
+
+    def bytes_moved(self) -> int:
+        return self.bytes_read + self.bytes_written
+
+    def operations(self) -> int:
+        return self.n_operations

@@ -741,3 +741,93 @@ def test_gpu_variants_padding_is_bit_exact():
             got += [GE.group_logits(FE.fold_calls(gprob, calls), calls, w) for w in (0, 1, 2)]
         runs.append(got)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ---------------------------------------------------------------------------
+# the streams, the gather forms, the cluster gather-sum and the tiny kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols", [True, False])
+@pytest.mark.parametrize("n_slots, d, step", [(65_536, 32, 512), (65_536 + 777, 32, 32768), (70_001, 7, 4096),
+                                              (100_003, 32, 100), (4096, 32, 4096)])
+def test_gpu_streams_match_float64(cols, n_slots, d, step):
+    """Ragged tails, a D that leaves rows unaligned (7), steps narrower than the corner, one whole step."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import dma_pattern as DP
+
+    x = DP.stream_inputs(n_slots, d, seed=step, cols=cols)
+    kernel, plain = (DP.stream_cols, DP.stream_cols_plain) if cols else (DP.stream_rows, DP.stream_rows_plain)
+    launches = kernel.launches
+    got = kernel(x, step)
+    assert kernel.launches == launches + 1
+    exact = float(plain(x.double(), step))
+    assert float(got) == pytest.approx(exact, rel=1e-6)
+    assert float(plain(x, step)) == pytest.approx(exact, rel=1e-6)
+    assert torch.equal(got, kernel(x, step))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis, shape, out_rows", [(0, (1024, 128), 256), (0, (8192, 128), 8192), (0, (50, 7), 13),
+                                                   (1, (256, 512), 256), (1, (9, 33), 9)])
+def test_gpu_take_along_axis_is_bit_equal(axis, shape, out_rows):
+    _need_card()
+    from demuxalot_tpu_torch.experiments.gather_forms import take_along_axis, take_along_axis_plain
+
+    rng = np.random.RandomState(sum(shape))
+    table = t(rng.rand(*shape).astype(np.float32), "cuda")
+    idx_shape = (out_rows, shape[1]) if axis == 0 else (shape[0], 2 * shape[1] + 1)
+    idx = t(rng.randint(0, shape[axis], idx_shape).astype(np.int32), "cuda")
+    launches = take_along_axis.launches
+    got = take_along_axis(table, idx, axis)
+    assert take_along_axis.launches == launches + 1
+    assert torch.equal(got, take_along_axis_plain(table, idx, axis))
+    assert torch.equal(got, torch.gather(table, axis, idx.long()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, n_idx, step, high", [((8192, 32), 1 << 20, 8192, 8192),
+                                                       ((8192, 32), 10_001, 8192, 1024),
+                                                       ((1000, 7), 5000, 1, 1000), ((5, 4), 999, 100, 5)])
+def test_gpu_cluster_gather_sum_matches_float64(shape, n_idx, step, high):
+    """The harness's table, every index in CTA 0's slice (high 1024), a width of 7, fewer rows than CTAs."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments.gather_forms import cluster_gather_sum, cluster_gather_sum_plain
+
+    rng = np.random.RandomState(n_idx)
+    table = t(rng.rand(*shape).astype(np.float32), "cuda")
+    idx = t(rng.randint(0, high, n_idx).astype(np.int32), "cuda")
+    launches = cluster_gather_sum.launches
+    got = cluster_gather_sum(table, idx, step)
+    assert cluster_gather_sum.launches == launches + 1 and cluster_gather_sum.cluster_size in (8, 16)
+    exact = float(table.double()[idx.long()].sum())
+    assert float(got) == pytest.approx(exact, rel=1e-6)
+    assert float(cluster_gather_sum_plain(table, idx, step)) == pytest.approx(exact, rel=1e-6)
+    assert torch.equal(got, cluster_gather_sum(table, idx, step))
+
+
+@pytest.mark.gpu
+def test_gpu_cluster_gather_sum_refuses_a_table_past_the_cluster():
+    """A 16 MiB table fits no cluster of 8 or 16 CTAs: it raises, and nothing falls back."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments.gather_forms import cluster_gather_sum
+
+    table = torch.rand(131_072, 32, device="cuda")
+    idx = torch.zeros(100, dtype=torch.int32, device="cuda")
+    launches = cluster_gather_sum.launches
+    with pytest.raises(RuntimeError, match="does not fit"):
+        cluster_gather_sum(table, idx)
+    assert cluster_gather_sum.launches == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 128), (3, 5), (1_000_003,)])
+def test_gpu_tiny_is_bit_equal(shape):
+    _need_card()
+    from demuxalot_tpu_torch.experiments.gather_operand import tiny, tiny_plain
+
+    x = torch.randn(shape, device="cuda")
+    launches = tiny.launches
+    got = tiny(x)
+    assert tiny.launches == launches + 1
+    assert torch.equal(got, tiny_plain(x))

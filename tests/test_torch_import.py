@@ -19,8 +19,11 @@ MODULES = [
     "demuxalot_tpu_torch.cli",
     "demuxalot_tpu_torch.convert",
     "demuxalot_tpu_torch.experiments",
+    "demuxalot_tpu_torch.experiments.dma_pattern",
     "demuxalot_tpu_torch.experiments.estep_variants",
     "demuxalot_tpu_torch.experiments.folded_estep",
+    "demuxalot_tpu_torch.experiments.gather_forms",
+    "demuxalot_tpu_torch.experiments.gather_operand",
     "demuxalot_tpu_torch.experiments.group_estep",
     "demuxalot_tpu_torch.experiments.inkernel_gather",
     "demuxalot_tpu_torch.experiments.kernel_gather",
