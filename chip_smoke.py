@@ -119,7 +119,8 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    the mainline E-step on 131,072 barcodes x 72 calls over 327,680 SNPs);
    (b)-(d) are the experiments' path, counted. Then each kernel against its
    plain version at those shapes, the plain versions' and the library
-   calls' times (``torch.sum`` over the streamed bytes, ``torch.gather``,
+   calls' times (one ``torch.sum`` over the corners, the streams' scalar,
+   with ``torch.sum`` over the streamed bytes beside it; ``torch.gather``,
    ``index_select``, ``torch.mul``).
 
 The line before the last is a JSON object with one entry per kernel
@@ -1695,7 +1696,7 @@ def phase_last_kernels() -> None:
                     f"cluster_gather_sum {shape} n={n_idx} {name}: {value} vs float64 {exact}")
         require(float(GF.cluster_gather_sum(table, idx, step)) == got, f"cluster_gather_sum {shape}: runs bit-equal")
         say("last", kernel="cluster_gather_sum", table=list(shape), n_idx=n_idx, step=step, index_below=high,
-            cluster_size=GF.cluster_gather_sum.cluster_size, rel_err=abs(got - exact) / exact,
+            rel_err=abs(got - exact) / exact,
             plain_rel_err=abs(want - exact) / exact, runs="bit-equal")
     try:  # a 16 MiB table fits no cluster: it raises, and nothing falls back
         GF.cluster_gather_sum(torch.rand(131_072, 32, device=cuda), torch.zeros(8, dtype=torch.int32, device=cuda))
@@ -1751,20 +1752,27 @@ def phase_last(card: str) -> dict:
     say("last", stage="path", card=card, launches=launches, wall_s=wall)
 
     # the streams at the harness's shape: kernel against plain (both f32, in other orders, against float64),
-    # the plain version's time and torch.sum over the same bytes
+    # the plain version's time, one torch.sum over the corners (the scalar's library call) and torch.sum over
+    # the streamed bytes (what the kernel exists to measure)
     entries = {}
     for cols, kernel, plain in ((True, DP.stream_cols, DP.stream_cols_plain),
                                 (False, DP.stream_rows, DP.stream_rows_plain)):
         x = DP.stream_inputs(device=cuda, cols=cols)
         step = (DP.WIDTHS if cols else DP.ROWS)[0]
+        n_steps = (x.shape[1] if cols else x.shape[0]) // step
+        corners = (x.narrow(1, 0, n_steps * step).unflatten(1, (n_steps, step))[:, :, :DP.CORNER_COLS] if cols
+                   else x.narrow(0, 0, n_steps * step).unflatten(0, (n_steps, step))[:, :DP.CORNER_ROWS, :])
         got, want = float(kernel(x, step)), float(plain(x, step))
         exact = float(plain(x.double(), step))
         require(abs(want - exact) <= DP.SUM_RTOL * abs(exact), f"{kernel.__name__} plain: {want} vs {exact}")
+        bound = DP.corner_bound(x, step, cols)
         entries[kernel.__name__] = {
             "max_abs_err": abs(got - want), "float64_rel_err": abs(got - exact) / exact,
-            "plain_ms": _time_ms(lambda: plain(x, step), repeats=3), "library_ms": _time_ms(lambda: torch.sum(x)),
+            "plain_ms": _time_ms(lambda: plain(x, step), repeats=3),
+            "library_ms": _time_ms(lambda: torch.sum(corners)), "stream_library_ms": _time_ms(lambda: torch.sum(x)),
+            "bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by(),
             "by_step": [r for r in streams if r["layout"] == ("cols" if cols else "rows")]}
-        del x
+        del x, corners
     # take_along_axis on the forms' inputs: each form's time beside torch.gather's (A and B: gather_rows
     # beside index_select), the entry's at D2, the largest
     by_form = {}
@@ -1784,11 +1792,12 @@ def phase_last(card: str) -> dict:
         bound = GatherRoofline(n_idx=idx.numel(), n_rows_touched=int(torch.unique(flat).numel()), width=width,
                                rows_out=True)
         run = lambda: GF.run_form(table, idx, axis)  # noqa: E731
+        plain = lambda: (GF.take_along_axis_plain(table, idx, axis) if axis is not None  # noqa: E731
+                         else KG.gather_rows_plain(table, idx))
         ms = _time_ms(run)
         by_form[form] = {"table": list(table.shape), "idx": list(idx.shape), "axis": axis,
-                         "kernel": "gather_rows" if axis is None else "take_along_axis", "ms": ms,
-                         "plain_ms": _time_ms(lambda: GF.take_along_axis_plain(table, idx, axis) if axis is not None
-                                              else KG.gather_rows_plain(table, idx)),
+                         "kernel": "gather_rows" if axis is None else "take_along_axis",
+                         "max_abs_err": float((run() - plain()).abs().max()), "ms": ms, "plain_ms": _time_ms(plain),
                          "library_ms": _time_ms(library), "bound_ms": bound.speed_of_light_s() * 1e3,
                          "bound_by": bound.bound_by(), "share_of_bound": bound.speed_of_light_s() * 1e3 / ms}
     say("last", stage="forms timed", card=card, by_form=by_form)
@@ -1803,7 +1812,8 @@ def phase_last(card: str) -> dict:
     del table, idx
     # tiny at its shape, beside x * 2 and torch.mul
     x = torch.randn(GO.TINY_SHAPE, device=cuda)
-    entries["tiny"] = {"ms": _time_ms(lambda: GO.tiny(x), repeats=100),
+    entries["tiny"] = {"max_abs_err": float((GO.tiny(x) - GO.tiny_plain(x)).abs().max()),
+                       "ms": _time_ms(lambda: GO.tiny(x), repeats=100),
                        "plain_ms": _time_ms(lambda: GO.tiny_plain(x), repeats=100),
                        "library_ms": _time_ms(lambda: torch.mul(x, 2.0), repeats=100),
                        "bound": StreamRoofline(bytes_read=x.numel() * 4, bytes_written=x.numel() * 4,
@@ -1818,25 +1828,31 @@ def _last_entries(last: dict, launches) -> list:
     """The kernels line's entries of phase 11's five kernels; ``launches(name)`` gives their launch fields."""
     e = last["entries"]
     entries = []
-    # the streams: ms at the TPU harness's first width / row count (512), every step beside it
+    # the streams: ms at the TPU harness's first width / row count (512), every step beside it. bound_ms and
+    # library_ms are the scalar's own (the corners' bytes, one torch.sum over them); the stream reads every
+    # byte of each step by design, so it is slower than both: stream_bound_ms and stream_library_ms
+    # (torch.sum over the streamed bytes) are what it measures itself against
     for name, replaces in (("stream_cols", "benchmarks/exp_dma_pattern.py:32"),
                            ("stream_rows", "benchmarks/exp_dma_pattern.py:71")):
         first, *_ = e[name]["by_step"]
         entries.append({
             "name": name, "route": "cuda", "source": "demuxalot_tpu_torch/csrc/stream.cu", "replaces": replaces,
             **launches(name), "max_abs_err": e[name]["max_abs_err"], "ms": first["ms_mean"],
-            "plain_ms": e[name]["plain_ms"], "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "share_of_bound": first["share_of_bound"], "library_ms": e[name]["library_ms"],
-            "library_ms_reason": "torch.sum over the same bytes: a call that sums only the corners skips the "
-                                 "bytes whose streaming the kernel measures",
-            "shape": first["shape"], "gb_per_s": first["gb_per_s"],
+            "plain_ms": e[name]["plain_ms"], "bound_ms": e[name]["bound_ms"], "bound_by": e[name]["bound_by"],
+            "share_of_bound": e[name]["bound_ms"] / first["ms_mean"], "library_ms": e[name]["library_ms"],
+            "library_ms_reason": "one torch.sum over the corners computes the scalar; the kernel streams every "
+                                 "byte of each step by design",
+            "stream_bound_ms": first["stream_bound_ms"], "stream_share_of_bound": first["stream_share_of_bound"],
+            "stream_library_ms": e[name]["stream_library_ms"], "shape": first["shape"], "gb_per_s": first["gb_per_s"],
             "by_step": [{"step": r.get("width", r.get("rows")), "run_bytes": r["run_bytes"], "ms": r["ms_mean"],
-                         "gb_per_s": r["gb_per_s"], "bound_ms": r["bound_ms"], "share_of_bound": r["share_of_bound"]}
+                         "gb_per_s": r["gb_per_s"], "stream_bound_ms": r["stream_bound_ms"],
+                         "stream_share_of_bound": r["stream_share_of_bound"], "corner_bound_ms": r["corner_bound_ms"]}
                         for r in e[name]["by_step"]]})
     d2 = last["by_form"]["D2"]
     entries.append({
         "name": "take_along_axis", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/forms.cu",
-        "replaces": "benchmarks/exp_gather_forms.py:38", **launches("take_along_axis"), "max_abs_err": 0.0,
+        "replaces": "benchmarks/exp_gather_forms.py:38", **launches("take_along_axis"),
+        "max_abs_err": d2["max_abs_err"],
         "ms": d2["ms"], "plain_ms": d2["plain_ms"], "bound_ms": d2["bound_ms"], "bound_by": d2["bound_by"],
         "share_of_bound": d2["share_of_bound"], "library_ms": d2["library_ms"], "form": "D2",
         "by_form": last["by_form"]})
@@ -1848,12 +1864,11 @@ def _last_entries(last: dict, launches) -> list:
         "plain_ms": e["cluster_gather_sum"]["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
         "share_of_bound": b["bound_ms"] / b["cluster_gather_sum"]["ms_mean"],
         "library_ms": b["library"]["ms_mean"], "ns_per_row": b["cluster_gather_sum"]["ns_per_row"],
-        "cluster_size": b["cluster_size"], "gather_sum_ms": b["gather_sum"]["ms_mean"],
-        "table": b["table"], "n_idx": b["n_idx"]})
+        "gather_sum_ms": b["gather_sum"]["ms_mean"], "table": b["table"], "n_idx": b["n_idx"]})
     tiny, bound = e["tiny"], e["tiny"]["bound"]
     entries.append({
         "name": "tiny", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/tiny.cu",
-        "replaces": "benchmarks/exp_gather_operand.py:108", **launches("tiny"), "max_abs_err": 0.0,
+        "replaces": "benchmarks/exp_gather_operand.py:108", **launches("tiny"), "max_abs_err": tiny["max_abs_err"],
         "ms": tiny["ms"], "plain_ms": tiny["plain_ms"], "bound_ms": bound.speed_of_light_s() * 1e3,
         "bound_by": bound.bound_by(), "share_of_bound": bound.speed_of_light_s() * 1e3 / tiny["ms"],
         "library_ms": tiny["library_ms"],

@@ -30,8 +30,7 @@
 // K x (V + 1) row pointers. No atomics: one warp owns a variant's sums, so
 // two runs give the same bits. The index inputs are bounds-checked by
 // checks.cu's kernels before the launch.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 int demux_check_csr(const int64_t* row_ptr, int64_t n_rows, int64_t n_entries, cudaStream_t stream);
 int demux_check_banded_index(const int32_t* idx, const int64_t* band_ptr, const int64_t* edges, int n_bands,
@@ -125,8 +124,6 @@ __global__ void __launch_bounds__(kWarp * kWarps, 1) mstep_banded_kernel(
     }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 int shared_optin(int* optin, int* n_sms) {
     int device, status;
     if ((status = cudaGetDevice(&device)) != 0) return status;
@@ -163,7 +160,7 @@ extern "C" int demux_mstep_addition_banded(
     if ((status = demux_check_banded_index(cb, band_ptr, band_edges, n_bands, n_variants, band_rows, n_calls, s)) != 0)
         return status;
 
-    const bool vec = aligned16(table) && band_rows % 4 == 0;
+    const bool vec = demux::aligned16(table) && band_rows % 4 == 0;
     using Kernel = decltype(&mstep_banded_kernel<true>);
     const Kernel kernel = vec ? mstep_banded_kernel<true> : mstep_banded_kernel<false>;
     if ((status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared)) != 0)

@@ -21,41 +21,36 @@
 //   clusters of 8 CTAs (the portable size), CTA r holding rows
 //   [r * R / 8, (r + 1) * R / 8) (128 KB), loaded once per launch; after
 //   cluster.sync() each index's row is read from its owner CTA's shared
-//   memory through cluster.map_shared_rank. Where the card cannot place
-//   clusters of 8 with that much shared memory it takes clusters of 16
-//   (non-portable, 64 KB each); where neither fits it returns an error, and
-//   the wrapper raises: it never falls back to the L2 gather. What bounds
-//   it: the indices (4 B each, 16.8 MB at the harness's 4,194,304) and the
-//   table once (1 MiB), >= 5.32 us; the gathered rows come from
-//   distributed shared memory, not HBM. Each cluster walks steps cluster_id,
-//   cluster_id + n_clusters, ...; within a step CTA r sums a contiguous
-//   1/8 of its indices in a fixed order and writes partial[step * cs + r].
-//   Each element is an index load, then a remote row load that depends on
-//   it, so each thread loads kUnroll indices, then their rows, then adds
-//   them in element order (0.2380 ms at the harness's shape against 0.2547
-//   one at a time, NVIDIA H100 80GB HBM3, 700 W: 2.3 TB/s of rows, 7/8 of
-//   them from other SMs; the SM-to-SM network, not the chain, sets the
-//   time). stream.cu's sum_in_order_kernel then adds the partials in a
-//   fixed order.
+//   memory through cluster.map_shared_rank. Where a table does not fit the
+//   8 CTAs' shared memory, or cudaOccupancyMaxActiveClusters says the card
+//   cannot place one such cluster, it returns an error and the wrapper
+//   raises: it never falls back to the L2 gather. What bounds it: the
+//   indices (4 B each, 16.8 MB at the harness's 4,194,304) and the table
+//   once (1 MiB), >= 5.32 us; the gathered rows come from distributed
+//   shared memory, not HBM. Each cluster walks steps cluster_id,
+//   cluster_id + n_clusters, ...; within a step CTA r sums a contiguous 1/8
+//   of its indices in a fixed order (common.cuh's block_sum) and writes
+//   partial[step * 8 + r]. Each element is an index load, then a remote row
+//   load that depends on it, so each thread loads kUnroll indices, then
+//   their rows, then adds them in element order (0.2380 ms at the harness's
+//   shape against 0.2547 one at a time, NVIDIA H100 80GB HBM3, 700 W: 2.3
+//   TB/s of rows, 7/8 of them from other SMs). reduce.cu's
+//   demux_sum_in_order then adds the partials in a fixed order.
 //   No atomics, so two runs give the same bits.
 // The indices are bounds-checked by checks.cu's kernel before each launch.
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 
-#include <initializer_list>
+#include "common.cuh"
 
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream);
-int demux_sum_in_order(const float* partial, int64_t n, float* total, cudaStream_t stream);
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kClusterThreads = 512;
+constexpr int kClusterSize = 8;  // CTAs per cluster, the portable size
 constexpr int kUnroll = 4;  // gathered elements per thread in flight
 constexpr int kErrorTooLarge = -1;  // the table does not fit the cluster's shared memory
 constexpr int kErrorNoCluster = -2;  // the card cannot place one cluster
@@ -72,16 +67,6 @@ __global__ void take_along_axis_kernel(const float* __restrict__ table, int64_t 
     }
 }
 
-template <int kW>
-__device__ __forceinline__ float load_sum(const float* p) {
-    if constexpr (kW == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(p);
-        return (v.x + v.y) + (v.z + v.w);
-    } else {
-        return *p;
-    }
-}
-
 // kW: floats per load (4 or 1)
 template <int kW>
 __global__ void __launch_bounds__(kClusterThreads) cluster_gather_sum_kernel(
@@ -89,10 +74,9 @@ __global__ void __launch_bounds__(kClusterThreads) cluster_gather_sum_kernel(
     int64_t n, int64_t step, int64_t n_steps, float* __restrict__ partial) {
     extern __shared__ float4 smem4[];
     float* slice = reinterpret_cast<float*>(smem4);
-    __shared__ float warp_sums[kClusterThreads / kWarp];
+    __shared__ float warp_sums[kClusterThreads / demux::kWarpSize];
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = (int)cluster.block_rank();
-    const int cs = (int)cluster.num_blocks();
     const int width_v = width / kW;
 
     // this CTA's rows of the table, once
@@ -108,11 +92,11 @@ __global__ void __launch_bounds__(kClusterThreads) cluster_gather_sum_kernel(
     }
     cluster.sync();  // every slice is in place before any CTA reads another's
 
-    const int64_t n_clusters = gridDim.x / cs;
-    for (int64_t s = blockIdx.x / cs; s < n_steps; s += n_clusters) {
+    const int64_t n_clusters = gridDim.x / kClusterSize;
+    for (int64_t s = blockIdx.x / kClusterSize; s < n_steps; s += n_clusters) {
         const int64_t lo = s * step;
         const int64_t hi = lo + step < n ? lo + step : n;
-        const int64_t part = (hi - lo + cs - 1) / cs;
+        const int64_t part = (hi - lo + kClusterSize - 1) / kClusterSize;
         const int64_t a = lo + rank * part < hi ? lo + rank * part : hi;
         const int64_t b = a + part < hi ? a + part : hi;
         const int total = (int)(b - a) * width_v;  // the launcher keeps step * width below 2^31
@@ -132,42 +116,31 @@ __global__ void __launch_bounds__(kClusterThreads) cluster_gather_sum_kernel(
             }
             float v[kUnroll];
 #pragma unroll
-            for (int u = 0; u < kUnroll; ++u) v[u] = e0 + u * kClusterThreads < total ? load_sum<kW>(src[u]) : 0.f;
+            for (int u = 0; u < kUnroll; ++u) {
+                v[u] = e0 + u * kClusterThreads < total ? demux::load_sum<kW>(src[u]) : 0.f;
+            }
 #pragma unroll
             for (int u = 0; u < kUnroll; ++u) {
                 if (e0 + u * kClusterThreads < total) acc += v[u];
             }
         }
-#pragma unroll
-        for (int o = kWarp / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-        if (threadIdx.x % kWarp == 0) warp_sums[threadIdx.x / kWarp] = acc;
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            float sum = 0.f;
-            for (int w = 0; w < kClusterThreads / kWarp; ++w) sum += warp_sums[w];
-            partial[s * cs + rank] = sum;
-        }
-        __syncthreads();
+        const float sum = demux::block_sum(acc, warp_sums);
+        if (threadIdx.x == 0) partial[s * kClusterSize + rank] = sum;
+        __syncthreads();  // warp_sums is read before the next step writes it
     }
     cluster.sync();  // no CTA leaves while another may still read its slice
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-// launches kernel in clusters of cs CTAs over the steps; *placed = 0 when the card cannot place one
+// launches kernel in clusters of kClusterSize CTAs over the steps; kErrorNoCluster when the card cannot place one
 template <typename Kernel>
-int launch_clusters(Kernel kernel, int cs, size_t shared, const float* table, int64_t n_rows, int width,
-                    int rows_per_cta, const int32_t* idx, int64_t n, int64_t step, int64_t n_steps, float* partial,
-                    cudaStream_t s, int* placed) {
+int launch_clusters(Kernel kernel, size_t shared, const float* table, int64_t n_rows, int width, int rows_per_cta,
+                    const int32_t* idx, int64_t n, int64_t step, int64_t n_steps, float* partial, cudaStream_t s) {
     int status;
-    *placed = 0;
     if ((status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared)) != 0)
-        return status;
-    if (cs > 8 && (status = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != 0)
         return status;
     cudaLaunchAttribute attribute[1];
     attribute[0].id = cudaLaunchAttributeClusterDimension;
-    attribute[0].val.clusterDim.x = cs;
+    attribute[0].val.clusterDim.x = kClusterSize;
     attribute[0].val.clusterDim.y = 1;
     attribute[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t config = {};
@@ -176,16 +149,15 @@ int launch_clusters(Kernel kernel, int cs, size_t shared, const float* table, in
     config.stream = s;
     config.attrs = attribute;
     config.numAttrs = 1;
-    config.gridDim = dim3(cs);
+    config.gridDim = dim3(kClusterSize);
     int clusters = 0;
     if ((status = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config)) != 0) {
-        cudaGetLastError();  // a refused size is an answer here, not a sticky error
-        return 0;
+        cudaGetLastError();  // a refused configuration is reported here, not left for the next launch
+        return status;
     }
-    if (clusters < 1) return 0;
-    *placed = clusters;
+    if (clusters < 1) return kErrorNoCluster;
     const int64_t grid = n_steps < clusters ? n_steps : clusters;
-    config.gridDim = dim3((unsigned int)(grid * cs));
+    config.gridDim = dim3((unsigned int)(grid * kClusterSize));
     if ((status = cudaLaunchKernelEx(&config, kernel, table, n_rows, width, rows_per_cta, idx, n, step, n_steps,
                                      partial)) != 0)
         return status;
@@ -214,12 +186,9 @@ extern "C" int demux_take_along_axis(const float* table, int64_t n_rows, int64_t
     return (int)cudaGetLastError();
 }
 
-// partial: scratch of at least ceil(n / step) * 16 floats; total: one float;
-// cluster_size: set to the cluster size used (8, or 16 where 8 could not be placed)
+// partial: scratch of at least ceil(n / step) * 8 floats; total: one float
 extern "C" int demux_cluster_gather_sum(const float* table, int64_t n_rows, int width, const int32_t* idx, int64_t n,
-                                        int64_t step, float* partial, float* total, int* cluster_size,
-                                        void* stream) {
-    *cluster_size = 0;
+                                        int64_t step, float* partial, float* total, void* stream) {
     if (n_rows <= 0 || width <= 0 || n <= 0 || step <= 0) return (int)cudaErrorInvalidValue;
     const int64_t n_steps = (n + step - 1) / step;
     if (step * width > 0x7fffffff || n_rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -227,23 +196,15 @@ extern "C" int demux_cluster_gather_sum(const float* table, int64_t n_rows, int 
     int status, device, optin;
     if ((status = cudaGetDevice(&device)) != 0) return status;
     if ((status = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != 0) return status;
-    const size_t limit = (size_t)optin - kClusterThreads / kWarp * sizeof(float);  // less the static warp sums
+    const size_t limit = (size_t)optin - kClusterThreads / demux::kWarpSize * sizeof(float);  // less the warp sums
+    const int64_t rows_per_cta = (n_rows + kClusterSize - 1) / kClusterSize;
+    const size_t shared = (size_t)rows_per_cta * width * sizeof(float);
+    if (shared > limit) return kErrorTooLarge;
     if ((status = demux_check_index(idx, n, n_rows, s)) != 0) return status;
-    const bool vec = width % 4 == 0 && aligned16(table);
+    const bool vec = width % 4 == 0 && demux::aligned16(table);
     auto kernel = vec ? cluster_gather_sum_kernel<4> : cluster_gather_sum_kernel<1>;
-    bool fits = false;
-    for (int cs : {8, 16}) {
-        const int64_t rows_per_cta = (n_rows + cs - 1) / cs;
-        const size_t shared = (size_t)rows_per_cta * width * sizeof(float);
-        if (shared > limit) continue;
-        fits = true;
-        int placed;
-        if ((status = launch_clusters(kernel, cs, shared, table, n_rows, width, (int)rows_per_cta, idx, n, step,
-                                      n_steps, partial, s, &placed)) != 0)
-            return status;
-        if (placed == 0) continue;
-        *cluster_size = cs;
-        return demux_sum_in_order(partial, n_steps * cs, total, s);
-    }
-    return fits ? kErrorNoCluster : kErrorTooLarge;
+    if ((status = launch_clusters(kernel, shared, table, n_rows, width, (int)rows_per_cta, idx, n, step, n_steps,
+                                  partial, s)) != 0)
+        return status;
+    return demux_sum_in_order(partial, n_steps * kClusterSize, total, s);
 }

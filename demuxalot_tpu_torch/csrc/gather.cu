@@ -8,10 +8,9 @@
 //   one step of `step` indices after another:
 //     total = sum_i sum_w table[idx[i], w]
 //   gather_sum_kernel takes one block per step and sums the step's rows in a
-//   fixed order (each thread its own strided elements, then a shuffle tree,
-//   then the warps' partials in warp order); step_total_kernel then adds the
-//   per-step partials in step order on one thread. No atomics, so two runs
-//   give the same bits.
+//   fixed order (each thread its own strided elements, then common.cuh's
+//   block_sum); reduce.cu's demux_sum_in_order then adds the per-step
+//   partials in a fixed order. No atomics, so two runs give the same bits.
 //
 // What bounds them on the H100: moving the gathered rows, N x W x 4 bytes
 // read (and, for the canary, written); the table itself is read from L2
@@ -21,17 +20,14 @@
 // row (4-byte ones when rows are not 16-byte aligned), and keeps many rows
 // in flight per SM. The indices are bounds-checked by checks.cu's kernel
 // before the launch.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "common.cuh"
 
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream);
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kSumThreads = 1024;
 
@@ -52,23 +48,13 @@ __global__ void gather_rows_kernel(const float* __restrict__ table, const int32_
     }
 }
 
-template <int kW>
-__device__ __forceinline__ float load_sum(const float* p) {
-    if constexpr (kW == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(p);
-        return (v.x + v.y) + (v.z + v.w);
-    } else {
-        return *p;
-    }
-}
-
 // block s sums the rows of indices [s * step, min((s + 1) * step, n)) into partial[s]
 template <int kW>
 __global__ void __launch_bounds__(kSumThreads) gather_sum_kernel(const float* __restrict__ table,
                                                                  const int32_t* __restrict__ idx, int64_t n,
                                                                  int64_t step, int width,
                                                                  float* __restrict__ partial) {
-    __shared__ float warp_sums[kSumThreads / kWarp];
+    __shared__ float warp_sums[kSumThreads / demux::kWarpSize];
     const int64_t lo = blockIdx.x * step;
     const int64_t hi = lo + step < n ? lo + step : n;
     const int width_v = width / kW;
@@ -77,28 +63,11 @@ __global__ void __launch_bounds__(kSumThreads) gather_sum_kernel(const float* __
     for (int e = threadIdx.x; e < total; e += blockDim.x) {
         const int i = e / width_v;
         const int w = e - i * width_v;
-        acc += load_sum<kW>(table + (int64_t)idx[lo + i] * width + w * kW);
+        acc += demux::load_sum<kW>(table + (int64_t)idx[lo + i] * width + w * kW);
     }
-#pragma unroll
-    for (int o = kWarp / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-    const int lane = threadIdx.x % kWarp;
-    const int warp = threadIdx.x / kWarp;
-    if (lane == 0) warp_sums[warp] = acc;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        float s = 0.f;
-        for (int w = 0; w < (int)(blockDim.x / kWarp); ++w) s += warp_sums[w];
-        partial[blockIdx.x] = s;
-    }
+    const float s = demux::block_sum(acc, warp_sums);
+    if (threadIdx.x == 0) partial[blockIdx.x] = s;
 }
-
-__global__ void step_total_kernel(const float* __restrict__ partial, int64_t n_steps, float* __restrict__ total) {
-    float s = 0.f;
-    for (int64_t i = 0; i < n_steps; ++i) s += partial[i];
-    *total = s;
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 unsigned int grid_for(int64_t n) {
     const int64_t blocks = (n + kThreads - 1) / kThreads;
@@ -126,7 +95,7 @@ extern "C" int demux_gather_rows(const float* table, int64_t n_rows, int width, 
     cudaStream_t s = (cudaStream_t)stream;
     int status;
     if ((status = demux_check_index(idx, n, n_rows, s)) != 0) return status;
-    if (width % 4 == 0 && aligned16(table) && aligned16(out)) {
+    if (width % 4 == 0 && demux::aligned16(table) && demux::aligned16(out)) {
         launch_rows<4>(table, idx, n, width, out, s);
     } else {
         launch_rows<1>(table, idx, n, width, out, s);
@@ -143,12 +112,11 @@ extern "C" int demux_gather_sum(const float* table, int64_t n_rows, int width, c
     cudaStream_t s = (cudaStream_t)stream;
     int status;
     if ((status = demux_check_index(idx, n, n_rows, s)) != 0) return status;
-    if (width % 4 == 0 && aligned16(table)) {
+    if (width % 4 == 0 && demux::aligned16(table)) {
         gather_sum_kernel<4><<<(unsigned int)n_steps, kSumThreads, 0, s>>>(table, idx, n, step, width, partial);
     } else {
         gather_sum_kernel<1><<<(unsigned int)n_steps, kSumThreads, 0, s>>>(table, idx, n, step, width, partial);
     }
     if ((status = (int)cudaGetLastError()) != 0) return status;
-    step_total_kernel<<<1, 1, 0, s>>>(partial, n_steps, total);
-    return (int)cudaGetLastError();
+    return demux_sum_in_order(partial, n_steps, total, s);
 }

@@ -32,21 +32,17 @@
 //   Every byte of a step lands in shared memory, so no load can be dropped
 //   as unused; only the corner is then read and summed.
 // - A piece holding corner rows writes one partial: the sum of its corner
-//   rows, in a fixed order (each thread its strided elements, a shuffle
-//   tree, the warps in order). sum_in_order_kernel then adds the partials
-//   (step by step, row chunks within a step) in a fixed order on one block.
+//   rows, in a fixed order (each thread its strided elements, then
+//   common.cuh's block_sum). reduce.cu's demux_sum_in_order then adds the
+//   partials (step by step, row chunks within a step) in a fixed order.
 //   No atomics, so two runs give the same bits, whatever the grid.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kPieceFloats = 8192;  // 32 KB
 constexpr int kStages = 3;          // 96 KB of shared memory: two blocks per SM
-constexpr int kTotalThreads = 1024;
 
 struct Region {
     const float* base;
@@ -100,24 +96,11 @@ __device__ __forceinline__ void issue_piece(const Region& r, int64_t p, float* b
     }
 }
 
-// block-wide sum in a fixed order; thread 0 holds the result
-__device__ __forceinline__ float block_sum(float acc, float* warp_sums) {
-#pragma unroll
-    for (int o = kWarp / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-    if (threadIdx.x % kWarp == 0) warp_sums[threadIdx.x / kWarp] = acc;
-    __syncthreads();
-    float s = 0.f;
-    if (threadIdx.x == 0) {
-        for (int w = 0; w < (int)(blockDim.x / kWarp); ++w) s += warp_sums[w];
-    }
-    return s;
-}
-
 template <int kV>
 __global__ void __launch_bounds__(kThreads) stream_kernel(Region r, float* __restrict__ partial) {
     extern __shared__ float4 smem4[];
     float* ring = reinterpret_cast<float*>(smem4);
-    __shared__ float warp_sums[kThreads / kWarp];
+    __shared__ float warp_sums[kThreads / demux::kWarpSize];
     const int per_step = r.nrc * r.ncc;
     const int64_t n_pieces = r.n_steps * per_step;
     const int64_t lo = n_pieces * blockIdx.x / gridDim.x;
@@ -145,35 +128,14 @@ __global__ void __launch_bounds__(kThreads) stream_kernel(Region r, float* __res
                 const int i = e / r.cw;
                 acc += buf[i * r.pw + (e - i * r.cw)];
             }
-            const float sum = block_sum(acc, warp_sums);
+            const float sum = demux::block_sum(acc, warp_sums);
             if (threadIdx.x == 0) partial[s * r.nrc + rc] = sum;
         }
         __syncthreads();  // every thread is done with buffer k % kStages before it is refilled
     }
 }
 
-// total = the partials summed in a fixed order: each thread a contiguous run
-// in order, then the shuffle tree, then the warps in order
-__global__ void __launch_bounds__(kTotalThreads) sum_in_order_kernel(const float* __restrict__ partial, int64_t n,
-                                                                     float* __restrict__ total) {
-    __shared__ float warp_sums[kTotalThreads / kWarp];
-    const int64_t run = (n + kTotalThreads - 1) / kTotalThreads;
-    const int64_t lo = run * threadIdx.x;
-    const int64_t hi = lo + run < n ? lo + run : n;
-    float acc = 0.f;
-    for (int64_t i = lo; i < hi; ++i) acc += partial[i];
-    const float s = block_sum(acc, warp_sums);
-    if (threadIdx.x == 0) *total = s;
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 }  // namespace
-
-int demux_sum_in_order(const float* partial, int64_t n, float* total, cudaStream_t stream) {
-    sum_in_order_kernel<<<1, kTotalThreads, 0, stream>>>(partial, n, total);
-    return (int)cudaGetLastError();
-}
 
 // partial: scratch of at least n_steps * h floats; total: one float
 extern "C" int demux_stream_sum(const float* x, int64_t ld, int64_t step_offset, int64_t n_steps, int h, int w,
@@ -194,7 +156,7 @@ extern "C" int demux_stream_sum(const float* x, int64_t ld, int64_t step_offset,
     r.cw = cw;
     if (cw > r.pw) return (int)cudaErrorInvalidValue;  // the corner lies in each row chunk's first piece
     cudaStream_t s = (cudaStream_t)stream;
-    const bool vec = aligned16(x) && ld % 4 == 0 && step_offset % 4 == 0 && w % 4 == 0 && r.pw % 4 == 0;
+    const bool vec = demux::aligned16(x) && ld % 4 == 0 && step_offset % 4 == 0 && w % 4 == 0 && r.pw % 4 == 0;
     const size_t shared = (size_t)kStages * kPieceFloats * sizeof(float);
     auto kernel = vec ? stream_kernel<4> : stream_kernel<1>;
     int status, device, n_sms, per_sm;

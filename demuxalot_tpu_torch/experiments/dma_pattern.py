@@ -18,8 +18,10 @@ step, then the per-step partials in a fixed order. Each launches its kernel
 for CUDA tensors and runs its plain version for CPU tensors; anything else
 raises. ``.launches`` counts launches. :func:`run_stream` times the TPU
 harness's four widths and four row counts at its shape (570.4 MB) against
-the bytes' bound; ``python -m demuxalot_tpu_torch.experiments.dma_pattern
-[--device cpu]`` prints its result as JSON.
+the streamed bytes' bound (:func:`stream_bound`; :func:`corner_bound` is the
+bound of the scalar alone, which a stream misses by design); ``python -m
+demuxalot_tpu_torch.experiments.dma_pattern [--device cpu]`` prints its
+result as JSON.
 """
 from __future__ import annotations
 
@@ -119,12 +121,27 @@ def stream_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
 stream_rows.launches = 0
 
 
-def stream_bound(x: torch.Tensor, step: int, cols: bool) -> StreamRoofline:
-    """The least time for one stream: the whole steps' bytes read, one f32 written, the corner's adds."""
+def _corner(x: torch.Tensor, step: int, cols: bool) -> tuple:
+    """(steps, floats in a step, floats in its corner) of one stream of ``x``."""
     d = x.shape[0] if cols else x.shape[1]
     n_steps = _steps(x.shape[1] if cols else x.shape[0], step)
-    corner = d * (min(CORNER_COLS, step) if cols else min(CORNER_ROWS, step))
-    return StreamRoofline(bytes_read=4 * n_steps * step * d, bytes_written=4, n_operations=n_steps * corner)
+    return n_steps, step * d, d * (min(CORNER_COLS, step) if cols else min(CORNER_ROWS, step))
+
+
+def stream_bound(x: torch.Tensor, step: int, cols: bool) -> StreamRoofline:
+    """The least time to stream every whole step, what the kernel exists to measure: the steps' bytes read."""
+    n_steps, per_step, corner = _corner(x, step, cols)
+    return StreamRoofline(bytes_read=4 * n_steps * per_step, bytes_written=4, n_operations=n_steps * corner)
+
+
+def corner_bound(x: torch.Tensor, step: int, cols: bool) -> StreamRoofline:
+    """The least time for the function's scalar alone: the corners' bytes read, one f32 written, their adds.
+
+    A stream is slower than this by design: it reads every byte of each
+    step, where the scalar needs only the corners.
+    """
+    n_steps, _per_step, corner = _corner(x, step, cols)
+    return StreamRoofline(bytes_read=4 * n_steps * corner, bytes_written=4, n_operations=n_steps * corner)
 
 
 def stream_inputs(n_slots: int = N_SLOTS, d: int = D, seed: int = 0, device="cuda", cols: bool = True):
@@ -136,7 +153,10 @@ def stream_inputs(n_slots: int = N_SLOTS, d: int = D, seed: int = 0, device="cud
 
 def run_stream(device="cuda", n_slots: int = N_SLOTS, widths=WIDTHS, rows=ROWS, seed: int = 0,
                repeats: int = 10) -> list:
-    """Per layout and step: ms, GB/s, the bound and the share of it, the sum against float64.
+    """Per layout and step: ms, GB/s, the streamed bytes' bound and the share of it, the sum against float64.
+
+    ``corner_bound_ms`` beside them is the bound of the scalar alone
+    (:func:`corner_bound`).
 
     The kernels run on ``device`` (the plain versions on the CPU); times are
     CUDA events on a card and the host clock on the CPU. Raises if a sum
@@ -154,7 +174,7 @@ def run_stream(device="cuda", n_slots: int = N_SLOTS, widths=WIDTHS, rows=ROWS, 
             exact = float((stream_cols_plain if cols else stream_rows_plain)(x.double(), step))
             if abs(total - exact) > SUM_RTOL * abs(exact):
                 raise RuntimeError(f"{fn.__name__}({step}): {total} vs float64 {exact}")
-            bound = stream_bound(x, step, cols)
+            bound, corner = stream_bound(x, step, cols), corner_bound(x, step, cols)
             ms = [time_ms(lambda: fn(x, step), device, repeats) for _ in range(2)]
             mean = sum(ms) / len(ms)
             share = bound.speed_of_light_s() * 1e3 / mean
@@ -165,7 +185,8 @@ def run_stream(device="cuda", n_slots: int = N_SLOTS, widths=WIDTHS, rows=ROWS, 
                 "width" if cols else "rows": step, "run_bytes": 4 * (step if cols else step * D),
                 "bytes": bound.bytes_read, "device": str(device), "sum": total, "float64_sum": exact,
                 "ms": ms, "ms_mean": mean, "gb_per_s": bound.bytes_read / mean / 1e6,
-                "bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by(), "share_of_bound": share})
+                "stream_bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by(),
+                "stream_share_of_bound": share, "corner_bound_ms": corner.speed_of_light_s() * 1e3})
         del x
     return results
 

@@ -15,9 +15,9 @@ on-chip memory (``ig_kernel``, ``:183-210``). Kernels: ``csrc/forms.cu``.
   as an f32 scalar, per-step partials over steps of ``step`` indices (the
   TPU kernel's TCB), then the partials in a fixed order, from a table held
   in the distributed shared memory of a thread-block cluster (8 CTAs ×
-  128 KB for the harness's 1 MiB table; 16 × 64 KB where the card refuses
-  8). A table the cluster cannot hold, or a cluster the card cannot place,
-  raises; it never falls back to ``gather_sum``.
+  128 KB for the harness's 1 MiB table). A table the cluster cannot hold,
+  or a cluster the card cannot place, raises; it never falls back to
+  ``gather_sum``.
 
 Form F, the one-hot matmul gather named in the JAX file's docstring
 (``:18``), has no code there, so there is nothing to port.
@@ -28,12 +28,12 @@ launches. :func:`probe_forms` runs A–E2 on the inputs ``main`` draws, in
 its order, from ``np.random.default_rng(0)``; :func:`microbench` times the
 library gather ``index_select(table, 0, idx).sum()``,
 ``kernel_gather.gather_sum`` (the table in L2) and
-:func:`cluster_gather_sum` (the table on chip) at the harness's shape. ``python -m demuxalot_tpu_torch.experiments.gather_forms
-[--device cpu]`` prints both as JSON.
+:func:`cluster_gather_sum` (the table on chip) at the harness's shape.
+``python -m demuxalot_tpu_torch.experiments.gather_forms [--device cpu]``
+prints both as JSON.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 
 import numpy as np
@@ -105,17 +105,13 @@ def cluster_gather_sum_plain(table: torch.Tensor, idx: torch.Tensor, step: int =
 
 
 _CLUSTER_ERRORS = {
-    -1: "the table does not fit the shared memory of a cluster of 8 or 16 CTAs",
-    -2: "the card cannot place a cluster of 8 or 16 CTAs with the table's shared memory",
+    -1: "the table does not fit the shared memory of a cluster of 8 CTAs",
+    -2: "the card cannot place a cluster of 8 CTAs with the table's shared memory",
 }
 
 
 def cluster_gather_sum(table: torch.Tensor, idx: torch.Tensor, step: int = STEP) -> torch.Tensor:
-    """``Σ table[idx]`` as an f32 scalar tensor (0-dim) from a table held on chip; the CUDA kernel for CUDA tensors.
-
-    ``cluster_gather_sum.cluster_size`` is the cluster size of the last
-    launch (8, or 16 where the card could not place 8).
-    """
+    """``Σ table[idx]`` as an f32 scalar tensor (0-dim) from a table held on chip; the CUDA kernel for CUDA tensors."""
     device = _device_of("cluster_gather_sum", table)
     _check("table", table, torch.float32, 2, device)
     _check("idx", idx, torch.int32, 1, device)
@@ -124,23 +120,20 @@ def cluster_gather_sum(table: torch.Tensor, idx: torch.Tensor, step: int = STEP)
     if device.type == "cpu":
         return cluster_gather_sum_plain(table, idx, step)
     n_rows, width = table.shape
-    partial = torch.empty(-(-idx.shape[0] // step) * 16, dtype=torch.float32, device=device)
+    partial = torch.empty(-(-idx.shape[0] // step) * 8, dtype=torch.float32, device=device)
     total = torch.empty((), dtype=torch.float32, device=device)
-    cluster = ctypes.c_int(0)
     with torch.cuda.device(device):
         status = _cuda.library().demux_cluster_gather_sum(
             table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], step, partial.data_ptr(),
-            total.data_ptr(), ctypes.addressof(cluster), torch.cuda.current_stream(device).cuda_stream)
+            total.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if status in _CLUSTER_ERRORS:
         raise RuntimeError(f"cluster_gather_sum on [{n_rows}, {width}]: {_CLUSTER_ERRORS[status]}")
     _cuda.check_launch("cluster_gather_sum", status)
     cluster_gather_sum.launches += 1
-    cluster_gather_sum.cluster_size = cluster.value
     return total
 
 
 cluster_gather_sum.launches = 0
-cluster_gather_sum.cluster_size = 0
 
 
 def form_inputs(rng: np.random.Generator) -> dict:
@@ -188,7 +181,8 @@ def microbench_inputs(rng: np.random.Generator, device) -> tuple:
 
 
 def microbench(device="cuda", repeats: int = 10, n_idx: int = NIDX) -> dict:
-    """ms and ns per row of the library gather-sum, ``gather_sum`` and :func:`cluster_gather_sum` at the harness's shape.
+    """ms and ns per row of the library gather-sum, ``gather_sum`` and :func:`cluster_gather_sum` at the harness's
+    shape.
 
     The inputs are ``main``'s: ``np.random.default_rng(0)`` after the forms'
     draws (the first ``n_idx`` indices where that is smaller). Each sum is
@@ -223,8 +217,7 @@ def microbench(device="cuda", repeats: int = 10, n_idx: int = NIDX) -> dict:
     for name in runs:
         mean = sum(result[name]["ms"]) / len(result[name]["ms"])
         result[name].update(ms_mean=mean, ns_per_row=mean * 1e6 / int(idx.shape[0]))
-    result.update(bound_ms=bound.speed_of_light_s() * 1e3, bound_by=bound.bound_by(),
-                  cluster_size=cluster_gather_sum.cluster_size)
+    result.update(bound_ms=bound.speed_of_light_s() * 1e3, bound_by=bound.bound_by())
     return result
 
 

@@ -19,20 +19,20 @@ plain version beside it (CPU tensors take the plain version; ``.launches``
 counts launches); :func:`g` stays torch indexing, as it was an XLA gather
 outside any kernel; :func:`pmbc_estep` is ``build_estep``'s counterpart on
 the port's mainline E-step (``ops.likelihood_kernel``), and
-:func:`run_stages` times each stage over ``K`` = 6 chained repeats with CUDA
-events (the host clock on the CPU). ``python -m
+:func:`run_stages` times each stage over ``K`` = 6 chained repeats with
+``kernel_gather.time_ms`` (CUDA events; the host clock on the CPU). ``python -m
 demuxalot_tpu_torch.experiments.gather_operand [--device cpu] [--phase
 1|2|3]`` prints one phase's times as JSON; the JAX file reads ``PHASE``.
 """
 from __future__ import annotations
 
 import json
-import time
 
 import numpy as np
 import torch
 
 from ..ops import _cuda
+from .kernel_gather import time_ms
 
 # the TPU harness's shape (exp_gather_operand.py:19-21, 57)
 N_B, N_SLOTS = 131_072, 10_652_672
@@ -153,32 +153,19 @@ def chain(step, post: torch.Tensor, k: int = K) -> torch.Tensor:
 
 
 def run_stages(named_steps: dict, post: torch.Tensor, k: int = K, repeats: int = 3) -> dict:
-    """{name: {ms, value}}: ms per step, the best of ``repeats`` chains over ``k``, after one warm-up chain.
+    """{name: {ms, value}}: ms per step, the best of ``repeats`` timed chains over ``k``.
 
-    CUDA events on a card, the host clock on the CPU; ``value`` is the
-    chain's final carry, which must be finite.
+    Each chain is timed by ``kernel_gather.time_ms`` (CUDA events on a
+    card, the host clock on the CPU); ``value`` is the chain's final carry,
+    which must be finite.
     """
-    device = post.device
     results = {}
     for name, step in named_steps.items():
         value = float(chain(step, post, k))
         if not np.isfinite(value):
             raise RuntimeError(f"stage {name!r}: carry {value}")
-        best = float("inf")
-        for _ in range(repeats):
-            if device.type == "cuda":
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                chain(step, post, k)
-                end.record()
-                torch.cuda.synchronize(device)
-                ms = start.elapsed_time(end)
-            else:
-                t0 = time.perf_counter()
-                float(chain(step, post, k))
-                ms = (time.perf_counter() - t0) * 1e3
-            best = min(best, ms / k)
-        results[name] = {"ms": best, "value": value}
+        best = min(time_ms(lambda: chain(step, post, k), post.device, 1) for _ in range(repeats))
+        results[name] = {"ms": best / k, "value": value}
     return results
 
 

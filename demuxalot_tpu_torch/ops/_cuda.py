@@ -4,8 +4,8 @@ The counterpart of ``demuxalot_tpu.native``'s on-demand g++ build. At first
 use one ``nvcc`` per source under ``demuxalot_tpu_torch/csrc``, all started
 together, compiles it for Hopper (``sm_90a``); one more links the objects
 into ``demuxalot_tpu_torch/_build/``, under a file name keyed by a hash of
-the sources and flags. The library has a plain C interface and is loaded
-with ``ctypes``. A missing ``nvcc`` or a failed build raises: there is no
+the sources, their shared headers (``csrc/*.cuh``) and the flags. The
+library has a plain C interface and is loaded with ``ctypes``. A missing ``nvcc`` or a failed build raises: there is no
 fallback.
 
 Nothing here runs at import time, so the package loads where there is no
@@ -98,7 +98,7 @@ _SIGNATURES = {
     ),
     "demux_cluster_gather_sum": (
         _vp, _i64, _i32, _vp, _i64, _i64,  # table, n_rows, width, idx, n, step
-        _vp, _vp, _vp, _vp,  # partial, total, cluster_size (int*), stream
+        _vp, _vp, _vp,  # partial, total, stream
     ),
     "demux_tiny": (_vp, _i64, _vp, _vp),  # x, n, out, stream
 }
@@ -140,7 +140,7 @@ def sources() -> list:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for source in sources():
+    for source in [*sources(), *sorted(CSRC_DIR.glob("*.cuh"))]:  # the shared headers key the build too
         digest.update(source.name.encode())
         digest.update(source.read_bytes())
     return BUILD_DIR / f"libdemux_kernels_{digest.hexdigest()[:16]}.so"

@@ -101,6 +101,17 @@ def test_stream_bound_counts_the_whole_steps():
     assert full.speed_of_light_s() * 1e3 == pytest.approx(0.17028, rel=1e-4)
 
 
+def test_corner_bound_counts_the_corners_only():
+    """The scalar's own bound reads each whole step's corner once; a stream's bound reads the whole steps."""
+    x = DP.stream_inputs(4096 + 700, 32, device="cpu", cols=False)
+    corner, stream = DP.corner_bound(x, 512, cols=False), DP.stream_bound(x, 512, cols=False)
+    assert corner.bytes_read == 4 * 9 * 8 * 32 and corner.bound_by() == "bytes"  # 9 whole steps, 8 rows each
+    assert corner.operations() == stream.operations() == 9 * 8 * 32
+    assert stream.bytes_read == 64 * corner.bytes_read
+    full = DP.corner_bound(torch.empty(DP.D, DP.N_SLOTS), 512, cols=True)
+    assert full.bytes_read == 4 * 8704 * 128 * 32  # a quarter of the streamed bytes at width 512
+
+
 def test_wrappers_check_their_inputs():
     x = torch.rand(4, 100)
     with pytest.raises(ValueError, match="step of 200"):

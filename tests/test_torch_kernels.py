@@ -221,6 +221,19 @@ printf x > "$out"
 """
 
 
+def test_library_path_is_keyed_by_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a csrc/*.cuh header names a new library, so a stale build is never loaded."""
+    from demuxalot_tpu_torch.ops import _cuda
+
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_cuda, "CSRC_DIR", tmp_path)
+    before = _cuda.library_path()
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert _cuda.library_path() != before
+    assert [s.name for s in _cuda.sources()] == ["a.cu"]  # headers are not compiled on their own
+
+
 def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     """One nvcc per csrc/*.cu with -c, then one -shared link of the objects into the hashed library name."""
     from demuxalot_tpu_torch.ops import _cuda
