@@ -17,16 +17,27 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    at edge shapes (the E-step logits-only and with its fused softmax, with
    and without prior logits), the padding no-op, barcodes that span several
    staged tiles of calls (also against ``tests/oracle.py``, float64
-   accumulation), and the oracle at a small shape;
+   accumulation), both M-step entry points (``mstep_addition``,
+   ``mstep_update``) at SNP runs of 1, 2 and 6 variants (7: addition
+   only), p = 1, 2 and 0.5, with and without an anchor mask, against their
+   plain versions and bit for bit against the in-order reference
+   (``tests/torch_problems.py``) and ``probs_from_betas``, and the oracle
+   at a small shape;
 4. main path at the bench shape (32 donors, 65,536 SNPs, 65,536 barcodes,
    64 calls per barcode, 20% doublets, seed 0): ``learn_genotypes_core``
    (5 iterations, doublet prior 0.35) then ``predict_posteriors_core``,
-   with launch counters, output checks and truth accuracy, then the same
-   run through the plain versions on the card for comparison;
+   with launch counters (each M-step one ``mstep_update`` launch), output
+   checks and truth accuracy, then the same run through the plain versions
+   on the card for comparison;
 5. timing with CUDA events: E-step (logits only), E-step with its fused
    softmax (``estep_softmax``, against the plain logits + ``torch.softmax``),
-   M-step and a full EM iteration, kernel and plain in turns (plain,
-   kernel, kernel, plain); ``torch.softmax`` alone on the bench logits (the
+   the M-step addition, the fused M-step (``mstep_update``), the chain it
+   replaces (the addition kernel, then ``probs_from_betas``) and a full EM
+   iteration, kernel and plain in turns (plain, kernel, kernel, plain),
+   after both M-step entry points are held bit for bit to the in-order
+   reference and ``probs_from_betas`` on the main path's inputs (with and
+   without a mask); both M-step kernels at 1, 2, 4, 8 and 16 row reads in
+   flight, in turns; ``torch.softmax`` alone on the bench logits (the
    epilogue's library call), and the fused E-step with its log fold through
    ``logf`` against the default MUFU log2, in turns;
 6. the BAM path at the end-to-end shape of ``benchmarks/end_to_end.py``
@@ -56,7 +67,7 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    shards on cuda:0 at phase 4's shape: ``learn_genotypes`` (5 iterations,
    prior 0.35), ``predict_posteriors`` and ``predict_posteriors_compact``
    on the learnt genotypes, launch counts (4 shards x 7 E-steps, 4 x 4
-   M-steps), output checks, truth accuracy; iteration-0 and predict logits
+   addition-only M-steps), output checks, truth accuracy; iteration-0 and predict logits
    bit-equal to the single-device engine on the same inputs, EM posteriors
    and learnt betas against phase 4's, two sharded runs bit-equal; the
    CUDA-event time of one sharded EM iteration beside the single-device
@@ -126,7 +137,9 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the mainline kernels' runs on the package paths, phases 4,
 6, 7 and 8a, which ``launches_by_path`` keeps apart, with the A/B's runs
-of them in ``ab_launches``; the experiments' kernels' runs in 9b-d, 10b
+of them in ``ab_launches``; ``mstep_update`` stands beside
+``mstep_addition`` with the old chain's time and both kernels' times by
+depth in flight; the experiments' kernels' runs in 9b-d, 10b
 and 11b-d;
 ``bound_ms`` is the least time the card could take for the call that
 ``ms`` times, from ``utils.profiling``, the banded kernels' that of the
@@ -142,9 +155,10 @@ the line before it is nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --parent DIR`` runs only the comparison of this
-tree's E-step with the one under ``DIR`` (an unpacked older commit):
-phases 1-2, then each tree's E-step and softmax at the bench shape in its
-own process, in turns (parent, this tree, this tree, parent).
+tree with the one under ``DIR`` (an unpacked older commit): phases 1-2,
+then each tree's E-step and softmax, M-step and EM iteration at the bench
+shape, as its EM loop runs them, in its own process, in turns (parent,
+this tree, this tree, parent).
 """
 from __future__ import annotations
 
@@ -163,8 +177,8 @@ import torch
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "tests"))  # oracle.py: numpy only
-if "--estep-ms" in sys.argv[1:-1]:  # a child of --parent imports the package under the given root
-    sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--estep-ms") + 1]).resolve()))
+if "--steps-ms" in sys.argv[1:-1]:  # a child of --parent imports the package under the given root
+    sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--steps-ms") + 1]).resolve()))
 
 BENCH = dict(n_barcodes=65_536, n_donors=32, n_snps=65_536, calls_per_barcode=64)
 DOUBLET_PRIOR = 0.35
@@ -352,12 +366,12 @@ def _estep_tensors(p: dict, device):
     return gprob, operands
 
 
-def _mstep_operands(vid: np.ndarray, cb: np.ndarray, q: np.ndarray, n_variants: int, device):
-    """MStepOperands of (vid, cb)-sorted calls on ``device``."""
-    from demuxalot_tpu_torch.ops.mstep_kernel import MStepOperands
+def _mstep_operands(vid: np.ndarray, cb: np.ndarray, q: np.ndarray, n_variants: int, n_barcodes: int, device):
+    """Checked MStepOperands of (vid, cb)-sorted calls on ``device``."""
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_operands
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return MStepOperands(t(_csr(vid, n_variants)), t(vid), t(cb), t(q))
+    return mstep_operands(t(_csr(vid, n_variants)), t(vid), t(cb), t(q), n_barcodes)
 
 
 def phase_kernels() -> None:
@@ -450,13 +464,15 @@ def phase_kernels() -> None:
             q[::97] = 1.0  # padding-valued calls inside the runs add exactly 0
             post = rng.rand(n_barcodes, n_pg).astype(np.float32)
             post /= post.sum(axis=1, keepdims=True)
-            args = (torch.from_numpy(post).to(cuda), _mstep_operands(vid, cb, q, n_variants, cuda),
+            args = (torch.from_numpy(post).to(cuda), _mstep_operands(vid, cb, q, n_variants, n_barcodes, cuda),
                     n_donors, power)
             got = mstep_addition(*args)
             want = mstep_addition_plain(*args)
             torch.cuda.synchronize()
             err = compare(f"mstep D={n_donors} p={power}", got, want, **ADDITION_TOL)
             say("kernels", kernel="mstep_addition", n_donors=n_donors, power=power, max_abs_err=err)
+
+    phase_mstep_update_kernel()
 
     # the numpy oracle (float64 accumulation) at one small shape
     p = _estep_inputs(6, 0.35, seed=3)
@@ -469,9 +485,52 @@ def phase_kernels() -> None:
     post = torch.softmax(estep_logits(*args), -1)
     ref_m = oracle_mstep(post.cpu().numpy(), p["vid"], p["cb"], p["q"], len(p["variant2snp"]), 6, 2.0)
     got_m = mstep_addition(post, _mstep_operands(p["vid"][order], p["cb"][order], p["q"][order],
-                                                 len(p["variant2snp"]), cuda), 6, 2.0)
+                                                 len(p["variant2snp"]), p["n_barcodes"], cuda), 6, 2.0)
     err_m = compare("mstep vs oracle", got_m, torch.from_numpy(ref_m), **ADDITION_TOL)
     say("kernels", oracle="tests/oracle.py", estep_max_abs_err=err, mstep_max_abs_err=err_m)
+
+
+def phase_mstep_update_kernel() -> None:
+    """Both M-step kernels at the card tests' shapes: SNP runs of 1, 2 and 6 variants (7: addition only),
+    p = 1, 2 and 0.5, with and without an anchor mask. Against the plain versions at the addition bar and
+    1e-6, and bit for bit: the addition against the in-order reference, ``genotype_prob`` against
+    ``probs_from_betas`` on the kernel's own addition."""
+    from demuxalot_tpu_torch.ops import likelihood as L
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_update, mstep_update_plain
+    from torch_problems import in_order_addition, mstep_operands, t, update_problem
+
+    cuda = torch.device("cuda")
+    for n_donors in (1, 32, 65):
+        for runs in ((1,), (2,), (6,), (1, 2, 6), (7,)):
+            p = update_problem(seed=n_donors + len(runs), n_donors=n_donors, runs=runs)
+            windowed = max(runs) <= 6
+            ops = mstep_operands(p["vid"], p["cb"], p["q"], p["n_variants"], len(p["post"]), cuda,
+                                 snp_ptr=p["snp_ptr"] if windowed else None)
+            post, prior, v2s = t(p["post"], cuda), t(p["prior"], cuda), t(p["variant2snp"], cuda)
+            errors = {}
+            for power in (1.0, 2.0, 0.5):
+                want = in_order_addition(post, ops, n_donors, power)
+                what = f"D={n_donors} runs={runs} p={power}"
+                require(torch.equal(mstep_addition(post, ops, n_donors, power), want),
+                        f"mstep_addition {what}: bit-equal to the in-order reference")
+                if not windowed:
+                    continue
+                for mask in (None, t(p["mask"], cuda)):
+                    launches = mstep_update.launches
+                    addition, gprob = mstep_update(post, ops, prior, mask, 0.01, n_donors, power)
+                    require(mstep_update.launches == launches + 1, f"mstep_update {what}: one launch")
+                    plain_addition, plain_gprob = mstep_update_plain(post, ops, prior, mask, 0.01, n_donors, power)
+                    masked = "mask" if mask is not None else "no mask"
+                    errors[f"p={power} {masked}"] = [
+                        compare(f"mstep_update addition {what} {masked}", addition, plain_addition, **ADDITION_TOL),
+                        compare(f"mstep_update genotype_prob {what} {masked}", gprob, plain_gprob, 0.0, 1e-6)]
+                    require(torch.equal(addition, want if mask is None else want * mask),
+                            f"mstep_update {what} {masked}: addition bit-equal to the in-order reference")
+                    require(torch.equal(gprob, L.probs_from_betas(prior + addition, v2s, p["n_snps"], 0.01,
+                                                                  p["max_per_snp"])),
+                            f"mstep_update {what} {masked}: genotype_prob bit-equal to probs_from_betas")
+            say("kernels", kernel="mstep_update" if windowed else "mstep_addition", n_donors=n_donors, runs=runs,
+                n_variants=p["n_variants"], bit_equal=True, max_abs_err=errors)
 
 
 # ---------------------------------------------------------------------------
@@ -496,19 +555,37 @@ def _bench_data():
     return genotypes, handler, packed, truth
 
 
+def _mainline_kernels() -> dict:
+    """{name: wrapper} of the package paths' kernels (each wrapper carries ``.launches``)."""
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_update
+
+    return {"estep_logits": estep_logits, "mstep_addition": mstep_addition, "mstep_update": mstep_update}
+
+
+def _zero_launches() -> None:
+    for kernel in _mainline_kernels().values():
+        kernel.launches = 0
+
+
+def _launches() -> dict:
+    return {name: kernel.launches for name, kernel in _mainline_kernels().items()}
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Point the engine at the kernels' plain versions (comparison runs only)."""
     from demuxalot_tpu_torch.models import demux
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits_plain
-    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition_plain
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition_plain, mstep_update_plain
 
-    saved = demux.estep_logits, demux.mstep_addition
-    demux.estep_logits, demux.mstep_addition = estep_logits_plain, mstep_addition_plain
+    saved = demux.estep_logits, demux.mstep_addition, demux.mstep_update
+    demux.estep_logits, demux.mstep_addition, demux.mstep_update = (estep_logits_plain, mstep_addition_plain,
+                                                                    mstep_update_plain)
     try:
         yield
     finally:
-        demux.estep_logits, demux.mstep_addition = saved
+        demux.estep_logits, demux.mstep_addition, demux.mstep_update = saved
 
 
 def _run_main_path(genotypes, handler, packed):
@@ -526,20 +603,17 @@ def _run_main_path(genotypes, handler, packed):
 
 def phase_main(genotypes, handler, packed, truth) -> dict:
     from demuxalot_tpu_torch import Demultiplexer
-    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
-    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
 
     Demultiplexer.device = "cuda"
-    estep_logits.launches = 0
-    mstep_addition.launches = 0
+    require(packed.reindex.windowed_max_per_snp > 0, "the bench shape's SNP runs take the fused M-step")
+    _zero_launches()
     t0 = time.perf_counter()
     learnt, state, logits, probs, columns = _run_main_path(genotypes, handler, packed)
     wall = time.perf_counter() - t0
-    launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
-    require(launches["estep_logits"] == N_ITERATIONS + 1,
-            f"E-step kernel launched {launches['estep_logits']} times, expected {N_ITERATIONS + 1}")
-    require(launches["mstep_addition"] == N_ITERATIONS - 1,
-            f"M-step kernel launched {launches['mstep_addition']} times, expected {N_ITERATIONS - 1}")
+    launches = _launches()
+    # every M-step is one mstep_update launch (addition, mask and the next normalisation)
+    expected = {"estep_logits": N_ITERATIONS + 1, "mstep_addition": 0, "mstep_update": N_ITERATIONS - 1}
+    require(launches == expected, f"main path launches {launches}, expected {expected}")
 
     n_barcodes, n_pg = BENCH["n_barcodes"], len(columns)
     for name, frame in (("em_probs", state.probs), ("logits", logits), ("probs", probs)):
@@ -631,20 +705,31 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
     from demuxalot_tpu_torch.ops import likelihood as L
     from demuxalot_tpu_torch.ops import likelihood_kernel
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
-    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain
+    from demuxalot_tpu_torch.ops import _cuda, mstep_kernel
+    from demuxalot_tpu_torch.ops.mstep_kernel import (
+        mstep_addition, mstep_addition_plain, mstep_update, mstep_update_plain)
     from demuxalot_tpu_torch.utils.profiling import MStepRoofline, Roofline
+    from torch_problems import in_order_addition
 
     cuda = torch.device("cuda")
     lik = _Likelihood(packed, handler.n_barcodes, genotypes.genotype_names, DOUBLET_PRIOR, cuda)
     reindex = packed.reindex
+    variant2snp = torch.from_numpy(reindex.variant2snp).to(cuda)
+    n_snps, window = int(packed.variant2snp.max()) + 1, reindex.windowed_max_per_snp
     betas = torch.from_numpy(reindex.permute_rows(packed.betas_for(main["learnt"], False))).to(cuda)
-    gprob = L.probs_from_betas(betas, torch.from_numpy(reindex.variant2snp).to(cuda),
-                               int(packed.variant2snp.max()) + 1, 0.01, reindex.windowed_max_per_snp)
+    gprob = L.probs_from_betas(betas, variant2snp, n_snps, 0.01, window)
     probs = main["state"].probs
     n_genotypes = len(genotypes.genotype_names)
     power = float(Demultiplexer.contribution_power)
     estep_args = (gprob, lik.estep)
     mstep_args = (probs, lik.mstep, n_genotypes, power)
+    # the EM's own M-step inputs: its prior betas (data prior added), no mask on the main path; a mask
+    # that takes every third variant off checks the masked epilogue at this shape too
+    prior = torch.from_numpy(reindex.permute_rows(packed.betas_for(genotypes, True))).to(cuda)
+    anchor = (torch.arange(packed.n_variants, device=cuda) % 3 != 0).to(torch.float32)[:, None]
+    update_args = (probs, lik.mstep, prior, None, 0.01, n_genotypes, power)
+    old_chain = lambda addition: L.probs_from_betas(prior + addition(*mstep_args), variant2snp, n_snps, 0.01,  # noqa
+                                                    window)
 
     # kernel vs plain on the main path's own inputs at the bench shape
     logits_k = estep_logits(*estep_args)
@@ -654,6 +739,25 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
                        torch.softmax(logits_p, -1), 0.0, POSTERIOR_ATOL)
     mstep_err = compare("bench-shape mstep", mstep_addition(*mstep_args),
                         mstep_addition_plain(*mstep_args), **ADDITION_TOL)
+    # both M-step entry points bit for bit: the addition against the in-order reference (each sum one
+    # chain in call order, every multiply and add its own op), genotype_prob against probs_from_betas
+    # on the kernel's own addition
+    in_order = in_order_addition(*mstep_args)
+    require(torch.equal(mstep_addition(*mstep_args), in_order), "bench-shape mstep_addition: bit-equal in order")
+    update_err = {}
+    for mask in (None, anchor):
+        masked = "mask" if mask is not None else "no mask"
+        addition, update_gprob = mstep_update(probs, lik.mstep, prior, mask, 0.01, n_genotypes, power)
+        require(torch.equal(addition, in_order if mask is None else in_order * mask),
+                f"bench-shape mstep_update ({masked}): addition bit-equal in order")
+        require(torch.equal(update_gprob, L.probs_from_betas(prior + addition, variant2snp, n_snps, 0.01, window)),
+                f"bench-shape mstep_update ({masked}): genotype_prob bit-equal to probs_from_betas")
+        plain_addition, plain_gprob = mstep_update_plain(probs, lik.mstep, prior, mask, 0.01, n_genotypes, power)
+        update_err[masked] = {
+            "addition": compare(f"bench-shape mstep_update addition ({masked})", addition, plain_addition,
+                                **ADDITION_TOL),
+            "genotype_prob": compare(f"bench-shape mstep_update genotype_prob ({masked})", update_gprob,
+                                     plain_gprob, 0.0, 1e-6)}
     # the fused E-step (the EM loop's and predict's call) against the plain
     # logits + torch.softmax, with its log fold on the MUFU unit (the
     # default) and through logf
@@ -681,6 +785,9 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
         "estep_softmax": (lambda: estep_logits(*estep_args, softmax=True),
                           lambda: estep_logits_plain(*estep_args, softmax=True)),
         "mstep": (lambda: mstep_addition(*mstep_args), lambda: mstep_addition_plain(*mstep_args)),
+        "mstep_update": (lambda: mstep_update(*update_args), lambda: mstep_update_plain(*update_args)),
+        # what mstep_update replaces, as this tree runs it: the addition kernel, then probs_from_betas
+        "old_chain": (lambda: old_chain(mstep_addition), lambda: old_chain(mstep_addition_plain)),
         "em_iteration": (lambda: _em_iteration_ms(genotypes, handler, packed), plain_em_ms),
     }
     timings = {}
@@ -698,7 +805,28 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
         say("timing", step=name, card=card, **timings[name])
     say("timing", card=card, max_memory_allocated=torch.cuda.max_memory_allocated(),
         estep_max_abs_err=estep_err, estep_posterior_max_abs_err=post_err, mstep_max_abs_err=mstep_err,
-        fused_estep_max_abs_err=fused_errors)
+        mstep_update_max_abs_err=update_err, mstep_bit_equal_in_order=True, fused_estep_max_abs_err=fused_errors)
+    # the M-step's row reads in flight per warp: every depth, both kernels, in turns (ascending, then back)
+    depths = (1, 2, 4, 8, 16)
+    in_flight = {name: {depth: [] for depth in depths} for name in ("mstep", "mstep_update")}
+    saved = mstep_kernel.IN_FLIGHT
+    try:
+        for depth in (*depths, *depths[::-1]):
+            mstep_kernel.IN_FLIGHT = depth
+            in_flight["mstep"][depth].append(_time_ms(lambda: mstep_addition(*mstep_args)))
+            in_flight["mstep_update"][depth].append(_time_ms(lambda: mstep_update(*update_args)))
+    finally:
+        mstep_kernel.IN_FLIGHT = saved
+    say("timing", step="mstep in flight", card=card, default=saved, ms=in_flight)
+    timings["in_flight_ms"] = {name: {depth: sum(v) / 2 for depth, v in by.items()} for name, by in in_flight.items()}
+    # the index checks (checks.cu's two kernels over var_ptr and cb) now run once, when the operands are
+    # built; before, every M-step launch ran them
+    o, lib = lik.mstep, _cuda.library()
+    checks_ms = [_time_ms(lambda: _cuda.check_launch("mstep checks", lib.demux_mstep_check(
+        o.var_ptr.data_ptr(), o.n_variants, o.cb.shape[0], o.cb.data_ptr(), o.n_barcodes,
+        torch.cuda.current_stream().cuda_stream))) for _ in range(2)]
+    say("timing", step="mstep checks", card=card, ms=checks_ms)
+    timings["checks_ms"] = sum(checks_ms) / 2
     # the epilogue's library call: torch.softmax alone on the bench logits
     softmax_ms = [_time_ms(lambda: torch.softmax(logits_p, -1)) for _ in range(2)]
     # the fused E-step's log fold: MUFU log2 (the default) against logf, in turns
@@ -716,17 +844,21 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
     n_calls, n_barcodes, n_variants = int(lik.calls.q_b.shape[0]), handler.n_barcodes, packed.n_variants
     shape = dict(n_calls=n_calls, n_donors=n_genotypes, n_pseudogenotypes=lik.n_options, n_barcodes=n_barcodes,
                  n_variants=n_variants)
+    run_lengths = np.diff(lik.mstep.snp_ptr.cpu().numpy())
+    mstep_shape = dict(n_calls=n_calls, n_donors=n_genotypes, n_barcodes=n_barcodes, n_variants=n_variants)
     bounds = {
         "estep": Roofline(**shape),
         "estep_softmax": Roofline(**shape, softmax=True),
-        "mstep": MStepRoofline(n_calls=n_calls, n_donors=n_genotypes, n_barcodes=n_barcodes, n_variants=n_variants),
+        "mstep": MStepRoofline(**mstep_shape),
+        "mstep_update": MStepRoofline(**mstep_shape, n_runs=len(run_lengths),
+                                      neighbour_adds=int((run_lengths * (run_lengths - 1)).sum())),
     }
     for name, bound in bounds.items():
         say("timing", step=name, card=card, bound_ms=bound.speed_of_light_s() * 1e3, bound_by=bound.bound_by(),
             bytes=bound.bytes_moved(), operations=bound.operations(),
             share_of_bound=bound.speed_of_light_s() * 1e3 / timings[name]["kernel_ms_mean"])
     return {"timings": timings, "estep_err": estep_err, "mstep_err": mstep_err, "bounds": bounds, "gprob": gprob,
-            "fused_errors": fused_errors}
+            "fused_errors": fused_errors, "update_err": update_err}
 
 
 # ---------------------------------------------------------------------------
@@ -772,8 +904,6 @@ def phase_bam(card: str, tmp: Path) -> dict:
     """Phase 6; the BAM fixture stays in ``tmp`` for phase 7."""
     from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, count_snps, native, sim
     from demuxalot_tpu_torch.native import hostops
-    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
-    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
 
     Demultiplexer.device = "cuda"
     stages = {}
@@ -818,8 +948,7 @@ def phase_bam(card: str, tmp: Path) -> dict:
     say("bam", stage="pack", card=card, native_s=stages["pack_native_s"], numpy_s=stages["pack_numpy_s"],
         n_collapsed_calls=len(packed.calls_v), bit_identical=True)
 
-    estep_logits.launches = 0
-    mstep_addition.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     learnt = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
                                                 doublet_prior=DOUBLET_PRIOR, damping="auto")
@@ -829,8 +958,12 @@ def phase_bam(card: str, tmp: Path) -> dict:
     compact = Demultiplexer.predict_posteriors_compact(packed, learnt.genotypes, handler, k=E2E_TOPK,
                                                        doublet_prior=DOUBLET_PRIOR)
     stages["predict_compact_s"] = time.perf_counter() - t0
-    launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
-    expected = {"estep_logits": 2 * N_ITERATIONS + 1, "mstep_addition": 2 * (N_ITERATIONS - 1)}
+    launches = _launches()
+    # the fused M-step where every SNP has at most MAX_WINDOWED_RUN variants (a BAM's alleles: at most 4)
+    fused = packed.reindex.windowed_max_per_snp > 0
+    m_steps = 2 * (N_ITERATIONS - 1)
+    expected = {"estep_logits": 2 * N_ITERATIONS + 1, "mstep_addition": 0 if fused else m_steps,
+                "mstep_update": m_steps if fused else 0}
     require(launches == expected, f"BAM path launches {launches}, expected {expected}")
     say("bam", stage="learn auto + compact", card=card, launches=launches, learn_auto_s=stages["learn_auto_s"],
         damping_selected=learnt.damping_selected, anchored_disagreement=learnt.anchored_disagreement,
@@ -898,30 +1031,28 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
     from demuxalot_tpu_torch import Demultiplexer
     from demuxalot_tpu_torch.models import demux
     from demuxalot_tpu_torch.ops import likelihood as L
-    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
-    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
 
     Demultiplexer.device = "cuda"
     cuda = demux.resolve_device(Demultiplexer.device)  # the engine's device key, as its layout cache has it
     Demultiplexer.aggregate_on_snps = True
     try:
         torch.cuda.reset_peak_memory_stats()
-        estep_logits.launches = 0
-        mstep_addition.launches = 0
+        _zero_launches()
         demux.STAGE_TIMINGS = {}
         t0 = time.perf_counter()
         learnt = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
                                                     doublet_prior=0.0)
         torch.cuda.synchronize()
         learn_s = time.perf_counter() - t0
-        learn_launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
+        learn_launches = _launches()
         stage_timings, demux.STAGE_TIMINGS = demux.STAGE_TIMINGS, None
         t0 = time.perf_counter()
         compact = Demultiplexer.predict_posteriors_compact(packed, learnt.genotypes, handler,
                                                            doublet_prior=DOUBLET_PRIOR, k=E2E_TOPK)
         compact_s = time.perf_counter() - t0
-        launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
-        expected = {"estep_logits": 0, "mstep_addition": N_ITERATIONS - 1}
+        launches = _launches()
+        # the aggregate EM shares the fused M-step (same SNP runs as phase 4)
+        expected = {"estep_logits": 0, "mstep_addition": 0, "mstep_update": N_ITERATIONS - 1}
         require(learn_launches == expected, f"aggregate EM launches {learn_launches}, expected {expected}")
         require(launches == expected, f"aggregate path launches {launches}, expected {expected}")
         layout = packed.snp_aggregation_layout(cuda)
@@ -1038,8 +1169,6 @@ def phase_discovery(card: str, fixture: tuple, tmp: Path) -> dict:
     from demuxalot_tpu_torch.bamio import BamReader
     from demuxalot_tpu_torch.frontend import cellranger, native_counter
     from demuxalot_tpu_torch.models import snp_detection
-    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
-    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
 
     bam, genotypes, handler = fixture
     Demultiplexer.device = "cuda"
@@ -1065,8 +1194,7 @@ def phase_discovery(card: str, fixture: tuple, tmp: Path) -> dict:
 
     walls = {"count": [], "predict": [], "scan": []}
     native_counter.try_count_coverage_native = counting_pileup
-    estep_logits.launches = 0
-    mstep_addition.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     try:
         with _timed_calls(snp_detection, "count_snps", walls["count"]), \
@@ -1077,8 +1205,8 @@ def phase_discovery(card: str, fixture: tuple, tmp: Path) -> dict:
     finally:
         native_counter.try_count_coverage_native = real_pileup
     total_s = time.perf_counter() - t0
-    launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
-    expected = {"estep_logits": 1, "mstep_addition": 0}
+    launches = _launches()
+    expected = {"estep_logits": 1, "mstep_addition": 0, "mstep_update": 0}
     require(launches == expected, f"discovery launches {launches}, expected {expected}")
     n_fragments = len(E2E_FIXTURE["chromosome2length"])
     require(len(pileups) == n_fragments and all(pileups),
@@ -1154,8 +1282,7 @@ def phase_sharded(genotypes, handler, packed, truth, main: dict, timing: dict, c
     sharded = ShardedDemultiplexer(make_mesh(["cuda:0"] * SHARDS))
 
     # (a) the main path through the sharded engine, counted
-    estep_logits.launches = 0
-    mstep_addition.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     learnt, em_probs = sharded.learn_genotypes(packed, genotypes, handler, n_iterations=N_ITERATIONS,
                                                doublet_prior=DOUBLET_PRIOR)
@@ -1163,8 +1290,10 @@ def phase_sharded(genotypes, handler, packed, truth, main: dict, timing: dict, c
     compact = sharded.predict_posteriors_compact(packed, learnt, handler, doublet_prior=DOUBLET_PRIOR, k=E2E_TOPK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"estep_logits": estep_logits.launches, "mstep_addition": mstep_addition.launches}
-    expected = {"estep_logits": SHARDS * (N_ITERATIONS + 2), "mstep_addition": SHARDS * (N_ITERATIONS - 1)}
+    launches = _launches()
+    # the shards' partials are reduced before the normalisation: addition-only launches
+    expected = {"estep_logits": SHARDS * (N_ITERATIONS + 2), "mstep_addition": SHARDS * (N_ITERATIONS - 1),
+                "mstep_update": 0}
     require(launches == expected, f"sharded launches {launches}, expected {expected}")
     require((sharded.layout_cache_misses, sharded.layout_cache_hits) == (2, 2),
             f"layouts built {sharded.layout_cache_misses}, reused {sharded.layout_cache_hits}: expected 2 and 2")
@@ -1877,18 +2006,24 @@ def _last_entries(last: dict, launches) -> list:
 
 
 # ---------------------------------------------------------------------------
-# --parent: this tree's E-step beside an older tree's, in turns
+# --parent: this tree's steps beside an older tree's, in turns
 # ---------------------------------------------------------------------------
 
-def estep_ms() -> dict:
-    """The bench-shape E-step and its softmax of the package on sys.path, as its EM loop runs them."""
+def steps_ms() -> dict:
+    """The bench-shape E-step and its softmax, the M-step and one EM iteration of the package on sys.path,
+    as its EM loop runs them (the M-step as ``_EMRun`` calls it: fused with the normalisation where the
+    package has ``mstep_update``, else the addition kernel, then ``probs_from_betas``)."""
     import inspect
 
-    from demuxalot_tpu_torch.models.demux import _Likelihood
+    from demuxalot_tpu_torch import Demultiplexer
+    from demuxalot_tpu_torch.models import demux
+    from demuxalot_tpu_torch.models.demux import _EMRun, _Likelihood
     from demuxalot_tpu_torch.ops import likelihood as L
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
 
     genotypes, handler, packed, _truth = _bench_data()
+    Demultiplexer.device = "cuda"
     cuda = torch.device("cuda")
     lik = _Likelihood(packed, handler.n_barcodes, genotypes.genotype_names, DOUBLET_PRIOR, cuda)
     reindex = packed.reindex
@@ -1900,40 +2035,54 @@ def estep_ms() -> dict:
         step = lambda: estep_logits(gprob, lik.estep, softmax=True)  # noqa: E731
     else:
         step = lambda: torch.softmax(estep_logits(gprob, lik.estep), dim=-1)  # noqa: E731
+    # one M-step on the first iteration's posteriors, through the EM loop's own call
+    run = _EMRun(packed, genotypes, handler, 2, 0.01, DOUBLET_PRIOR, None)
+    state = next(run.device_iterations())
+    if hasattr(demux, "mstep_update") and run.likelihood.mstep.snp_ptr is not None:
+        m_step = lambda: run.likelihood.update(state.probs, run.prior_betas_dev, None, 0.01,  # noqa: E731
+                                               run.n_genotypes)
+    else:
+        m_step = lambda: L.probs_from_betas(  # noqa: E731
+            run.prior_betas_dev + mstep_addition(state.probs, run.likelihood.mstep, run.n_genotypes, 2.0),
+            run.variant2snp, run.n_snps, 0.01, max_per_snp=run.max_per_snp)
     return {"package": str(Path(inspect.getfile(estep_logits)).parents[2]), "fused": fused,
             "estep_softmax_ms": [_time_ms(step) for _ in range(3)],
-            "estep_ms": [_time_ms(lambda: estep_logits(gprob, lik.estep)) for _ in range(3)]}
+            "estep_ms": [_time_ms(lambda: estep_logits(gprob, lik.estep)) for _ in range(3)],
+            "mstep_addition_ms": [_time_ms(lambda: mstep_addition(state.probs, run.likelihood.mstep,
+                                                                  run.n_genotypes, 2.0)) for _ in range(3)],
+            "m_step_ms": [_time_ms(m_step) for _ in range(3)],
+            "em_iteration_ms": [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)]}
 
 
 def compare_with_parent(parent: Path, card: str) -> None:
-    """Each tree's E-step in its own process (one package per process), parent, this, this, parent."""
+    """Each tree's steps in its own process (one package per process), parent, this, this, parent."""
     samples = {"parent": [], "this": []}
     for which in ("parent", "this", "this", "parent"):
         root = parent if which == "parent" else REPO
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--estep-ms", str(root)],
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--steps-ms", str(root)],
                               capture_output=True, text=True, timeout=900)
-        require(proc.returncode == 0, f"E-step timing of {root} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        require(proc.returncode == 0, f"step timing of {root} exited {proc.returncode}: {proc.stderr[-2000:]}")
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         require(Path(result["package"]).resolve() == root.resolve(), f"{root}: imported {result['package']}")
         samples[which].append(result)
         say("parent", tree=which, card=card, **result)
     mean = lambda key, which: sum(sum(r[key]) / len(r[key]) for r in samples[which]) / 2  # noqa: E731
-    say("parent", card=card, estep_softmax_ms={w: mean("estep_softmax_ms", w) for w in samples},
-        estep_ms={w: mean("estep_ms", w) for w in samples})
+    say("parent", card=card, **{key: {w: mean(key, w) for w in samples} for key in (
+        "estep_softmax_ms", "estep_ms", "mstep_addition_ms", "m_step_ms", "em_iteration_ms")})
 
 
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", type=Path, help="compare this tree's E-step with the one under this directory")
-    parser.add_argument("--estep-ms", type=Path, help=argparse.SUPPRESS)  # a child of --parent
+    parser.add_argument("--parent", type=Path, help="compare this tree's steps with the ones under this directory")
+    parser.add_argument("--steps-ms", type=Path, help=argparse.SUPPRESS)  # a child of --parent
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    if args.estep_ms is not None:
-        print(json.dumps(estep_ms()), flush=True)
+    if args.steps_ms is not None:
+        print(json.dumps(steps_ms()), flush=True)
         return 0
     report = phase_device()
     if args.parent is not None:
@@ -2017,7 +2166,18 @@ def main() -> int:
          "replaces": "demuxalot_tpu/ops/pallas_mstep.py:56", **launches("mstep_addition"),
          "max_abs_err": timing["mstep_err"],
          "ms": t["mstep"]["kernel_ms_mean"], "plain_ms": t["mstep"]["plain_ms_mean"], **bound("mstep"),
-         "share_of_bound": bound("mstep")["bound_ms"] / t["mstep"]["kernel_ms_mean"], "library_ms": None},
+         "share_of_bound": bound("mstep")["bound_ms"] / t["mstep"]["kernel_ms_mean"], "library_ms": None,
+         "in_flight_ms": t["in_flight_ms"]["mstep"], "index_checks_ms": t["checks_ms"]},
+        # the same kernel source with the next iteration's probs_from_betas in its epilogue; the old chain
+        # (addition kernel, then probs_from_betas) beside it
+        {"name": "mstep_update", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/mstep.cu",
+         "replaces": "demuxalot_tpu/ops/pallas_mstep.py:56", **launches("mstep_update"),
+         "max_abs_err": max(e[key] for e in timing["update_err"].values() for key in e),
+         "ms": t["mstep_update"]["kernel_ms_mean"], "plain_ms": t["mstep_update"]["plain_ms_mean"],
+         **bound("mstep_update"),
+         "share_of_bound": bound("mstep_update")["bound_ms"] / t["mstep_update"]["kernel_ms_mean"],
+         "library_ms": None, "old_chain_ms": t["old_chain"]["kernel_ms_mean"],
+         "in_flight_ms": t["in_flight_ms"]["mstep_update"]},
     ]
     # the experiments' kernels: the banded ones at the JAX harness's shape (phase 9b, G past L2 beside
     # it), the gathers on the TPU bench's [8192, 64] table (the other tables beside it)

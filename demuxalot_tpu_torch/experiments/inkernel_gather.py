@@ -50,7 +50,7 @@ from ..ops import _cuda
 from ..ops import likelihood as L
 from ..ops import likelihood_kernel
 from ..ops.likelihood_kernel import EStepOperands, LANES, ENTRY, _check, estep_logits, estep_operands, estep_schedule
-from ..ops.mstep_kernel import MStepOperands, mstep_addition
+from ..ops.mstep_kernel import MStepOperands, mstep_addition, mstep_operands
 from ..ops.packing import csr_row_pointers
 from .kernel_gather import time_ms
 
@@ -374,7 +374,8 @@ def bench_workload(n_barcodes: int = BENCH["n_barcodes"], n_donors: int = BENCH[
     cb_t, vid_t, q_t = t(cb), t(vid), t(q)
     estep = estep_operands(n_donors, doublet_prior, t(csr_row_pointers(cb, n_barcodes)), cb_t, vid_t, q_t)
     order = np.lexsort((cb, vid))
-    mstep = MStepOperands(t(csr_row_pointers(vid[order], n_variants)), t(vid[order]), t(cb[order]), t(q[order]))
+    mstep = mstep_operands(t(csr_row_pointers(vid[order], n_variants)), t(vid[order]), t(cb[order]), t(q[order]),
+                           n_barcodes)
     v2s, prior_betas = t(variant2snp), t(betas)
     gprob0 = L.probs_from_betas(prior_betas, v2s, n_snps, 0.01, 2)
     _logits, posterior = estep_logits(gprob0, estep, softmax=True)

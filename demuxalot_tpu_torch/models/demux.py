@@ -8,8 +8,10 @@ read, and every EM iteration then runs on the device:
 2. the E-step likelihood kernel with the row softmax fused
    (``ops.likelihood_kernel.estep_logits``, ``softmax=True``; iteration 0
    adds the prior logits inside the same launch);
-3. the M-step kernel (``ops.mstep_kernel.mstep_addition``);
-4. the optional anchor mask.
+3. the M-step kernel with the anchor mask and the next iteration's
+   normalisation in its epilogue (``ops.mstep_kernel.mstep_update``), one
+   launch; where a SNP has more variants than ``MAX_WINDOWED_RUN``, the
+   addition-only kernel (``mstep_addition``), the mask and step 1 instead.
 
 The EM state is variant-major [V, D]: a call's genotype row is then one
 contiguous read in the E-step and the M-step writes whole variant rows.
@@ -44,7 +46,7 @@ from ..native.hostops import stable_argsort
 from ..ops import likelihood as L
 from ..ops import packing as P
 from ..ops.likelihood_kernel import estep_logits, estep_operands
-from ..ops.mstep_kernel import MStepOperands, mstep_addition
+from ..ops.mstep_kernel import MStepOperands, mstep_addition, mstep_operands, mstep_update
 from ..utils.barcodes import BarcodeHandler
 from ..utils.device import resolve_device
 from .genotypes import ProbabilisticGenotypes
@@ -171,7 +173,8 @@ class PackedCalls:
     Genotype objects passed alongside may differ in beta VALUES (e.g. the
     learnt clone) but must carry the same variant registry; this is checked
     on every use. :meth:`device_calls` caches the device tensors per
-    (n_barcodes, device), :meth:`snp_aggregation_layout` the (barcode, snp)
+    (n_barcodes, device), :meth:`mstep_operands` the M-step's checked
+    operands over them, :meth:`snp_aggregation_layout` the (barcode, snp)
     groups of the aggregate_on_snps path per device.
     """
 
@@ -192,6 +195,7 @@ class PackedCalls:
         self._calls_b: Optional[tuple] = None
         self._barcode_calls: Optional[np.recarray] = None
         self._device_calls: dict = {}
+        self._mstep_operands: dict = {}
         self._snp_layouts: dict = {}
         self._sharded_layouts: dict = {}  # parallel.ShardedDemultiplexer's per-shard layouts
 
@@ -270,6 +274,18 @@ class PackedCalls:
             self._device_calls[key] = cached
         return cached
 
+    def mstep_operands(self, n_barcodes: int, device: torch.device) -> MStepOperands:
+        """Cached M-step operands on ``device``: indices checked once, SNP runs where they are short enough."""
+        key = (n_barcodes, str(device))
+        cached = self._mstep_operands.get(key)
+        if cached is None:
+            c = self.device_calls(n_barcodes, device)
+            windowed = self.reindex.windowed_max_per_snp > 0  # else the EM normalises on the segment path
+            snp_ptr = _to_device(self.reindex.snp_pointers(), device) if windowed else None
+            cached = self._mstep_operands[key] = mstep_operands(c.var_ptr, c.vid_v, c.cb_v, c.q_v, n_barcodes,
+                                                                snp_ptr=snp_ptr)
+        return cached
+
 
 def ensure_packed(chromosome2compressed_snp_calls, genotypes) -> PackedCalls:
     """Route any calls input through one PackedCalls (transient for dicts)."""
@@ -293,7 +309,7 @@ class _Likelihood:
         self.n_barcodes = n_barcodes
         self.calls = c = packed.device_calls(n_barcodes, device)
         self.estep = estep_operands(len(genotype_names), doublet_prior, c.row_ptr, c.cb_b, c.vid_b, c.q_b)
-        self.mstep = MStepOperands(c.var_ptr, c.vid_v, c.cb_v, c.q_v)
+        self.mstep = packed.mstep_operands(n_barcodes, device)
         self.snp_groups = packed.snp_aggregation_layout(device) if Demultiplexer.aggregate_on_snps else None
 
     @property
@@ -303,7 +319,8 @@ class _Likelihood:
     def tensors(self) -> list:
         """Every device tensor the E-step and M-step read."""
         groups = self.snp_groups.tensors() if self.snp_groups is not None else ()
-        return [*self.calls, self.estep.penalties, self.estep.schedule, self.estep.mixing, *groups]
+        runs = [self.mstep.snp_ptr] if self.mstep.snp_ptr is not None else []
+        return [*self.calls, *runs, self.estep.penalties, self.estep.schedule, self.estep.mixing, *groups]
 
     def logits(self, genotype_prob: torch.Tensor) -> torch.Tensor:
         if self.snp_groups is not None:
@@ -322,6 +339,12 @@ class _Likelihood:
 
     def addition(self, probs: torch.Tensor, n_genotypes: int) -> torch.Tensor:
         return mstep_addition(probs, self.mstep, n_genotypes, float(Demultiplexer.contribution_power))
+
+    def update(self, probs: torch.Tensor, prior_betas: torch.Tensor, anchor_mask: Optional[torch.Tensor],
+               p_genotype_clip: float, n_genotypes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(masked addition, next genotype probabilities): one fused launch on the kernel path."""
+        return mstep_update(probs, self.mstep, prior_betas, anchor_mask, p_genotype_clip, n_genotypes,
+                            float(Demultiplexer.contribution_power))
 
 
 class EMState(NamedTuple):
@@ -405,21 +428,33 @@ class _EMRun:
             _stage_mark(timings, "upload_flush_s", t_mark)
 
     def device_iterations(self):
-        """Yield an :class:`EMState` per EM iteration (the last runs no M-step)."""
+        """Yield an :class:`EMState` per EM iteration (the last runs no M-step).
+
+        With SNP runs of at most ``MAX_WINDOWED_RUN`` variants each M-step
+        is one ``mstep_update`` launch that also normalises the next
+        iteration's genotype probabilities; otherwise the addition-only
+        kernel, the mask and ``probs_from_betas``' segment path.
+        """
+        likelihood = self.likelihood
         addition = torch.zeros_like(self.prior_betas_dev)
+        genotype_prob = self._normalise(addition)
         for iteration in range(self.n_iterations):
-            genotype_prob = L.probs_from_betas(
-                self.prior_betas_dev + addition, self.variant2snp, self.n_snps,
-                self.p_genotype_clip, max_per_snp=self.max_per_snp,
-            )
-            logits, probs = self.likelihood.posteriors(
-                genotype_prob, self.prior_logits if iteration == 0 else None)
+            logits, probs = likelihood.posteriors(genotype_prob, self.prior_logits if iteration == 0 else None)
             yield EMState(probs, logits, addition)
             if iteration == self.n_iterations - 1:
                 break
-            addition = self.likelihood.addition(probs, self.n_genotypes)
+            if likelihood.mstep.snp_ptr is not None:
+                addition, genotype_prob = likelihood.update(
+                    probs, self.prior_betas_dev, self.anchor_mask, self.p_genotype_clip, self.n_genotypes)
+                continue
+            addition = likelihood.addition(probs, self.n_genotypes)
             if self.anchor_mask is not None:
                 addition = addition * self.anchor_mask
+            genotype_prob = self._normalise(addition)
+
+    def _normalise(self, addition: torch.Tensor) -> torch.Tensor:
+        return L.probs_from_betas(self.prior_betas_dev + addition, self.variant2snp, self.n_snps,
+                                  self.p_genotype_clip, max_per_snp=self.max_per_snp)
 
     def registry_addition(self, state: EMState) -> np.ndarray:
         """The state's beta addition on the host, in registry variant order."""

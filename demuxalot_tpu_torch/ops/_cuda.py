@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_int64
+_f32 = ctypes.c_float
 # C signatures of csrc/*.cu's entry points; every one returns a cudaError_t
 _SIGNATURES = {
     "demux_estep_logits": (
@@ -46,10 +47,20 @@ _SIGNATURES = {
         _vp, _vp, _vp,  # prior_logits (or null), logits, probs (or null)
         _i32, _vp,  # fast_log, stream
     ),
+    "demux_mstep_check": (
+        _vp, _i64, _i64, _vp, _i64, _vp,  # var_ptr, n_variants, n_calls, cb, n_barcodes, stream
+    ),
     "demux_mstep_addition": (
-        _vp, _i64, _i32, _i32,  # posterior, n_barcodes, n_pg, n_donors
-        _vp, _i64, _vp, _vp, _i64,  # var_ptr, n_calls, cb, q, n_variants
-        ctypes.c_float, _vp, _vp,  # power, addition, stream
+        _vp, _i32, _i32,  # posterior, n_pg, n_donors
+        _vp, _vp, _vp, _i64,  # var_ptr, cb, q, n_variants
+        _f32, _i32, _vp, _vp,  # power, depth, addition, stream
+    ),
+    "demux_mstep_update": (
+        _vp, _i32, _i32,  # posterior, n_pg, n_donors
+        _vp, _vp, _vp, _vp, _i64,  # var_ptr, cb, q, snp_ptr, n_runs
+        _f32, _vp, _vp,  # power, prior, mask (or null)
+        _f32, _f32, _f32, _i32,  # floor, lo, hi, depth
+        _vp, _vp, _vp,  # addition, genotype_prob, stream
     ),
     "demux_estep_logits_banded": (
         _vp, _i64, _i32,  # genotype_prob, n_variants, n_donors

@@ -29,6 +29,8 @@ import torch
 from .packing import MAX_WINDOWED_RUN
 
 DEFAULT_CALL_CHUNK = 256 * 1024
+# probs_from_betas' denominator floor (the fused M-step's epilogue uses it too)
+DENOMINATOR_FLOOR = 1e-7
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +151,7 @@ def probs_from_betas(
         per_snp = torch.segment_reduce(betas[order], "sum", unsafe=True,
                                        lengths=torch.bincount(variant2snp, minlength=n_snps))
         denom = per_snp[variant2snp]
-    probs = betas / denom.clamp(min=1e-7)
+    probs = betas / denom.clamp(min=DENOMINATOR_FLOOR)
     return probs.clamp(p_genotype_clip, 1 - p_genotype_clip)
 
 

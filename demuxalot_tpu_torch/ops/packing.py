@@ -317,6 +317,13 @@ class VariantReindex:
         """`max_per_snp` when the windowed denominator path applies, else 0."""
         return self.max_per_snp if self.max_per_snp <= MAX_WINDOWED_RUN else 0
 
+    def snp_pointers(self) -> np.ndarray:
+        """int64 [n_runs + 1]: device rows ``[ptr[s], ptr[s + 1])`` are one SNP's run (the M-step's ``snp_ptr``)."""
+        v2s = self.variant2snp
+        if not len(v2s):
+            return np.zeros(1, np.int64)
+        return np.concatenate([[0], np.flatnonzero(np.diff(v2s)) + 1, [len(v2s)]]).astype(np.int64)
+
     def remap_variant_ids(self, vid: np.ndarray) -> np.ndarray:
         """Registry variant ids → device (SNP-sorted) variant ids."""
         return self.inverse[np.asarray(vid)]

@@ -13,7 +13,9 @@ distinct device.
 One EM iteration runs, per shard, ``probs_from_betas`` on its device's
 copy of betas + addition, the E-step kernel with its fused softmax
 (``estep_logits``, ``softmax=True``) and the M-step kernel
-(``mstep_addition``) into a [V, D] partial.
+(``mstep_addition``) into a [V, D] partial. The addition-only kernel:
+the normalisation needs the reduced sum, so the single-device engine's
+fused ``mstep_update`` does not apply here.
 The partials are then summed once, the counterpart of the JAX engine's
 psum: within a process in shard order on the first shard's device (no
 atomics, a fixed order), across processes by ``all_reduce(SUM)``. The
@@ -45,7 +47,7 @@ from ..models import demux as _dm
 from ..models.demux import CompactPosteriors, Demultiplexer, compact_topk, ensure_packed
 from ..ops import likelihood as L
 from ..ops.likelihood_kernel import estep_logits, estep_operands
-from ..ops.mstep_kernel import MStepOperands, mstep_addition
+from ..ops.mstep_kernel import mstep_addition, mstep_operands
 from ..ops.packing import CallColumns, csr_row_pointers
 from .mesh import Mesh, allreduce_max_dims, local_shard_ids, make_mesh, to_host
 
@@ -167,10 +169,10 @@ class ShardedDemultiplexer:
             for shard, device in my_shards:
                 mine = shard_of_call == shard  # a mask keeps the (vid, cb) order: no re-sort
                 vid = calls_v.vid[mine]
-                entry_m.append(MStepOperands(
+                entry_m.append(mstep_operands(
                     _dm._to_device(csr_row_pointers(vid, n_variants), device), _dm._to_device(vid, device),
                     _dm._to_device((calls_v.cb[mine] - shard * per_shard).astype(np.int32), device),
-                    _dm._to_device(calls_v.q[mine], device),
+                    _dm._to_device(calls_v.q[mine], device), per_shard,
                 ))
             cache[key_m] = entry_m
         return entry_e, entry_m
@@ -385,7 +387,7 @@ class _ShardedEM:
             timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _dm._flush_device([
                 *self.prior_betas_dev.values(), *self.variant2snp.values(), self.anchor_mask,
                 *(self.prior_logits or ()), *(t for s in self.shards for t in s[1:]),
-                *(t for o in self.mstep for t in o), *(t for o in self.estep for t in o[:3])])
+                *(t for o in self.mstep for t in o.tensors()), *(t for o in self.estep for t in o[:3])])
             _dm._stage_mark(timings, "upload_flush_s", t_mark)
 
     def _reduce(self, partials: List[torch.Tensor]) -> dict:

@@ -113,28 +113,43 @@ class Roofline(_Bound):
 
 @dataclass
 class MStepRoofline(_Bound):
-    """Speed of light of the M-step kernel (``csrc/mstep.cu``).
+    """Speed of light of the M-step kernels (``csrc/mstep.cu``).
 
-    Bytes: every call's barcode and ``q`` (4 + 4), the variant row pointers
-    (8 per variant), the singlet posterior columns it reads (4·B·D) and
-    the additions written once (4·V·D). Operations per (call, donor):
+    The addition: every call's barcode and ``q`` (4 + 4 bytes), the variant
+    row pointers (8 per variant), the singlet posterior columns it reads
+    (4·B·D) and the additions written once (4·V·D); per (call, donor)
     ``post·(1−q)`` (multiply), the power (one multiply at power 2) and the
-    sum (add).
+    sum (add). With ``n_runs`` (``mstep_update``) also the SNP-run pointers
+    (8 per run), the prior betas read and the genotype probabilities
+    written (4·V·D each) and the mask (4·V) where ``masked``; per (variant,
+    donor) the prior add, the division and three clamps (and the mask's
+    multiply), plus ``neighbour_adds`` denominator adds per donor (Σ over
+    runs of L·(L−1) for runs of L variants).
     """
 
     n_calls: int
     n_donors: int
     n_barcodes: int
     n_variants: int
+    n_runs: int = 0
+    masked: bool = False
+    neighbour_adds: int = 0
     hbm_bytes_per_s: float = H100_HBM_BYTES_PER_S
     f32_flops_per_s: float = H100_FP32_FLOPS_PER_S
 
     def bytes_moved(self) -> int:
         n, d, b, v = self.n_calls, self.n_donors, self.n_barcodes, self.n_variants
-        return 8 * n + 8 * (v + 1) + 4 * b * d + 4 * v * d
+        addition = 8 * n + 8 * (v + 1) + 4 * b * d + 4 * v * d
+        if not self.n_runs:
+            return addition
+        return addition + 8 * (self.n_runs + 1) + 8 * v * d + 4 * v * self.masked
 
     def operations(self) -> int:
-        return 3 * self.n_calls * self.n_donors
+        addition = 3 * self.n_calls * self.n_donors
+        if not self.n_runs:
+            return addition
+        vd = self.n_variants * self.n_donors
+        return addition + (5 + self.masked) * vd + self.neighbour_adds * self.n_donors
 
 
 @dataclass

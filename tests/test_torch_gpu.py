@@ -22,9 +22,11 @@ from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, sim
 from demuxalot_tpu_torch.models import demux
 from demuxalot_tpu_torch.ops import likelihood_kernel
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
-from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain
+from demuxalot_tpu_torch.ops import likelihood as L
+from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain, mstep_update, mstep_update_plain
 from oracle import oracle_barcode_logits
-from torch_problems import estep_args, estep_problem, mstep_operands, mstep_problem, t
+from torch_problems import (estep_args, estep_problem, in_order_addition, mstep_operands, mstep_problem, t,
+                            update_problem)
 
 
 def _need_card():
@@ -170,7 +172,7 @@ def test_gpu_mstep_kernel_matches_plain(n_donors, power):
     _need_card()
     post, vid, cb, q, n_variants, n_donors = mstep_problem(n_donors=n_donors)
     q[::53] = 1.0
-    args = (t(post, "cuda"), mstep_operands(vid, cb, q, n_variants, "cuda"), n_donors, power)
+    args = (t(post, "cuda"), mstep_operands(vid, cb, q, n_variants, len(post), "cuda"), n_donors, power)
     launches = mstep_addition.launches
     got = mstep_addition(*args)
     assert mstep_addition.launches == launches + 1
@@ -179,12 +181,54 @@ def test_gpu_mstep_kernel_matches_plain(n_donors, power):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_donors", [1, 32, 65])
+@pytest.mark.parametrize("power", [1.0, 2.0, 0.5])
+@pytest.mark.parametrize("runs", [(1,), (2,), (6,), (1, 2, 6), (7,)])
+def test_gpu_mstep_addition_is_bit_equal_in_order(n_donors, power, runs):
+    """Each (variant, donor) sum is one chain in call order: the kernel gives the in-order reference's bits."""
+    _need_card()
+    p = update_problem(seed=n_donors, n_donors=n_donors, runs=runs)
+    operands = mstep_operands(p["vid"], p["cb"], p["q"], p["n_variants"], len(p["post"]), "cuda")
+    post = t(p["post"], "cuda")
+    got = mstep_addition(post, operands, n_donors, power)
+    assert torch.equal(got, in_order_addition(post, operands, n_donors, power))
+    assert torch.equal(got, mstep_addition(post, operands, n_donors, power))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_donors", [1, 32, 65])
+@pytest.mark.parametrize("power", [1.0, 2.0, 0.5])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("runs", [(1,), (2,), (6,), (1, 2, 6)])
+def test_gpu_mstep_update_matches_plain(n_donors, power, masked, runs):
+    """One launch: the masked addition in order, and probs_from_betas' bits on it."""
+    _need_card()
+    p = update_problem(seed=n_donors + 7, n_donors=n_donors, runs=runs)
+    operands = mstep_operands(p["vid"], p["cb"], p["q"], p["n_variants"], len(p["post"]), "cuda",
+                              snp_ptr=p["snp_ptr"])
+    mask = t(p["mask"], "cuda") if masked else None
+    args = (t(p["post"], "cuda"), operands, t(p["prior"], "cuda"), mask, 0.01, n_donors, power)
+    launches = mstep_update.launches
+    addition, gprob = mstep_update(*args)
+    assert mstep_update.launches == launches + 1
+    plain_addition, plain_gprob = mstep_update_plain(*args)
+    np.testing.assert_allclose(addition.cpu().numpy(), plain_addition.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(gprob.cpu().numpy(), plain_gprob.cpu().numpy(), rtol=0, atol=1e-6)
+    in_order = in_order_addition(args[0], operands, n_donors, power)
+    assert torch.equal(addition, in_order if mask is None else in_order * mask)
+    betas = args[2] + addition
+    assert torch.equal(gprob, L.probs_from_betas(betas, t(p["variant2snp"], "cuda"), p["n_snps"], 0.01,
+                                                 p["max_per_snp"]))
+    again = mstep_update(*args)
+    assert torch.equal(again[0], addition) and torch.equal(again[1], gprob)
+
+
 _TRAP_SCRIPT = """
 import sys
 import torch
 sys.path[:0] = {paths!r}
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
-from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition
 from torch_problems import estep_args, estep_problem, mstep_operands, mstep_problem, t
 if {kernel!r} == "estep":
     gprob, operands = estep_args(estep_problem(n_donors=4), "cuda")
@@ -194,7 +238,8 @@ if {kernel!r} == "estep":
 else:
     post, vid, cb, q, n_variants, n_donors = mstep_problem()
     cb[len(cb) // 2] = post.shape[0]  # one past the last barcode
-    launch = lambda: mstep_addition(t(post, "cuda"), mstep_operands(vid, cb, q, n_variants, "cuda"), n_donors, 2.0)
+    # the operands' constructor checks cb once, so no M-step kernel ever reads through it
+    launch = lambda: mstep_operands(vid, cb, q, n_variants, len(post), "cuda")
 try:
     launch()
     torch.cuda.synchronize()
@@ -207,7 +252,8 @@ except Exception as error:
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["estep", "mstep"])
 def test_gpu_out_of_range_index_traps(kernel):
-    """An index past its table traps in checks.cu before the main kernel reads it.
+    """An index past its table traps in checks.cu before the main kernel reads it: the E-step's at each
+    launch, the M-step's when its operands are built.
 
     A trap ends the process's CUDA context, so the launch runs in a child process.
     """
@@ -221,12 +267,13 @@ def test_gpu_out_of_range_index_traps(kernel):
 @contextlib.contextmanager
 def _plain_versions():
     """Point the engine at the kernels' plain versions."""
-    saved = demux.estep_logits, demux.mstep_addition
-    demux.estep_logits, demux.mstep_addition = estep_logits_plain, mstep_addition_plain
+    saved = demux.estep_logits, demux.mstep_addition, demux.mstep_update
+    demux.estep_logits, demux.mstep_addition, demux.mstep_update = (estep_logits_plain, mstep_addition_plain,
+                                                                    mstep_update_plain)
     try:
         yield
     finally:
-        demux.estep_logits, demux.mstep_addition = saved
+        demux.estep_logits, demux.mstep_addition, demux.mstep_update = saved
 
 
 @pytest.fixture
@@ -279,9 +326,11 @@ def test_gpu_auto_damping_matches_plain(engine_problem, erased):
     degraded.variant_betas[np.nonzero(mask[snp_ids])[0], :] = 0
     learn = lambda damping: Demultiplexer.learn_genotypes_core(packed, degraded, handler, n_iterations=2,
                                                                doublet_prior=0.35, damping=damping)
-    launches = estep_logits.launches, mstep_addition.launches
+    launches = estep_logits.launches, mstep_addition.launches, mstep_update.launches
     result = learn("auto")
-    assert (estep_logits.launches - launches[0], mstep_addition.launches - launches[1]) == (4, 2)
+    # every M-step is one fused launch (the data's SNP runs are short)
+    assert (estep_logits.launches - launches[0], mstep_addition.launches - launches[1],
+            mstep_update.launches - launches[2]) == (4, 0, 2)
     runs = {"kernel": [learn(damping).state.probs for damping in (None, "anchor")]}
     with _plain_versions():
         plain = learn("auto")
@@ -307,14 +356,15 @@ def test_gpu_auto_damping_matches_plain(engine_problem, erased):
 
 @pytest.mark.gpu
 def test_gpu_aggregate_em_matches_plain(engine_problem, monkeypatch):
-    """aggregate_on_snps on the card: the E-step is torch ops, every M-step the kernel."""
+    """aggregate_on_snps on the card: the E-step is torch ops, every M-step the fused kernel."""
     _need_card()
     packed, genotypes, handler = engine_problem
     monkeypatch.setattr(Demultiplexer, "aggregate_on_snps", True)
     learn = lambda: Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=3, doublet_prior=0.35)
-    launches = estep_logits.launches, mstep_addition.launches
+    launches = estep_logits.launches, mstep_addition.launches, mstep_update.launches
     result = learn()
-    assert (estep_logits.launches - launches[0], mstep_addition.launches - launches[1]) == (0, 2)
+    assert (estep_logits.launches - launches[0], mstep_addition.launches - launches[1],
+            mstep_update.launches - launches[2]) == (0, 0, 2)
     with _plain_versions():
         plain = learn()
     np.testing.assert_allclose(result.state.probs.cpu().numpy(), plain.state.probs.cpu().numpy(), atol=3e-5)

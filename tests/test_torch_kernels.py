@@ -139,7 +139,7 @@ def test_estep_wrapper_rejects_bad_prior_logits(bad):
 def test_mstep_matches_pallas_kernel(power):
     post, vid, cb, q, n_variants, n_donors = mstep_problem()
     launches = mstep_addition.launches
-    ours = mstep_addition(t(post), mstep_operands(vid, cb, q, n_variants), n_donors, power).numpy()
+    ours = mstep_addition(t(post), mstep_operands(vid, cb, q, n_variants, len(post)), n_donors, power).numpy()
     assert mstep_addition.launches == launches
     layout = TiledMstepCalls(vid, cb, q, n_variants, tile_variants=64, chunk_calls=128)
     want = np.asarray(layout.addition(jnp.asarray(post), n_genotypes=n_donors,
@@ -159,7 +159,7 @@ def test_plain_versions_are_the_likelihood_ops():
     assert torch.equal(estep_logits_plain(*estep_args(problem)), direct)
     post, vid, cb, q, n_variants, n_donors = mstep_problem()
     direct = TL.genotype_addition_from_posteriors(t(post), t(vid), t(cb), t(q), n_variants, n_donors, 2.0)
-    plain = mstep_addition_plain(t(post), mstep_operands(vid, cb, q, n_variants), n_donors, 2.0)
+    plain = mstep_addition_plain(t(post), mstep_operands(vid, cb, q, n_variants, len(post)), n_donors, 2.0)
     assert torch.equal(plain, direct)
 
 
@@ -181,14 +181,15 @@ def test_estep_wrapper_rejects_bad_inputs(bad):
 @pytest.mark.parametrize("bad", ["dtype", "n_genotypes", "device"])
 def test_mstep_wrapper_rejects_bad_inputs(bad):
     post, vid, cb, q, n_variants, n_donors = mstep_problem(n_calls=500)
-    operands = mstep_operands(vid, cb, q, n_variants)
+    operands = mstep_operands(vid, cb, q, n_variants, len(post))
     args = [t(post), operands, n_donors, 2.0]
     if bad == "dtype":
         args[1] = operands._replace(var_ptr=operands.var_ptr.int())
     elif bad == "n_genotypes":
         args[2] = post.shape[1] + 1
     else:
-        args[:2] = [args[0].to("meta"), type(operands)(*(a.to("meta") for a in operands))]
+        args[:2] = [args[0].to("meta"), operands._replace(
+            **{name: getattr(operands, name).to("meta") for name in ("var_ptr", "vid", "cb", "q")})]
     with pytest.raises((TypeError, ValueError)):
         mstep_addition(*args)
 

@@ -292,7 +292,8 @@ def test_column_dataset_lays_out_as_packed_calls(data):
     for ours, theirs in zip(from_columns[0], from_packed[0]):
         assert all(torch.equal(a, b) for a, b in zip(ours[1:], theirs[1:]))
     for ours, theirs in zip(from_columns[1], from_packed[1]):
-        assert all(torch.equal(a, b) for a, b in zip(ours, theirs))
+        assert ours.n_barcodes == theirs.n_barcodes
+        assert all(torch.equal(a, b) for a, b in zip(ours.tensors(), theirs.tensors()))
     assert sum(int(o.vid.shape[0]) for o in from_columns[1]) == len(packed.calls_v)
 
 

@@ -3,7 +3,7 @@ import numpy as np
 import torch
 
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_operands
-from demuxalot_tpu_torch.ops.mstep_kernel import MStepOperands
+from demuxalot_tpu_torch.ops.mstep_kernel import mstep_operands as build_mstep_operands
 from demuxalot_tpu_torch.ops.packing import csr_row_pointers
 from oracle import oracle_probs_from_betas
 
@@ -46,6 +46,57 @@ def mstep_problem(seed=13, n_variants=300, n_donors=6, n_barcodes=150, n_calls=2
     return post, vid[order], cb[order], q[order], n_variants, n_donors
 
 
-def mstep_operands(vid, cb, q, n_variants, device="cpu"):
-    """MStepOperands of (vid, cb)-sorted calls on ``device``."""
-    return MStepOperands(t(csr_row_pointers(vid, n_variants), device), t(vid, device), t(cb, device), t(q, device))
+def update_problem(seed=17, n_donors=6, runs=(1, 2, 6), n_snps=60, n_barcodes=150, n_calls=20000):
+    """An EM step's M-step inputs with SNP runs whose lengths are drawn from ``runs``.
+
+    Every 7th variant has no calls, every 53rd call is padding (q = 1), every
+    5th variant's prior is 0 and 3 variants in 10 are off the anchor mask.
+    Calls are (vid, cb)-sorted; ``snp_ptr`` cuts the variant rows into runs.
+    """
+    rng = np.random.RandomState(seed)
+    lengths = rng.choice(np.asarray(runs), n_snps)
+    variant2snp = np.repeat(np.arange(n_snps, dtype=np.int32), lengths)
+    n_variants = len(variant2snp)
+    vid = rng.randint(0, n_variants, n_calls).astype(np.int32)
+    cb = rng.randint(0, n_barcodes, n_calls).astype(np.int32)
+    keep = vid % 7 != 3
+    vid, cb = vid[keep], cb[keep]
+    q = (rng.rand(len(vid)) * 0.7).astype(np.float32)
+    q[::53] = 1.0
+    n_pg = n_donors + n_donors * (n_donors - 1) // 2
+    post = rng.rand(n_barcodes, n_pg).astype(np.float32)
+    post /= post.sum(axis=1, keepdims=True)
+    prior = (rng.rand(n_variants, n_donors) * 5).astype(np.float32)
+    prior[::5] = 0.0
+    mask = (rng.rand(n_variants, 1) >= 0.3).astype(np.float32)
+    order = np.lexsort((cb, vid))
+    return dict(post=post, vid=vid[order], cb=cb[order], q=q[order], n_variants=n_variants, n_donors=n_donors,
+                variant2snp=variant2snp, n_snps=n_snps, snp_ptr=np.concatenate([[0], np.cumsum(lengths)]),
+                prior=prior, mask=mask, max_per_snp=int(lengths.max()))
+
+
+def mstep_operands(vid, cb, q, n_variants, n_barcodes, device="cpu", snp_ptr=None):
+    """Checked MStepOperands of (vid, cb)-sorted calls on ``device`` (with SNP runs where ``snp_ptr`` is given)."""
+    return build_mstep_operands(t(csr_row_pointers(vid, n_variants), device), t(vid, device), t(cb, device),
+                                t(q, device), n_barcodes, snp_ptr=None if snp_ptr is None else t(snp_ptr, device))
+
+
+def in_order_addition(posterior, operands, n_genotypes, power):
+    """The M-step addition as the kernels define it, in PyTorch: each (v, d) sum one chain in call order.
+
+    Step k adds every variant's k-th call: ``w = post·(1 − q)``, the term
+    ``w ** power`` (0 where q ≥ 1) and ``acc + term``, each its own op, so
+    every multiply and add is rounded on its own, as in ``csrc/mstep.cu``.
+    """
+    o = operands
+    counts = o.var_ptr.diff()
+    rank = torch.arange(o.cb.shape[0], device=o.cb.device) - o.var_ptr[o.vid.long()]
+    acc = posterior.new_zeros((o.n_variants, n_genotypes))
+    for k in range(int(counts.max()) if counts.numel() else 0):
+        calls = torch.nonzero(rank == k).squeeze(1)
+        q = o.q[calls].unsqueeze(1)
+        w = posterior[o.cb[calls].long(), :n_genotypes] * (1 - q)
+        term = torch.where(q >= 1, 0.0, w ** power)
+        rows = o.vid[calls].long()
+        acc[rows] = acc[rows] + term
+    return acc
