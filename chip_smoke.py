@@ -116,11 +116,16 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    ``gather_forms``, ``gather_operand``). (a) Each kernel against its plain
    version: the streams on ragged N (66,313 and 70,001) at steps of 512,
    4,096 and 32,768 and D of 32 and 7, against float64 at 1e-6;
-   take_along_axis on both axes with widths of 7 and 33 and at D2's and
-   E2's shapes, bit for bit; the cluster gather-sum with a ragged last
-   step, every index in CTA 0's slice, a width of 7 and 1M indices on the
-   harness's table, against float64 at 1e-6, and a 16 MiB table that must
-   raise; tiny bit for bit; two runs bit-equal. (b) The stream rates at the
+   take_along_axis on both axes with widths of 7 and 33, at D2's and E2's
+   shapes and with the table and indices one float off a 16-byte boundary,
+   with its bound test fused and in checks.cu's kernel apart, eagerly, on a
+   side stream and in a CUDA graph's replay, bit for bit, and an index out
+   of range on each axis trapping in a child process; the cluster
+   gather-sum with a ragged last step, every index in CTA 0's slice, a
+   width of 7 and 1M indices on the harness's table, against float64 at
+   1e-6, and a 16 MiB table that must raise; tiny at [8, 128], [3, 5],
+   [1,000,003] and one float off a boundary, eagerly, on a side stream and
+   in a graph's replay, bit for bit; two runs bit-equal. (b) The stream rates at the
    harness's shape (570.4 MB; widths and rows of 512, 2,048, 8,192 and
    32,768), each failing above 1.05 of its bytes' bound. (c) The forms probe
    (A-E2 on ``main``'s inputs) and the microbench (4,194,304 indices on
@@ -132,7 +137,23 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    plain version at those shapes, the plain versions' and the library
    calls' times (one ``torch.sum`` over the corners, the streams' scalar,
    with ``torch.sum`` over the streamed bytes beside it; ``torch.gather``,
-   ``index_select``, ``torch.mul``).
+   ``index_select``, ``torch.mul``). The launch-bound kernels,
+   take_along_axis at forms C-E2 and tiny at [8, 128], and their library
+   calls (``torch.gather`` on int64 indices, ``torch.mul(x, 2.0)``) each
+   take three times, each the mean of two samples in turns with the
+   library call's (kernel, library, library, kernel): ``ms``, CUDA events
+   around 100 eager calls (as do forms A and B); ``graph_ms``, 100 calls
+   captured in one CUDA graph and
+   replayed between events, the device's time without the host's;
+   ``host_us``, the host clock over 200 calls with no synchronise inside
+   (below the launch queue's depth), the median of 5 such windows, the
+   host's enqueue time. Beside them take_along_axis with its bound test in
+   checks.cu's kernel apart against it fused, in turns (eager and graph),
+   and the host µs of each
+   piece of a launch's host path (the old idiom's device guard, stream
+   object and library lookup, the raw stream handle, the output's
+   allocation by ``torch.empty`` and ``torch.empty_like``, the light
+   launch alone and the same C entry through ctypes, the whole wrapper).
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the mainline kernels' runs on the package paths, phases 4,
@@ -150,15 +171,19 @@ variants' bound is the E-step's own, with their U bytes in
 ``layout_bytes`` and their logs in ``log_count``, split's ``ms`` at (2,2),
 group's at G 4; the streams' ``ms`` at step 512 with every step in
 ``by_step``, take_along_axis's at form D2 with every form in ``by_form``,
-the tiny kernel's with the gather-operand stages in ``stages_ms``);
+the tiny kernel's with the gather-operand stages in ``stages_ms``;
+take_along_axis and tiny carry ``graph_ms``, ``host_us`` and the library
+call's ``library_graph_ms`` and ``library_host_us``, and name their
+launcher, ``csrc/launch.cu``);
 the line before it is nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --parent DIR`` runs only the comparison of this
 tree with the one under ``DIR`` (an unpacked older commit): phases 1-2,
 then each tree's E-step and softmax, M-step and EM iteration at the bench
-shape, as its EM loop runs them, in its own process, in turns (parent,
-this tree, this tree, parent).
+shape, as its EM loop runs them, and its take_along_axis at form D2 and
+tiny at [8, 128], eagerly (100 calls) and in a CUDA graph's replay, in its
+own process, in turns (parent, this tree, this tree, parent).
 """
 from __future__ import annotations
 
@@ -664,6 +689,67 @@ def _time_ms(fn, repeats: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def _graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
+    """Device ms per call: ``calls`` calls captured in one CUDA graph (after a warm-up on a side stream, as
+    ``torch.cuda.graphs`` asks), replayed ``replays`` times between events, per call. No host path in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()  # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def _host_us(fn, calls: int = 200, windows: int = 5) -> float:
+    """Host enqueue time per call, µs: the host clock over ``calls`` calls with no synchronise inside the window,
+    the median of ``windows`` windows (the host's cores are shared). 200 launches stay well below the launch
+    queue's depth, so the host never waits on the card."""
+    fn()
+    fn()  # warm
+    samples = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return float(np.median(samples))
+
+
+def _in_turns(first, second, measure) -> tuple:
+    """(``measure(first)``, ``measure(second)``), each the mean of two samples taken in turns: first, second,
+    second, first."""
+    a1, b1, b2, a2 = measure(first), measure(second), measure(second), measure(first)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+@contextlib.contextmanager
+def _fused_check(gather_forms, fused: bool):
+    """take_along_axis with its bound test inside the gather (fused, the default) or in checks.cu's kernel first."""
+    saved = gather_forms.FUSED_CHECK
+    gather_forms.FUSED_CHECK = fused
+    try:
+        yield
+    finally:
+        gather_forms.FUSED_CHECK = saved
 
 
 @contextlib.contextmanager
@@ -1782,11 +1868,33 @@ def _last_kernels() -> dict:
             "cluster_gather_sum": GF.cluster_gather_sum, "tiny": GO.tiny}
 
 
+# a child process: take_along_axis with one index past the table (axis 0) or negative (axis 1) must trap
+_TAKE_TRAP = """
+import sys
+import torch
+sys.path.insert(0, {repo!r})
+from demuxalot_tpu_torch.experiments import gather_forms as GF
+GF.FUSED_CHECK = {fused!r}
+axis = {axis!r}
+table = torch.rand(64, 32, device="cuda")
+idx = torch.randint(0, table.shape[axis], (64, 32), dtype=torch.int32, device="cuda")
+idx[40, 7] = table.shape[axis] if axis == 0 else -1
+try:
+    GF.take_along_axis(table, idx, axis)
+    torch.cuda.synchronize()
+except Exception as error:
+    print(type(error).__name__, error)
+    sys.exit(3)
+print("no trap")
+"""
+
+
 def phase_last_kernels() -> None:
     """Phase 11a: the streams, take_along_axis, the cluster gather-sum and tiny against their plain versions."""
     from demuxalot_tpu_torch.experiments import dma_pattern as DP
     from demuxalot_tpu_torch.experiments import gather_forms as GF
     from demuxalot_tpu_torch.experiments import gather_operand as GO
+    from torch_problems import offset_view, side_stream_and_replay
 
     cuda = torch.device("cuda")
     # ragged tails (66,313 = 2 x 32,768 + 777), steps of 512 and 32,768, and D = 7 (unaligned runs)
@@ -1802,17 +1910,28 @@ def phase_last_kernels() -> None:
             require(float(kernel(x, step)) == got, f"{kernel.__name__}({step}): two runs bit-equal")
             say("last", kernel=kernel.__name__, shape=list(x.shape), step=step, rel_err=abs(got - exact) / exact,
                 plain_rel_err=abs(want - exact) / exact, runs="bit-equal")
-    # both axes, widths of 7 and 33 (no multiple of 4), and the harness's D2 and E2
+    # both axes, widths of 7 and 33 (no multiple of 4), the harness's D2 and E2, and a table and indices one
+    # float past a 16-byte boundary (the scalar paths): bit-equal with the bound test fused and apart, on a side
+    # stream and in a graph's replay
     rng = np.random.RandomState(11)
-    for axis, shape, out_rows in ((0, (50, 7), 13), (0, (8192, 128), 8192), (1, (9, 33), 9), (1, (256, 512), 256)):
-        table = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+    for axis, shape, out_rows, offset in ((0, (50, 7), 13, 0), (0, (8192, 128), 8192, 0), (1, (9, 33), 9, 0),
+                                          (1, (256, 512), 256, 0), (0, (8192, 128), 8192, 1), (1, (256, 512), 256, 1)):
+        table = offset_view(torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda), offset)
         idx_shape = (out_rows, shape[1]) if axis == 0 else (shape[0], 2 * shape[1] + 1)
-        idx = torch.from_numpy(rng.randint(0, shape[axis], idx_shape).astype(np.int32)).to(cuda)
-        got = GF.take_along_axis(table, idx, axis)
-        require(torch.equal(got, GF.take_along_axis_plain(table, idx, axis)),
-                f"take_along_axis axis {axis} {shape}: bit-equal to the plain version")
-        require(torch.equal(got, GF.take_along_axis(table, idx, axis)), f"take_along_axis {shape}: runs bit-equal")
-        say("last", kernel="take_along_axis", axis=axis, table=list(shape), idx=list(idx_shape), out="bit-equal")
+        idx = offset_view(torch.from_numpy(rng.randint(0, shape[axis], idx_shape).astype(np.int32)).to(cuda), offset)
+        want = GF.take_along_axis_plain(table, idx, axis)
+        for fused in (True, False):
+            with _fused_check(GF, fused):
+                got = GF.take_along_axis(table, idx, axis)
+                require(torch.equal(got, want), f"take_along_axis axis {axis} {shape} offset {offset} fused {fused}: "
+                                                f"bit-equal to the plain version")
+                require(torch.equal(got, GF.take_along_axis(table, idx, axis)),
+                        f"take_along_axis {shape}: runs bit-equal")
+                on_side, replayed = side_stream_and_replay(lambda: GF.take_along_axis(table, idx, axis))
+                require(torch.equal(on_side, want) and torch.equal(replayed, want),
+                        f"take_along_axis axis {axis} {shape} fused {fused}: side stream and graph replay bit-equal")
+        say("last", kernel="take_along_axis", axis=axis, table=list(shape), idx=list(idx_shape), offset=offset,
+            out="bit-equal", fused_check=[True, False], side_stream_and_graph="bit-equal")
     # a ragged last step, every index in CTA 0's slice (rows < 1,024), a width of 7, the harness's table
     for shape, n_idx, step, high in (((8192, 32), 10_001, 8192, 8192), ((8192, 32), 50_000, 8192, 1024),
                                      ((1000, 7), 5000, 1, 1000), ((8192, 32), 1 << 20, 8192, 8192)):
@@ -1833,10 +1952,31 @@ def phase_last_kernels() -> None:
     except RuntimeError as error:
         raised = str(error)
     require(raised is not None and "does not fit" in raised, "a table past the cluster's shared memory raises")
-    for shape in ((8, 128), (3, 5)):
-        x = torch.randn(shape, device=cuda)
-        require(torch.equal(GO.tiny(x), GO.tiny_plain(x)), f"tiny {shape}: bit-equal to x * 2")
-    say("last", kernel="tiny", shapes=[[8, 128], [3, 5]], out="bit-equal", table_past_cluster=raised)
+    for shape, offset in (((8, 128), 0), ((3, 5), 0), ((1_000_003,), 0), ((8, 128), 1)):
+        x = offset_view(torch.randn(shape, device=cuda), offset)
+        want = GO.tiny_plain(x)
+        require(torch.equal(GO.tiny(x), want), f"tiny {shape} offset {offset}: bit-equal to x * 2")
+        on_side, replayed = side_stream_and_replay(lambda: GO.tiny(x))
+        require(torch.equal(on_side, want) and torch.equal(replayed, want),
+                f"tiny {shape}: side stream and graph replay bit-equal")
+    say("last", kernel="tiny", shapes=[[8, 128], [3, 5], [1_000_003], "[8, 128] one float off"], out="bit-equal",
+        side_stream_and_graph="bit-equal", table_past_cluster=raised)
+    # an index out of range traps inside the gather (and in checks.cu's kernel apart): a trap ends the
+    # process's CUDA context, so each runs in a child process, all four at once
+    children = {(axis, fused): subprocess.Popen(
+        [sys.executable, "-c", _TAKE_TRAP.format(repo=str(REPO), axis=axis, fused=fused)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for axis in (0, 1) for fused in (True, False)}
+    trapped = {}
+    for (axis, fused), child in children.items():
+        try:
+            out, _ = child.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            out, _ = child.communicate()
+        require(child.returncode == 3, f"take_along_axis axis {axis} fused {fused}: an index out of range did not "
+                                       f"trap (exit {child.returncode}): {out[-2000:]}")
+        trapped[f"axis {axis}, {'fused' if fused else 'apart'}"] = out.strip().splitlines()[-1][:160]
+    say("last", kernel="take_along_axis", index_out_of_range=trapped)
 
 
 def phase_last(card: str) -> dict:
@@ -1923,12 +2063,29 @@ def phase_last(card: str) -> dict:
         run = lambda: GF.run_form(table, idx, axis)  # noqa: E731
         plain = lambda: (GF.take_along_axis_plain(table, idx, axis) if axis is not None  # noqa: E731
                          else KG.gather_rows_plain(table, idx))
-        ms = _time_ms(run)
+        ms, library_ms = _in_turns(run, library, lambda fn: _time_ms(fn, repeats=100))
         by_form[form] = {"table": list(table.shape), "idx": list(idx.shape), "axis": axis,
                          "kernel": "gather_rows" if axis is None else "take_along_axis",
-                         "max_abs_err": float((run() - plain()).abs().max()), "ms": ms, "plain_ms": _time_ms(plain),
-                         "library_ms": _time_ms(library), "bound_ms": bound.speed_of_light_s() * 1e3,
-                         "bound_by": bound.bound_by(), "share_of_bound": bound.speed_of_light_s() * 1e3 / ms}
+                         "max_abs_err": float((run() - plain()).abs().max()), "ms": ms,
+                         "plain_ms": _time_ms(plain, repeats=100), "library_ms": library_ms,
+                         "bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by(),
+                         "share_of_bound": bound.speed_of_light_s() * 1e3 / ms}
+        if axis is not None:
+            # the device time (graph replay) and the host's enqueue time beside the eager time, the library call's
+            # beside each, in turns; the bound test in checks.cu's kernel apart against it fused, in turns
+            graph_ms, library_graph_ms = _in_turns(run, library, _graph_ms)
+            host_us, library_host_us = _in_turns(run, library, _host_us)
+
+            def apart():
+                with _fused_check(GF, False):
+                    return GF.run_form(table, idx, axis)
+
+            fused_graph_ms, apart_graph_ms = _in_turns(run, apart, _graph_ms)
+            fused_ms, apart_ms = _in_turns(run, apart, lambda fn: _time_ms(fn, repeats=100))
+            by_form[form].update(graph_ms=graph_ms, host_us=host_us, library_graph_ms=library_graph_ms,
+                                 library_host_us=library_host_us, fused_check_graph_ms=fused_graph_ms,
+                                 check_apart_graph_ms=apart_graph_ms, fused_check_ms=fused_ms,
+                                 check_apart_ms=apart_ms)
     say("last", stage="forms timed", card=card, by_form=by_form)
     # the cluster gather-sum at the microbench's shape: against its plain version, the plain version's time
     rng = np.random.default_rng(0)
@@ -1939,18 +2096,63 @@ def phase_last(card: str) -> dict:
     entries["cluster_gather_sum"] = {"max_abs_err": abs(got - want),
                                      "plain_ms": _time_ms(lambda: GF.cluster_gather_sum_plain(table, idx), repeats=3)}
     del table, idx
-    # tiny at its shape, beside x * 2 and torch.mul
+    # tiny at its shape, beside x * 2 and torch.mul: eager, graph replay and host enqueue times
     x = torch.randn(GO.TINY_SHAPE, device=cuda)
+    run, library = (lambda: GO.tiny(x)), (lambda: torch.mul(x, 2.0))
+    ms, library_ms = _in_turns(run, library, lambda fn: _time_ms(fn, repeats=100))
+    graph_ms, library_graph_ms = _in_turns(run, library, _graph_ms)
+    host_us, library_host_us = _in_turns(run, library, _host_us)
     entries["tiny"] = {"max_abs_err": float((GO.tiny(x) - GO.tiny_plain(x)).abs().max()),
-                       "ms": _time_ms(lambda: GO.tiny(x), repeats=100),
+                       "ms": ms, "graph_ms": graph_ms, "host_us": host_us,
                        "plain_ms": _time_ms(lambda: GO.tiny_plain(x), repeats=100),
-                       "library_ms": _time_ms(lambda: torch.mul(x, 2.0), repeats=100),
+                       "library_ms": library_ms, "library_graph_ms": library_graph_ms,
+                       "library_host_us": library_host_us,
                        "bound": StreamRoofline(bytes_read=x.numel() * 4, bytes_written=x.numel() * 4,
                                                n_operations=x.numel())}
-    say("last", stage="kernels vs plain", card=card,
+    host_path = _host_path_us(GF, cuda)
+    say("last", stage="kernels vs plain", card=card, host_path_us=host_path,
         **{name: {k: v for k, v in e.items() if k not in ("by_step", "bound")} for name, e in entries.items()})
     return {"launches": launches, "streams": streams, "bench": bench, "by_form": by_form, "stages": stages,
-            "entries": entries, "wall_s": wall}
+            "entries": entries, "host_path_us": host_path, "wall_s": wall}
+
+
+def _host_path_us(GF, cuda) -> dict:
+    """Host µs per call of each piece of a launch's host path, at D2's shape (``_host_us``: medians of 5 windows of
+    200 calls).
+
+    The old idiom is ``with torch.cuda.device(d)``, ``torch.cuda.current_stream(d).cuda_stream`` and
+    ``_cuda.library().<fn>`` through ctypes; the light path (``_cuda.Entry``) reads the stream's raw handle and
+    calls ``demux_launch``'s function, which passes the device index to C. ``launch`` is the Entry's call alone
+    (no checks, no allocation), ``launch_ctypes`` the same C entry through ctypes; ``module_call`` the module's
+    function with the stream handle read once (no Entry), ``module_call_empty`` the same on an empty output, which
+    returns before the device guard and the launch; ``wrapper`` the whole call."""
+    from demuxalot_tpu_torch.ops import _cuda
+
+    table = torch.rand(8192, 128, device=cuda)
+    idx = torch.randint(0, 8192, (8192, 128), device=cuda, dtype=torch.int32)
+    out = torch.empty(idx.shape, device=cuda)
+    index = torch.cuda.current_device()
+    args = (table.data_ptr(), 8192, 128, idx.data_ptr(), 8192, 128, 0, out.data_ptr(), 1)  # up to the device
+    by_ctypes = _cuda.library().demux_take_along_axis
+    by_module = _cuda.launch_module().demux_take_along_axis
+    handle = torch._C._cuda_getCurrentRawStream(index)
+    empty = (*args[:4], 0, *args[5:])  # rows_out 0
+
+    def guard():
+        with torch.cuda.device(cuda):
+            pass
+
+    return {"device_guard": _host_us(guard),
+            "current_stream": _host_us(lambda: torch.cuda.current_stream(cuda).cuda_stream),
+            "raw_stream": _host_us(lambda: torch._C._cuda_getCurrentRawStream(index)),
+            "library_lookup": _host_us(lambda: _cuda.library().demux_take_along_axis),
+            "empty": _host_us(lambda: torch.empty(idx.shape, dtype=torch.float32, device=cuda)),
+            "empty_like": _host_us(lambda: torch.empty_like(idx, dtype=torch.float32)),
+            "launch": _host_us(lambda: GF._take_along_axis(table, *args)),
+            "launch_ctypes": _host_us(lambda: by_ctypes(*args, index, torch._C._cuda_getCurrentRawStream(index))),
+            "module_call": _host_us(lambda: by_module(*args, index, handle)),
+            "module_call_empty": _host_us(lambda: by_module(*empty, index, handle)),
+            "wrapper": _host_us(lambda: GF.take_along_axis(table, idx, 0))}
 
 
 def _last_entries(last: dict, launches) -> list:
@@ -1977,14 +2179,18 @@ def _last_entries(last: dict, launches) -> list:
                          "gb_per_s": r["gb_per_s"], "stream_bound_ms": r["stream_bound_ms"],
                          "stream_share_of_bound": r["stream_share_of_bound"], "corner_bound_ms": r["corner_bound_ms"]}
                         for r in e[name]["by_step"]]})
+    # take_along_axis and tiny: ms (eager), graph_ms (device), host_us (the host's enqueue time), each beside the
+    # library call's
+    split = ("graph_ms", "host_us", "library_graph_ms", "library_host_us")
     d2 = last["by_form"]["D2"]
     entries.append({
         "name": "take_along_axis", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/forms.cu",
         "replaces": "benchmarks/exp_gather_forms.py:38", **launches("take_along_axis"),
         "max_abs_err": d2["max_abs_err"],
         "ms": d2["ms"], "plain_ms": d2["plain_ms"], "bound_ms": d2["bound_ms"], "bound_by": d2["bound_by"],
-        "share_of_bound": d2["share_of_bound"], "library_ms": d2["library_ms"], "form": "D2",
-        "by_form": last["by_form"]})
+        "share_of_bound": d2["share_of_bound"], "library_ms": d2["library_ms"], **{k: d2[k] for k in split},
+        "check_apart_graph_ms": d2["check_apart_graph_ms"], "launcher": "demuxalot_tpu_torch/csrc/launch.cu",
+        "form": "D2", "by_form": last["by_form"], "host_path_us": last["host_path_us"]})
     b = last["bench"]
     entries.append({
         "name": "cluster_gather_sum", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/forms.cu",
@@ -2000,7 +2206,8 @@ def _last_entries(last: dict, launches) -> list:
         "replaces": "benchmarks/exp_gather_operand.py:108", **launches("tiny"), "max_abs_err": tiny["max_abs_err"],
         "ms": tiny["ms"], "plain_ms": tiny["plain_ms"], "bound_ms": bound.speed_of_light_s() * 1e3,
         "bound_by": bound.bound_by(), "share_of_bound": bound.speed_of_light_s() * 1e3 / tiny["ms"],
-        "library_ms": tiny["library_ms"],
+        "library_ms": tiny["library_ms"], **{k: tiny[k] for k in split},
+        "launcher": "demuxalot_tpu_torch/csrc/launch.cu",
         "stages_ms": {str(p): {n: s["ms"] for n, s in r.items()} for p, r in last["stages"].items()}})
     return entries
 
@@ -2051,7 +2258,24 @@ def steps_ms() -> dict:
             "mstep_addition_ms": [_time_ms(lambda: mstep_addition(state.probs, run.likelihood.mstep,
                                                                   run.n_genotypes, 2.0)) for _ in range(3)],
             "m_step_ms": [_time_ms(m_step) for _ in range(3)],
-            "em_iteration_ms": [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)]}
+            "em_iteration_ms": [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)],
+            **_launch_bound_ms(cuda)}
+
+
+def _launch_bound_ms(cuda) -> dict:
+    """take_along_axis at form D2 and tiny at [8, 128] of the package on sys.path: eager (100 calls between
+    events) and graph-replay ms per call, three samples each."""
+    from demuxalot_tpu_torch.experiments import gather_forms as GF
+    from demuxalot_tpu_torch.experiments import gather_operand as GO
+
+    table_np, idx_np, axis = GF.form_inputs(np.random.default_rng(0))["D2"]
+    table, idx = torch.from_numpy(table_np).to(cuda), torch.from_numpy(idx_np).to(cuda)
+    x = torch.randn(GO.TINY_SHAPE, device=cuda)
+    take, tiny = (lambda: GF.take_along_axis(table, idx, axis)), (lambda: GO.tiny(x))
+    return {"take_along_axis_ms": [_time_ms(take, repeats=100) for _ in range(3)],
+            "take_along_axis_graph_ms": [_graph_ms(take) for _ in range(3)],
+            "tiny_ms": [_time_ms(tiny, repeats=100) for _ in range(3)],
+            "tiny_graph_ms": [_graph_ms(tiny) for _ in range(3)]}
 
 
 def compare_with_parent(parent: Path, card: str) -> None:
@@ -2068,7 +2292,8 @@ def compare_with_parent(parent: Path, card: str) -> None:
         say("parent", tree=which, card=card, **result)
     mean = lambda key, which: sum(sum(r[key]) / len(r[key]) for r in samples[which]) / 2  # noqa: E731
     say("parent", card=card, **{key: {w: mean(key, w) for w in samples} for key in (
-        "estep_softmax_ms", "estep_ms", "mstep_addition_ms", "m_step_ms", "em_iteration_ms")})
+        "estep_softmax_ms", "estep_ms", "mstep_addition_ms", "m_step_ms", "em_iteration_ms", "take_along_axis_ms",
+        "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms")})
 
 
 def main() -> int:

@@ -14,6 +14,31 @@ constexpr int kWarpSize = 32;
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// Makes `device` current for the guard's lifetime where it is not already, and restores the caller's device
+// after: cudaGetDevice reads a thread-local, so a launch on the current device pays no device exchange.
+// status() is the first failing call's cudaError_t, 0 when the device is current.
+class DeviceGuard {
+  public:
+    explicit DeviceGuard(int device) {
+        int current = 0;
+        status_ = (int)cudaGetDevice(&current);
+        if (status_ == 0 && current != device) {
+            status_ = (int)cudaSetDevice(device);
+            if (status_ == 0) saved_ = current;
+        }
+    }
+    ~DeviceGuard() {
+        if (saved_ >= 0) cudaSetDevice(saved_);
+    }
+    DeviceGuard(const DeviceGuard&) = delete;
+    DeviceGuard& operator=(const DeviceGuard&) = delete;
+    int status() const { return status_; }
+
+  private:
+    int saved_ = -1;
+    int status_ = 0;
+};
+
 // the sum of kW floats at p (kW = 4: one 16-byte load; kW = 1: one float)
 template <int kW>
 __device__ __forceinline__ float load_sum(const float* p) {

@@ -3,16 +3,46 @@
 // Replace benchmarks/exp_gather_forms.py's TPU kernels:
 // - the run_form kernels (:38) with main's lambdas for forms C, D, D2
 //   (take_along_axis(axis=0) with 2-D indices, :88-125) and E, E2 (the lane
-//   gather, take_along_axis(axis=1), :127-155). take_along_axis_kernel
-//   computes
+//   gather, take_along_axis(axis=1), :127-155). take_along_axis computes
 //     axis 0: out[i, j] = table[idx[i, j], j]
 //     axis 1: out[i, j] = table[i, idx[i, j]]
-//   bit for bit, one thread per output element: the index read coalesced,
-//   the element read from wherever it lies (L1/L2 for these tables, 0.5-4 MB).
-//   Forms A and B, jnp.take(axis=0) with 1-D indices, are gather.cu's
-//   gather_rows. What bounds it: the bytes, each index read once, each
-//   touched table element once, each output written once (12.6 MB at D2's
-//   [8192, 128], >= 3.8 us); at these sizes the launch dominates.
+//   bit for bit. Forms A and B, jnp.take(axis=0) with 1-D indices, are
+//   gather.cu's gather_rows. What bounds it: the bytes, each index read
+//   once, each touched table element once, each output written once (12.6
+//   MB at D2's [8192, 128], >= 3.3 us at 3.35 TB/s); at the forms' sizes a
+//   launch (a few us) is as long, so the design is one launch per call and
+//   as few instructions per byte as the card allows:
+//   - the bound test is inside the gather: the kernel reads every index
+//     anyway, tests it with one unsigned compare and traps on one out of
+//     range (fused_check = 0 runs checks.cu's kernel first instead, for the
+//     A/B that chose this);
+//   - a 2-D grid, output rows by blockIdx.y, column quads by thread: no
+//     division per element; 32-bit offsets where the table and the output
+//     hold fewer than 2^31 elements, 64-bit ones otherwise;
+//   - each thread loads 4 indices with one 16-byte load and stores 4
+//     outputs with one 16-byte store, with a scalar path for widths that
+//     are no multiple of 4 or indices and outputs off a 16-byte boundary;
+//     the table reads on axis 0 stay scalar (a 16-byte table load where a
+//     thread's 4 indices are equal, as in C, D and D2, is not tried);
+//   - on axis 1 each block stages its rows of the table in shared memory
+//     (16-byte loads where the rows are 16-byte aligned; as many rows as 48
+//     KB holds, at least one, opting in past 48 KB up to the card's limit)
+//     and the lanes gather from there; a row past a block's shared memory
+//     (over 227 KB, 58,000 floats) is read through L1/L2 instead.
+//   The entry takes the device index and makes that device current only
+//   where it is not (common.cuh's DeviceGuard), so the wrapper needs no
+//   Python device guard and no stream object; it is called through
+//   launch.cu's module, not ctypes. Measured (NVIDIA H100 80GB HBM3, 700.00
+//   W, chip_smoke.py phase 11d, each number the mean of two samples in turns
+//   with its counterpart): at D2, 100 calls in a CUDA graph take 0.00293 ms
+//   a call against torch.gather's 0.00533, below the 3.3 us HBM bound as the
+//   inputs stay in L2 between calls (C-E2: 0.0015-0.0019 against
+//   0.0044-0.0047); the bound test fused 0.00293 against 0.00517 in
+//   checks.cu's kernel apart (C-E2: 0.0016-0.0019 against 0.0029-0.0033).
+//   Eagerly the host sets the time: 0.01106 ms against torch.gather's
+//   0.00924, the wrapper issuing a call in 10.8 us against 9.3, of which
+//   the launch itself (this entry's C side) takes 3.9 and the output's
+//   allocation through PyTorch's Python API 3.5.
 // - ig_kernel (:183-210), the in-kernel gather bench over a table held in
 //   on-chip memory (the TPU's VMEM holds the [8192, 32] f32 table, 1 MiB):
 //     total = sum_i sum_w table[idx[i], w], steps of `step` indices
@@ -37,7 +67,7 @@
 //   TB/s of rows, 7/8 of them from other SMs). reduce.cu's
 //   demux_sum_in_order then adds the partials in a fixed order.
 //   No atomics, so two runs give the same bits.
-// The indices are bounds-checked by checks.cu's kernel before each launch.
+//   Its indices are bounds-checked by checks.cu's kernel before each launch.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -55,16 +85,195 @@ constexpr int kUnroll = 4;  // gathered elements per thread in flight
 constexpr int kErrorTooLarge = -1;  // the table does not fit the cluster's shared memory
 constexpr int kErrorNoCluster = -2;  // the card cannot place one cluster
 
-template <int kAxis>
-__global__ void take_along_axis_kernel(const float* __restrict__ table, int64_t ld, const int32_t* __restrict__ idx,
-                                       int64_t n, int cols, float* __restrict__ out) {
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n; e += stride) {
-        const int64_t i = e / cols;
-        const int64_t j = e - i * cols;
-        const int64_t k = idx[e];
-        out[e] = kAxis == 0 ? table[k * ld + j] : table[i * ld + k];
+constexpr int kStageBytes = 48 * 1024;  // staged table rows a block takes without opting in to more
+
+// take_along_axis on a 2-D grid: thread (x, y) of a block owns output columns [4 j, 4 j + 4) of rows
+// blockIdx.y * blockDim.y + y, + gridDim.y * blockDim.y, ...; nothing divides per element.
+// Off: uint32_t when the table and the output hold fewer than 2^31 elements, else int64_t.
+// kVec: cols_out % 4 == 0 and idx, out on 16-byte boundaries: one 16-byte index load and one 16-byte store per
+// thread and row; else 4 scalar loads and stores, the row's tail masked.
+// kCheck: each index is tested against `limit` (one unsigned compare: a negative index wraps past it) and an
+// index out of range traps; without it checks.cu's kernel has run first.
+template <bool kVec>
+__device__ __forceinline__ void load_indices(const int32_t* __restrict__ p, int valid, int32_t (&k)[4]) {
+    if constexpr (kVec) {
+        const int4 v = *reinterpret_cast<const int4*>(p);
+        k[0] = v.x;
+        k[1] = v.y;
+        k[2] = v.z;
+        k[3] = v.w;
+    } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) k[u] = u < valid ? p[u] : 0;
     }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store_outputs(float* __restrict__ p, int valid, const float (&v)[4]) {
+    if constexpr (kVec) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            if (u < valid) p[u] = v[u];
+        }
+    }
+}
+
+template <bool kCheck>
+__device__ __forceinline__ void check_index(int32_t k, uint32_t limit) {
+    if constexpr (kCheck) {
+        if ((uint32_t)k >= limit) __trap();
+    }
+}
+
+// axis 0: out[i, j] = table[idx[i, j], j]; the table reads are scalar (4 rows per thread, anywhere in the table)
+template <typename Off, bool kVec, bool kCheck>
+__global__ void __launch_bounds__(kThreads) take_axis0_kernel(const float* __restrict__ table, Off ld,
+                                                              const int32_t* __restrict__ idx, Off rows_out,
+                                                              int cols_out, uint32_t limit, float* __restrict__ out) {
+    const int64_t j64 = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+    if (j64 >= cols_out) return;
+    const int j = (int)j64;
+    const int valid = cols_out - j;
+    for (Off i = (Off)blockIdx.y * blockDim.y + threadIdx.y; i < rows_out; i += (Off)gridDim.y * blockDim.y) {
+        const Off base = i * (Off)cols_out + (Off)j;
+        int32_t k[4];
+        load_indices<kVec>(idx + base, valid, k);
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            if (kVec || u < valid) {
+                check_index<kCheck>(k[u], limit);
+                v[u] = table[(Off)(uint32_t)k[u] * ld + (Off)(j + u)];
+            }
+        }
+        store_outputs<kVec>(out + base, valid, v);
+    }
+}
+
+// axis 1: out[i, j] = table[i, idx[i, j]]. kStaged: each row y of the block stages table row i in shared memory
+// (a stride of `stage` floats, 16-byte loads where the rows are 16-byte aligned) and its lanes gather from there;
+// without it (a row past a block's shared memory) they read the table through L1/L2. The loop over row groups
+// is uniform across the block, so every thread reaches both barriers.
+template <typename Off, bool kVec, bool kCheck, bool kStaged>
+__global__ void __launch_bounds__(kThreads) take_axis1_kernel(const float* __restrict__ table, Off ld, int n_cols,
+                                                              int stage, bool stage_vec, const int32_t* __restrict__ idx,
+                                                              Off rows, int cols_out, uint32_t limit,
+                                                              float* __restrict__ out) {
+    extern __shared__ float4 stage4[];
+    float* row = reinterpret_cast<float*>(stage4) + (size_t)threadIdx.y * stage;
+    const int64_t j64 = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+    const int j = j64 < cols_out ? (int)j64 : cols_out;
+    const int valid = cols_out - j;
+    for (Off i0 = (Off)blockIdx.y * blockDim.y; i0 < rows; i0 += (Off)gridDim.y * blockDim.y) {
+        const Off i = i0 + threadIdx.y;
+        const float* src = table + i * ld;
+        if constexpr (kStaged) {
+            if (i < rows) {
+                if (stage_vec) {
+                    for (int c = threadIdx.x; c < n_cols / 4; c += blockDim.x) {
+                        reinterpret_cast<float4*>(row)[c] = reinterpret_cast<const float4*>(src)[c];
+                    }
+                    for (int c = n_cols / 4 * 4 + threadIdx.x; c < n_cols; c += blockDim.x) row[c] = src[c];
+                } else {
+                    for (int c = threadIdx.x; c < n_cols; c += blockDim.x) row[c] = src[c];
+                }
+            }
+            __syncthreads();
+        }
+        if (i < rows && valid > 0) {
+            const Off base = i * (Off)cols_out + (Off)j;
+            int32_t k[4];
+            load_indices<kVec>(idx + base, valid, k);
+            float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                if (kVec || u < valid) {
+                    check_index<kCheck>(k[u], limit);
+                    v[u] = kStaged ? row[k[u]] : src[(uint32_t)k[u]];
+                }
+            }
+            store_outputs<kVec>(out + base, valid, v);
+        }
+        if constexpr (kStaged) __syncthreads();  // the row is read before the next group overwrites it
+    }
+}
+
+// the block and grid of a take_along_axis launch: x over the output columns' quads (a power of two, at most
+// kThreads), y over rows, at most max_rows of them per block
+struct TakeShape {
+    dim3 block, grid;
+};
+
+TakeShape take_shape(int64_t rows, int64_t cols_out, int max_rows) {
+    const int64_t quads = (cols_out + 3) / 4;
+    int tx = 1;
+    while (tx < quads && tx < kThreads) tx *= 2;
+    int ty = kThreads / tx;
+    if (ty > max_rows) ty = max_rows;
+    const int64_t groups = (rows + ty - 1) / ty;
+    TakeShape shape;
+    shape.block = dim3((unsigned int)tx, (unsigned int)ty);
+    shape.grid = dim3((unsigned int)((quads + tx - 1) / tx), (unsigned int)(groups < 65535 ? groups : 65535));
+    return shape;
+}
+
+// one take_along_axis launch, its arguments checked by the entry
+struct Take {
+    const float* table;
+    int64_t n_rows, n_cols;
+    const int32_t* idx;
+    int64_t rows_out, cols_out;
+    int axis;
+    uint32_t limit;
+    float* out;
+    int device;
+    cudaStream_t stream;
+};
+
+template <typename Off, bool kVec, bool kCheck>
+int launch_take(const Take& a) {
+    if (a.axis == 0) {
+        const TakeShape shape = take_shape(a.rows_out, a.cols_out, kThreads);
+        take_axis0_kernel<Off, kVec, kCheck><<<shape.grid, shape.block, 0, a.stream>>>(
+            a.table, (Off)a.n_cols, a.idx, (Off)a.rows_out, (int)a.cols_out, a.limit, a.out);
+        return (int)cudaGetLastError();
+    }
+    // a block stages as many rows as kStageBytes holds (at least one, opting in past 48 KB up to the card's
+    // limit); a row past that is read through L1/L2
+    const int stage = (int)((a.n_cols + 3) / 4 * 4);
+    const size_t row_bytes = (size_t)stage * sizeof(float);
+    int max_smem = kStageBytes, status;
+    if (row_bytes > (size_t)kStageBytes &&
+        (status = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, a.device)) != 0)
+        return status;
+    const bool staged = row_bytes <= (size_t)max_smem;
+    const int max_rows = staged && row_bytes <= (size_t)kStageBytes ? (int)(kStageBytes / row_bytes) : 1;
+    const TakeShape shape = take_shape(a.rows_out, a.cols_out, max_rows);
+    const bool stage_vec = a.n_cols % 4 == 0 && demux::aligned16(a.table);
+    if (staged) {
+        const size_t shared = (size_t)shape.block.y * row_bytes;
+        auto kernel = take_axis1_kernel<Off, kVec, kCheck, true>;
+        if (shared > (size_t)kStageBytes &&
+            (status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared)) != 0)
+            return status;
+        kernel<<<shape.grid, shape.block, shared, a.stream>>>(a.table, (Off)a.n_cols, (int)a.n_cols, stage, stage_vec,
+                                                              a.idx, (Off)a.rows_out, (int)a.cols_out, a.limit, a.out);
+    } else {
+        take_axis1_kernel<Off, kVec, kCheck, false><<<shape.grid, shape.block, 0, a.stream>>>(
+            a.table, (Off)a.n_cols, (int)a.n_cols, stage, stage_vec, a.idx, (Off)a.rows_out, (int)a.cols_out, a.limit,
+            a.out);
+    }
+    return (int)cudaGetLastError();
+}
+
+using TakeLaunch = int (*)(const Take&);
+
+template <typename Off>
+TakeLaunch pick_take(bool vec, bool check) {
+    return vec ? (check ? launch_take<Off, true, true> : launch_take<Off, true, false>)
+               : (check ? launch_take<Off, false, true> : launch_take<Off, false, false>);
 }
 
 // kW: floats per load (4 or 1)
@@ -167,23 +376,24 @@ int launch_clusters(Kernel kernel, size_t shared, const float* table, int64_t n_
 }  // namespace
 
 extern "C" int demux_take_along_axis(const float* table, int64_t n_rows, int64_t n_cols, const int32_t* idx,
-                                     int64_t rows_out, int64_t cols_out, int axis, float* out, void* stream) {
+                                     int64_t rows_out, int64_t cols_out, int axis, float* out, int fused_check,
+                                     int device, void* stream) {
     if (n_rows <= 0 || n_cols <= 0 || rows_out < 0 || cols_out <= 0 || cols_out > 0x7fffffff ||
-        (axis != 0 && axis != 1))
+        (axis != 0 && axis != 1) || (axis == 0 ? cols_out != n_cols : rows_out != n_rows || n_cols > 0x7fffffff))
         return (int)cudaErrorInvalidValue;
     const int64_t n = rows_out * cols_out;
     if (n == 0) return 0;
+    const demux::DeviceGuard guard(device);
+    if (guard.status() != 0) return guard.status();
     cudaStream_t s = (cudaStream_t)stream;
+    const int64_t limit = axis == 0 ? n_rows : n_cols;  // an int32 index is below 2^31 whatever the limit
+    const uint32_t limit32 = (uint32_t)(limit < 0x80000000LL ? limit : 0x80000000LL);
     int status;
-    if ((status = demux_check_index(idx, n, axis == 0 ? n_rows : n_cols, s)) != 0) return status;
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
-    const unsigned int grid = (unsigned int)(blocks < 4096 ? blocks : 4096);
-    if (axis == 0) {
-        take_along_axis_kernel<0><<<grid, kThreads, 0, s>>>(table, n_cols, idx, n, (int)cols_out, out);
-    } else {
-        take_along_axis_kernel<1><<<grid, kThreads, 0, s>>>(table, n_cols, idx, n, (int)cols_out, out);
-    }
-    return (int)cudaGetLastError();
+    if (!fused_check && (status = demux_check_index(idx, n, limit, s)) != 0) return status;
+    const bool wide = n_rows * n_cols > 0x7fffffff || n > 0x7fffffff;
+    const bool vec = cols_out % 4 == 0 && demux::aligned16(idx) && demux::aligned16(out);
+    const Take take{table, n_rows, n_cols, idx, rows_out, cols_out, axis, limit32, out, device, s};
+    return (wide ? pick_take<int64_t>(vec, fused_check != 0) : pick_take<uint32_t>(vec, fused_check != 0))(take);
 }
 
 // partial: scratch of at least ceil(n / step) * 8 floats; total: one float

@@ -54,6 +54,9 @@ SUM_RTOL = 1e-6
 R, W, C = 1024, 128, 256
 R2, S, L, L2 = 8192, 256, 128, 512
 FORMS = ("A", "B", "C", "D", "D2", "E", "E2")
+# take_along_axis tests each index inside its gather (True) or launches checks.cu's kernel before it (False);
+# flipped only by chip_smoke's A/B and the card tests
+FUSED_CHECK = True
 
 
 def _device_of(name: str, table: torch.Tensor) -> torch.device:
@@ -70,32 +73,50 @@ def take_along_axis_plain(table: torch.Tensor, idx: torch.Tensor, axis: int) -> 
     return table[torch.arange(idx.shape[0], device=idx.device)[:, None], idx.long()]
 
 
+def _launch_shapes(table, idx, axis):
+    """(rows, cols, rows_out, cols_out) where :func:`take_along_axis` launches on these inputs as they are, else
+    None: the full checks' accept set for CUDA tensors, read from cheap attributes (no device objects)."""
+    if not (isinstance(table, torch.Tensor) and isinstance(idx, torch.Tensor) and table.is_cuda and idx.is_cuda
+            and table.dtype is torch.float32 and idx.dtype is torch.int32 and table.get_device() == idx.get_device()
+            and table.is_contiguous() and idx.is_contiguous()):
+        return None
+    try:
+        (rows, cols), (rows_out, cols_out) = table.shape, idx.shape
+    except ValueError:  # not 2-D
+        return None
+    if (axis == 0 and cols_out == cols) or (axis == 1 and rows_out == rows):
+        return rows, cols, rows_out, cols_out
+    return None
+
+
 def take_along_axis(table: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     """``np.take_along_axis(table, idx, axis)`` for f32 [R, W] and i32 [C, W] (axis 0) or [R, M] (axis 1).
 
     The CUDA kernel for CUDA tensors, bit for bit. The dimension not taken
     along must match (no broadcasting).
     """
-    device = _device_of("take_along_axis", table)
-    _check("table", table, torch.float32, 2, device)
-    _check("idx", idx, torch.int32, 2, device)
-    if axis not in (0, 1):
-        raise ValueError(f"take_along_axis takes axis 0 or 1, not {axis}")
-    if idx.shape[1 - axis] != table.shape[1 - axis]:
-        raise ValueError(f"idx {tuple(idx.shape)} must match table {tuple(table.shape)} off axis {axis}")
-    if device.type == "cpu":
-        return take_along_axis_plain(table, idx, axis)
-    out = torch.empty(idx.shape, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        status = _cuda.library().demux_take_along_axis(
-            table.data_ptr(), table.shape[0], table.shape[1], idx.data_ptr(), idx.shape[0], idx.shape[1], axis,
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    _cuda.check_launch("take_along_axis", status)
+    shapes = _launch_shapes(table, idx, axis)
+    if shapes is None:  # the full checks: they raise, or run the plain version on the CPU
+        device = _device_of("take_along_axis", table)
+        _check("table", table, torch.float32, 2, device)
+        _check("idx", idx, torch.int32, 2, device)
+        if axis not in (0, 1):
+            raise ValueError(f"take_along_axis takes axis 0 or 1, not {axis}")
+        if idx.shape[1 - axis] != table.shape[1 - axis]:
+            raise ValueError(f"idx {tuple(idx.shape)} must match table {tuple(table.shape)} off axis {axis}")
+        if device.type == "cpu":
+            return take_along_axis_plain(table, idx, axis)
+        shapes = (*table.shape, *idx.shape)
+    out = torch.empty_like(idx, dtype=torch.float32)
+    rows, cols, rows_out, cols_out = shapes
+    _take_along_axis(table, table.data_ptr(), rows, cols, idx.data_ptr(), rows_out, cols_out, axis, out.data_ptr(),
+                     FUSED_CHECK)
     take_along_axis.launches += 1
     return out
 
 
 take_along_axis.launches = 0
+_take_along_axis = _cuda.Entry("demux_take_along_axis")
 
 
 def cluster_gather_sum_plain(table: torch.Tensor, idx: torch.Tensor, step: int = STEP) -> torch.Tensor:

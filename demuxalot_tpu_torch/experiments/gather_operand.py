@@ -50,23 +50,20 @@ def tiny_plain(x: torch.Tensor) -> torch.Tensor:
 
 def tiny(x: torch.Tensor) -> torch.Tensor:
     """``x · 2`` for a contiguous f32 tensor of any shape; the CUDA kernel for CUDA tensors."""
-    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("tiny takes a contiguous float32 tensor")
-    device = x.device
-    if device.type == "cpu":
+    if not (isinstance(x, torch.Tensor) and x.is_cuda and x.dtype is torch.float32 and x.is_contiguous()):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError("tiny takes a contiguous float32 tensor")
+        if x.device.type != "cpu":
+            raise ValueError(f"tiny runs on cpu or cuda tensors, not {x.device}")
         return tiny_plain(x)
-    if device.type != "cuda":
-        raise ValueError(f"tiny runs on cpu or cuda tensors, not {device}")
     out = torch.empty_like(x)
-    with torch.cuda.device(device):
-        status = _cuda.library().demux_tiny(x.data_ptr(), x.numel(), out.data_ptr(),
-                                            torch.cuda.current_stream(device).cuda_stream)
-    _cuda.check_launch("tiny", status)
+    _tiny(x, x.data_ptr(), x.numel(), out.data_ptr())
     tiny.launches += 1
     return out
 
 
 tiny.launches = 0
+_tiny = _cuda.Entry("demux_tiny")
 
 
 def operand_inputs(n_b: int = N_B, n_slots: int = N_SLOTS, device="cuda", seed: int = 0) -> tuple:

@@ -25,8 +25,8 @@ from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits
 from demuxalot_tpu_torch.ops import likelihood as L
 from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain, mstep_update, mstep_update_plain
 from oracle import oracle_barcode_logits
-from torch_problems import (estep_args, estep_problem, in_order_addition, mstep_operands, mstep_problem, t,
-                            update_problem)
+from torch_problems import (estep_args, estep_problem, in_order_addition, mstep_operands, mstep_problem, offset_view,
+                            side_stream_and_replay, t, update_problem)
 
 
 def _need_card():
@@ -230,7 +230,15 @@ import torch
 sys.path[:0] = {paths!r}
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
 from torch_problems import estep_args, estep_problem, mstep_operands, mstep_problem, t
-if {kernel!r} == "estep":
+if {kernel!r}.startswith("take"):
+    from demuxalot_tpu_torch.experiments import gather_forms as GF
+    GF.FUSED_CHECK = not {kernel!r}.endswith("apart")  # the bound test in the gather, or checks.cu's kernel first
+    axis = int({kernel!r}[len("take_axis")])
+    table = torch.rand(64, 32, device="cuda")
+    idx = torch.randint(0, table.shape[axis], (64, 32), dtype=torch.int32, device="cuda")
+    idx[40, 7] = table.shape[axis] if axis == 0 else -1  # one past the last row; a negative column
+    launch = lambda: GF.take_along_axis(table, idx, axis)
+elif {kernel!r} == "estep":
     gprob, operands = estep_args(estep_problem(n_donors=4), "cuda")
     bad = operands.vid.clone()
     bad[len(bad) // 2] = gprob.shape[0]  # one past the last variant
@@ -250,10 +258,12 @@ except Exception as error:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["estep", "mstep"])
+@pytest.mark.parametrize("kernel", ["estep", "mstep", "take_axis0", "take_axis1", "take_axis0_apart",
+                                    "take_axis1_apart"])
 def test_gpu_out_of_range_index_traps(kernel):
     """An index past its table traps in checks.cu before the main kernel reads it: the E-step's at each
-    launch, the M-step's when its operands are built.
+    launch, the M-step's when its operands are built. take_along_axis tests each index inside its gather
+    and traps there (or in checks.cu's kernel first, "apart").
 
     A trap ends the process's CUDA context, so the launch runs in a child process.
     """
@@ -817,22 +827,49 @@ def test_gpu_streams_match_float64(cols, n_slots, d, step):
     assert torch.equal(got, kernel(x, step))
 
 
+def _take_problem(axis, shape, out_rows, table_offset=0, idx_offset=0):
+    rng = np.random.RandomState(sum(shape))
+    table = offset_view(t(rng.rand(*shape).astype(np.float32), "cuda"), table_offset)
+    idx_shape = (out_rows, shape[1]) if axis == 0 else (shape[0], 2 * shape[1] + 1)
+    idx = offset_view(t(rng.randint(0, shape[axis], idx_shape).astype(np.int32), "cuda"), idx_offset)
+    return table, idx
+
+
+_TAKE_SHAPES = [(0, (1024, 128), 256), (0, (8192, 128), 8192), (0, (50, 7), 13), (1, (256, 512), 256),
+                (1, (9, 33), 9)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("axis, shape, out_rows", [(0, (1024, 128), 256), (0, (8192, 128), 8192), (0, (50, 7), 13),
-                                                   (1, (256, 512), 256), (1, (9, 33), 9)])
-def test_gpu_take_along_axis_is_bit_equal(axis, shape, out_rows):
+@pytest.mark.parametrize("table_offset, idx_offset", [(0, 0), (1, 0), (0, 1)])
+@pytest.mark.parametrize("axis, shape, out_rows", _TAKE_SHAPES)
+def test_gpu_take_along_axis_is_bit_equal(axis, shape, out_rows, table_offset, idx_offset):
+    """Aligned, and with the table or the indices one float off a 16-byte boundary (the scalar paths)."""
     _need_card()
     from demuxalot_tpu_torch.experiments.gather_forms import take_along_axis, take_along_axis_plain
 
-    rng = np.random.RandomState(sum(shape))
-    table = t(rng.rand(*shape).astype(np.float32), "cuda")
-    idx_shape = (out_rows, shape[1]) if axis == 0 else (shape[0], 2 * shape[1] + 1)
-    idx = t(rng.randint(0, shape[axis], idx_shape).astype(np.int32), "cuda")
+    table, idx = _take_problem(axis, shape, out_rows, table_offset, idx_offset)
     launches = take_along_axis.launches
     got = take_along_axis(table, idx, axis)
     assert take_along_axis.launches == launches + 1
     assert torch.equal(got, take_along_axis_plain(table, idx, axis))
     assert torch.equal(got, torch.gather(table, axis, idx.long()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("axis, shape, out_rows", _TAKE_SHAPES)
+def test_gpu_take_along_axis_on_a_side_stream_and_in_a_graph(axis, shape, out_rows, fused, monkeypatch):
+    """The kernel goes on whatever stream is current: a side stream's output and a graph's replay equal the
+    eager call's, bit for bit, with the bound test fused and apart."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import gather_forms as GF
+
+    monkeypatch.setattr(GF, "FUSED_CHECK", fused)
+    table, idx = _take_problem(axis, shape, out_rows)
+    eager = GF.take_along_axis(table, idx, axis)
+    on_side, replayed = side_stream_and_replay(lambda: GF.take_along_axis(table, idx, axis))
+    assert torch.equal(on_side, eager) and torch.equal(replayed, eager)
+    assert torch.equal(eager, GF.take_along_axis_plain(table, idx, axis))
 
 
 @pytest.mark.gpu
@@ -872,13 +909,28 @@ def test_gpu_cluster_gather_sum_refuses_a_table_past_the_cluster(n_rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("shape", [(8, 128), (3, 5), (1_000_003,)])
-def test_gpu_tiny_is_bit_equal(shape):
+def test_gpu_tiny_is_bit_equal(shape, offset):
+    """Aligned, and with x one float off a 16-byte boundary (the scalar path)."""
     _need_card()
     from demuxalot_tpu_torch.experiments.gather_operand import tiny, tiny_plain
 
-    x = torch.randn(shape, device="cuda")
+    x = offset_view(t(np.random.RandomState(len(shape)).randn(*shape).astype(np.float32), "cuda"), offset)
     launches = tiny.launches
     got = tiny(x)
     assert tiny.launches == launches + 1
     assert torch.equal(got, tiny_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 128), (3, 5), (1_000_003,)])
+def test_gpu_tiny_on_a_side_stream_and_in_a_graph(shape):
+    _need_card()
+    from demuxalot_tpu_torch.experiments.gather_operand import tiny
+
+    x = torch.randn(shape, device="cuda")
+    eager = tiny(x)
+    on_side, replayed = side_stream_and_replay(lambda: tiny(x))
+    assert torch.equal(on_side, eager) and torch.equal(replayed, eager)
+    assert torch.equal(eager, x * 2.0)

@@ -12,6 +12,33 @@ def t(array, device="cpu"):
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
+def offset_view(values: torch.Tensor, offset: int) -> torch.Tensor:
+    """``values`` in a contiguous tensor that starts ``offset`` elements into a larger buffer on the same device
+    (offset 1 puts 4-byte elements off every 16-byte boundary)."""
+    if offset == 0:
+        return values
+    buffer = torch.empty(values.numel() + offset, dtype=values.dtype, device=values.device)
+    view = buffer[offset:].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+def side_stream_and_replay(fn) -> tuple:
+    """(``fn()`` under ``torch.cuda.stream(side)``, a captured ``fn()``'s output after its CUDA graph's replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    captured.fill_(float("nan"))  # the replay, not the capture, must write it
+    graph.replay()
+    torch.cuda.synchronize()
+    return on_side, captured.clone()
+
+
 def estep_problem(seed=0, n_snps=100, n_donors=8, n_barcodes=100, n_calls=6000, doublet_prior=0.35):
     rng = np.random.RandomState(seed)
     n_variants = n_snps * 2
