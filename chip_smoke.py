@@ -118,9 +118,8 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    4,096 and 32,768 and D of 32 and 7, against float64 at 1e-6;
    take_along_axis on both axes with widths of 7 and 33, at D2's and E2's
    shapes and with the table and indices one float off a 16-byte boundary,
-   with its bound test fused and in checks.cu's kernel apart, eagerly, on a
-   side stream and in a CUDA graph's replay, bit for bit, and an index out
-   of range on each axis trapping in a child process; the cluster
+   eagerly, on a side stream and in a CUDA graph's replay, bit for bit, and
+   an index out of range on each axis trapping in a child process; the cluster
    gather-sum with a ragged last step, every index in CTA 0's slice, a
    width of 7 and 1M indices on the harness's table, against float64 at
    1e-6, and a 16 MiB table that must raise; tiny at [8, 128], [3, 5],
@@ -142,18 +141,19 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    calls (``torch.gather`` on int64 indices, ``torch.mul(x, 2.0)``) each
    take three times, each the mean of two samples in turns with the
    library call's (kernel, library, library, kernel): ``ms``, CUDA events
-   around 100 eager calls (as do forms A and B); ``graph_ms``, 100 calls
-   captured in one CUDA graph and
-   replayed between events, the device's time without the host's;
-   ``host_us``, the host clock over 200 calls with no synchronise inside
-   (below the launch queue's depth), the median of 5 such windows, the
-   host's enqueue time. Beside them take_along_axis with its bound test in
-   checks.cu's kernel apart against it fused, in turns (eager and graph),
-   and the host µs of each
-   piece of a launch's host path (the old idiom's device guard, stream
-   object and library lookup, the raw stream handle, the output's
-   allocation by ``torch.empty`` and ``torch.empty_like``, the light
-   launch alone and the same C entry through ctypes, the whole wrapper).
+   around 100 eager calls on the same inputs (as do forms A and B);
+   ``graph_ms``, 100 calls captured in one CUDA graph and replayed between
+   events, the device's time without the host's, each call on the next of
+   enough copies of its inputs to fill twice the card's L2 (at most 100
+   copies: tiny's 8 KB calls stay in L2 whatever, and take the launch's
+   time); ``host_us``, the host clock over 200 calls with no synchronise
+   inside (below the launch queue's depth), the median of 5 such windows,
+   the host's enqueue time. Beside them the host µs of each piece of a
+   launch's host path (the old idiom's device guard, stream object and
+   library lookup, and the whole old idiom's launch; the raw stream handle;
+   the output's allocation by ``torch.empty`` and ``torch.empty_like``; the
+   light launch alone, and on an empty output, where the C entry returns
+   before it launches; the whole wrapper).
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the mainline kernels' runs on the package paths, phases 4,
@@ -173,8 +173,8 @@ group's at G 4; the streams' ``ms`` at step 512 with every step in
 ``by_step``, take_along_axis's at form D2 with every form in ``by_form``,
 the tiny kernel's with the gather-operand stages in ``stages_ms``;
 take_along_axis and tiny carry ``graph_ms``, ``host_us`` and the library
-call's ``library_graph_ms`` and ``library_host_us``, and name their
-launcher, ``csrc/launch.cu``);
+call's ``library_graph_ms`` and ``library_host_us``, with the bytes their
+graph's input copies hold in ``graph_input_mb``);
 the line before it is nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -691,19 +691,31 @@ def _time_ms(fn, repeats: int = 10) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def _graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
-    """Device ms per call: ``calls`` calls captured in one CUDA graph (after a warm-up on a side stream, as
-    ``torch.cuda.graphs`` asks), replayed ``replays`` times between events, per call. No host path in it."""
+def _rotation(fn, inputs: tuple, calls: int = 100) -> tuple:
+    """(copies, bytes per call) for ``_graph_ms``: a call's bytes are its inputs' and its output's, and the copies
+    of ``inputs`` fill twice the card's L2, at most ``calls`` of them."""
+    nbytes = sum(t.nbytes for t in inputs) + fn(*inputs).nbytes
+    l2 = torch.cuda.get_device_properties(torch.cuda.current_device()).L2_cache_size
+    return max(1, min(calls, -(-2 * l2 // nbytes))), nbytes
+
+
+def _graph_ms(fn, inputs: tuple, calls: int = 100, replays: int = 5) -> float:
+    """Device ms per call of ``fn(*inputs)``: ``calls`` calls captured in one CUDA graph (after a warm-up on a side
+    stream, as ``torch.cuda.graphs`` asks), replayed ``replays`` times between events, per call. No host path in
+    it. Call k reads copy k % copies of ``inputs`` (``_rotation``) and every output is kept, so a call's bytes come
+    from HBM as an eager call's on fresh data would, not from the L2 that the call before it filled; a call of
+    under 1 MB (tiny's 8 KB) stays in L2 whatever, and takes the launch's time."""
+    copies, _ = _rotation(fn, inputs, calls)
+    sets = [inputs] + [tuple(t.clone() for t in inputs) for _ in range(copies - 1)]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
-            fn()
+            fn(*inputs)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        outs = [fn(*sets[k % copies]) for k in range(calls)]
     graph.replay()  # warm
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -713,7 +725,7 @@ def _graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / (replays * calls)
-    del graph
+    del graph, outs, sets
     return ms
 
 
@@ -739,17 +751,6 @@ def _in_turns(first, second, measure) -> tuple:
     second, first."""
     a1, b1, b2, a2 = measure(first), measure(second), measure(second), measure(first)
     return (a1 + a2) / 2, (b1 + b2) / 2
-
-
-@contextlib.contextmanager
-def _fused_check(gather_forms, fused: bool):
-    """take_along_axis with its bound test inside the gather (fused, the default) or in checks.cu's kernel first."""
-    saved = gather_forms.FUSED_CHECK
-    gather_forms.FUSED_CHECK = fused
-    try:
-        yield
-    finally:
-        gather_forms.FUSED_CHECK = saved
 
 
 @contextlib.contextmanager
@@ -1874,7 +1875,6 @@ import sys
 import torch
 sys.path.insert(0, {repo!r})
 from demuxalot_tpu_torch.experiments import gather_forms as GF
-GF.FUSED_CHECK = {fused!r}
 axis = {axis!r}
 table = torch.rand(64, 32, device="cuda")
 idx = torch.randint(0, table.shape[axis], (64, 32), dtype=torch.int32, device="cuda")
@@ -1911,8 +1911,7 @@ def phase_last_kernels() -> None:
             say("last", kernel=kernel.__name__, shape=list(x.shape), step=step, rel_err=abs(got - exact) / exact,
                 plain_rel_err=abs(want - exact) / exact, runs="bit-equal")
     # both axes, widths of 7 and 33 (no multiple of 4), the harness's D2 and E2, and a table and indices one
-    # float past a 16-byte boundary (the scalar paths): bit-equal with the bound test fused and apart, on a side
-    # stream and in a graph's replay
+    # float past a 16-byte boundary (the scalar paths): bit-equal eagerly, on a side stream and in a graph's replay
     rng = np.random.RandomState(11)
     for axis, shape, out_rows, offset in ((0, (50, 7), 13, 0), (0, (8192, 128), 8192, 0), (1, (9, 33), 9, 0),
                                           (1, (256, 512), 256, 0), (0, (8192, 128), 8192, 1), (1, (256, 512), 256, 1)):
@@ -1920,18 +1919,15 @@ def phase_last_kernels() -> None:
         idx_shape = (out_rows, shape[1]) if axis == 0 else (shape[0], 2 * shape[1] + 1)
         idx = offset_view(torch.from_numpy(rng.randint(0, shape[axis], idx_shape).astype(np.int32)).to(cuda), offset)
         want = GF.take_along_axis_plain(table, idx, axis)
-        for fused in (True, False):
-            with _fused_check(GF, fused):
-                got = GF.take_along_axis(table, idx, axis)
-                require(torch.equal(got, want), f"take_along_axis axis {axis} {shape} offset {offset} fused {fused}: "
-                                                f"bit-equal to the plain version")
-                require(torch.equal(got, GF.take_along_axis(table, idx, axis)),
-                        f"take_along_axis {shape}: runs bit-equal")
-                on_side, replayed = side_stream_and_replay(lambda: GF.take_along_axis(table, idx, axis))
-                require(torch.equal(on_side, want) and torch.equal(replayed, want),
-                        f"take_along_axis axis {axis} {shape} fused {fused}: side stream and graph replay bit-equal")
+        got = GF.take_along_axis(table, idx, axis)
+        require(torch.equal(got, want), f"take_along_axis axis {axis} {shape} offset {offset}: bit-equal to the "
+                                        f"plain version")
+        require(torch.equal(got, GF.take_along_axis(table, idx, axis)), f"take_along_axis {shape}: runs bit-equal")
+        on_side, replayed = side_stream_and_replay(lambda: GF.take_along_axis(table, idx, axis))
+        require(torch.equal(on_side, want) and torch.equal(replayed, want),
+                f"take_along_axis axis {axis} {shape} offset {offset}: side stream and graph replay bit-equal")
         say("last", kernel="take_along_axis", axis=axis, table=list(shape), idx=list(idx_shape), offset=offset,
-            out="bit-equal", fused_check=[True, False], side_stream_and_graph="bit-equal")
+            out="bit-equal", side_stream_and_graph="bit-equal")
     # a ragged last step, every index in CTA 0's slice (rows < 1,024), a width of 7, the harness's table
     for shape, n_idx, step, high in (((8192, 32), 10_001, 8192, 8192), ((8192, 32), 50_000, 8192, 1024),
                                      ((1000, 7), 5000, 1, 1000), ((8192, 32), 1 << 20, 8192, 8192)):
@@ -1961,21 +1957,21 @@ def phase_last_kernels() -> None:
                 f"tiny {shape}: side stream and graph replay bit-equal")
     say("last", kernel="tiny", shapes=[[8, 128], [3, 5], [1_000_003], "[8, 128] one float off"], out="bit-equal",
         side_stream_and_graph="bit-equal", table_past_cluster=raised)
-    # an index out of range traps inside the gather (and in checks.cu's kernel apart): a trap ends the
-    # process's CUDA context, so each runs in a child process, all four at once
-    children = {(axis, fused): subprocess.Popen(
-        [sys.executable, "-c", _TAKE_TRAP.format(repo=str(REPO), axis=axis, fused=fused)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for axis in (0, 1) for fused in (True, False)}
+    # an index out of range traps inside the gather: a trap ends the process's CUDA context, so each axis runs
+    # in a child process, both at once
+    children = {axis: subprocess.Popen(
+        [sys.executable, "-c", _TAKE_TRAP.format(repo=str(REPO), axis=axis)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for axis in (0, 1)}
     trapped = {}
-    for (axis, fused), child in children.items():
+    for axis, child in children.items():
         try:
             out, _ = child.communicate(timeout=300)
         except subprocess.TimeoutExpired:
             child.kill()
             out, _ = child.communicate()
-        require(child.returncode == 3, f"take_along_axis axis {axis} fused {fused}: an index out of range did not "
-                                       f"trap (exit {child.returncode}): {out[-2000:]}")
-        trapped[f"axis {axis}, {'fused' if fused else 'apart'}"] = out.strip().splitlines()[-1][:160]
+        require(child.returncode == 3, f"take_along_axis axis {axis}: an index out of range did not trap "
+                                       f"(exit {child.returncode}): {out[-2000:]}")
+        trapped[f"axis {axis}"] = out.strip().splitlines()[-1][:160]
     say("last", kernel="take_along_axis", index_out_of_range=trapped)
 
 
@@ -2071,21 +2067,16 @@ def phase_last(card: str) -> dict:
                          "bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by(),
                          "share_of_bound": bound.speed_of_light_s() * 1e3 / ms}
         if axis is not None:
-            # the device time (graph replay) and the host's enqueue time beside the eager time, the library call's
-            # beside each, in turns; the bound test in checks.cu's kernel apart against it fused, in turns
-            graph_ms, library_graph_ms = _in_turns(run, library, _graph_ms)
+            # the device time (graph replay over copies of the inputs past L2) and the host's enqueue time beside
+            # the eager time, the library call's beside each, in turns
+            graphed = ((lambda t, i: GF.run_form(t, i, axis)), (table, idx))
+            library_graphed = ((lambda t, i: torch.gather(t, axis, i)), (table, idx_long))
+            graph_ms, library_graph_ms = _in_turns(graphed, library_graphed, lambda c: _graph_ms(*c))
             host_us, library_host_us = _in_turns(run, library, _host_us)
-
-            def apart():
-                with _fused_check(GF, False):
-                    return GF.run_form(table, idx, axis)
-
-            fused_graph_ms, apart_graph_ms = _in_turns(run, apart, _graph_ms)
-            fused_ms, apart_ms = _in_turns(run, apart, lambda fn: _time_ms(fn, repeats=100))
+            copies, nbytes = _rotation(*graphed)
             by_form[form].update(graph_ms=graph_ms, host_us=host_us, library_graph_ms=library_graph_ms,
-                                 library_host_us=library_host_us, fused_check_graph_ms=fused_graph_ms,
-                                 check_apart_graph_ms=apart_graph_ms, fused_check_ms=fused_ms,
-                                 check_apart_ms=apart_ms)
+                                 library_host_us=library_host_us, graph_input_mb=copies * nbytes / 1e6,
+                                 graph_share_of_bound=bound.speed_of_light_s() * 1e3 / graph_ms)
     say("last", stage="forms timed", card=card, by_form=by_form)
     # the cluster gather-sum at the microbench's shape: against its plain version, the plain version's time
     rng = np.random.default_rng(0)
@@ -2100,13 +2091,15 @@ def phase_last(card: str) -> dict:
     x = torch.randn(GO.TINY_SHAPE, device=cuda)
     run, library = (lambda: GO.tiny(x)), (lambda: torch.mul(x, 2.0))
     ms, library_ms = _in_turns(run, library, lambda fn: _time_ms(fn, repeats=100))
-    graph_ms, library_graph_ms = _in_turns(run, library, _graph_ms)
+    graphed, library_graphed = (GO.tiny, (x,)), ((lambda t: torch.mul(t, 2.0)), (x,))
+    graph_ms, library_graph_ms = _in_turns(graphed, library_graphed, lambda c: _graph_ms(*c))
+    copies, nbytes = _rotation(*graphed)
     host_us, library_host_us = _in_turns(run, library, _host_us)
     entries["tiny"] = {"max_abs_err": float((GO.tiny(x) - GO.tiny_plain(x)).abs().max()),
                        "ms": ms, "graph_ms": graph_ms, "host_us": host_us,
                        "plain_ms": _time_ms(lambda: GO.tiny_plain(x), repeats=100),
                        "library_ms": library_ms, "library_graph_ms": library_graph_ms,
-                       "library_host_us": library_host_us,
+                       "library_host_us": library_host_us, "graph_input_mb": copies * nbytes / 1e6,
                        "bound": StreamRoofline(bytes_read=x.numel() * 4, bytes_written=x.numel() * 4,
                                                n_operations=x.numel())}
     host_path = _host_path_us(GF, cuda)
@@ -2121,26 +2114,27 @@ def _host_path_us(GF, cuda) -> dict:
     200 calls).
 
     The old idiom is ``with torch.cuda.device(d)``, ``torch.cuda.current_stream(d).cuda_stream`` and
-    ``_cuda.library().<fn>`` through ctypes; the light path (``_cuda.Entry``) reads the stream's raw handle and
-    calls ``demux_launch``'s function, which passes the device index to C. ``launch`` is the Entry's call alone
-    (no checks, no allocation), ``launch_ctypes`` the same C entry through ctypes; ``module_call`` the module's
-    function with the stream handle read once (no Entry), ``module_call_empty`` the same on an empty output, which
-    returns before the device guard and the launch; ``wrapper`` the whole call."""
+    ``_cuda.library().<fn>`` through ctypes, ``old_launch`` the three around the same C entry; the light path
+    (``_cuda.Entry``) keeps the ctypes function, reads the stream's raw handle and passes the device index to C.
+    ``launch`` is the Entry's call alone (no checks, no allocation), ``launch_empty`` the same on an empty output,
+    where the C entry returns before its device guard and the launch; ``wrapper`` the whole call."""
     from demuxalot_tpu_torch.ops import _cuda
 
     table = torch.rand(8192, 128, device=cuda)
     idx = torch.randint(0, 8192, (8192, 128), device=cuda, dtype=torch.int32)
     out = torch.empty(idx.shape, device=cuda)
     index = torch.cuda.current_device()
-    args = (table.data_ptr(), 8192, 128, idx.data_ptr(), 8192, 128, 0, out.data_ptr(), 1)  # up to the device
-    by_ctypes = _cuda.library().demux_take_along_axis
-    by_module = _cuda.launch_module().demux_take_along_axis
-    handle = torch._C._cuda_getCurrentRawStream(index)
+    args = (table.data_ptr(), 8192, 128, idx.data_ptr(), 8192, 128, 0, out.data_ptr())  # up to the device
     empty = (*args[:4], 0, *args[5:])  # rows_out 0
 
     def guard():
         with torch.cuda.device(cuda):
             pass
+
+    def old_launch():
+        with torch.cuda.device(cuda):
+            status = _cuda.library().demux_take_along_axis(*args, index, torch.cuda.current_stream(cuda).cuda_stream)
+        _cuda.check_launch("take_along_axis", status)
 
     return {"device_guard": _host_us(guard),
             "current_stream": _host_us(lambda: torch.cuda.current_stream(cuda).cuda_stream),
@@ -2148,10 +2142,9 @@ def _host_path_us(GF, cuda) -> dict:
             "library_lookup": _host_us(lambda: _cuda.library().demux_take_along_axis),
             "empty": _host_us(lambda: torch.empty(idx.shape, dtype=torch.float32, device=cuda)),
             "empty_like": _host_us(lambda: torch.empty_like(idx, dtype=torch.float32)),
+            "old_launch": _host_us(old_launch),
             "launch": _host_us(lambda: GF._take_along_axis(table, *args)),
-            "launch_ctypes": _host_us(lambda: by_ctypes(*args, index, torch._C._cuda_getCurrentRawStream(index))),
-            "module_call": _host_us(lambda: by_module(*args, index, handle)),
-            "module_call_empty": _host_us(lambda: by_module(*empty, index, handle)),
+            "launch_empty": _host_us(lambda: GF._take_along_axis(table, *empty)),
             "wrapper": _host_us(lambda: GF.take_along_axis(table, idx, 0))}
 
 
@@ -2181,7 +2174,7 @@ def _last_entries(last: dict, launches) -> list:
                         for r in e[name]["by_step"]]})
     # take_along_axis and tiny: ms (eager), graph_ms (device), host_us (the host's enqueue time), each beside the
     # library call's
-    split = ("graph_ms", "host_us", "library_graph_ms", "library_host_us")
+    split = ("graph_ms", "host_us", "library_graph_ms", "library_host_us", "graph_input_mb")
     d2 = last["by_form"]["D2"]
     entries.append({
         "name": "take_along_axis", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/forms.cu",
@@ -2189,8 +2182,7 @@ def _last_entries(last: dict, launches) -> list:
         "max_abs_err": d2["max_abs_err"],
         "ms": d2["ms"], "plain_ms": d2["plain_ms"], "bound_ms": d2["bound_ms"], "bound_by": d2["bound_by"],
         "share_of_bound": d2["share_of_bound"], "library_ms": d2["library_ms"], **{k: d2[k] for k in split},
-        "check_apart_graph_ms": d2["check_apart_graph_ms"], "launcher": "demuxalot_tpu_torch/csrc/launch.cu",
-        "form": "D2", "by_form": last["by_form"], "host_path_us": last["host_path_us"]})
+        "graph_share_of_bound": d2["graph_share_of_bound"], "form": "D2", "by_form": last["by_form"], "host_path_us": last["host_path_us"]})
     b = last["bench"]
     entries.append({
         "name": "cluster_gather_sum", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/forms.cu",
@@ -2207,7 +2199,6 @@ def _last_entries(last: dict, launches) -> list:
         "ms": tiny["ms"], "plain_ms": tiny["plain_ms"], "bound_ms": bound.speed_of_light_s() * 1e3,
         "bound_by": bound.bound_by(), "share_of_bound": bound.speed_of_light_s() * 1e3 / tiny["ms"],
         "library_ms": tiny["library_ms"], **{k: tiny[k] for k in split},
-        "launcher": "demuxalot_tpu_torch/csrc/launch.cu",
         "stages_ms": {str(p): {n: s["ms"] for n, s in r.items()} for p, r in last["stages"].items()}})
     return entries
 
@@ -2264,7 +2255,7 @@ def steps_ms() -> dict:
 
 def _launch_bound_ms(cuda) -> dict:
     """take_along_axis at form D2 and tiny at [8, 128] of the package on sys.path: eager (100 calls between
-    events) and graph-replay ms per call, three samples each."""
+    events) and graph-replay ms per call (``_graph_ms``: copies of the inputs past L2), three samples each."""
     from demuxalot_tpu_torch.experiments import gather_forms as GF
     from demuxalot_tpu_torch.experiments import gather_operand as GO
 
@@ -2273,9 +2264,10 @@ def _launch_bound_ms(cuda) -> dict:
     x = torch.randn(GO.TINY_SHAPE, device=cuda)
     take, tiny = (lambda: GF.take_along_axis(table, idx, axis)), (lambda: GO.tiny(x))
     return {"take_along_axis_ms": [_time_ms(take, repeats=100) for _ in range(3)],
-            "take_along_axis_graph_ms": [_graph_ms(take) for _ in range(3)],
+            "take_along_axis_graph_ms": [_graph_ms(lambda t, i: GF.take_along_axis(t, i, axis), (table, idx))
+                                         for _ in range(3)],
             "tiny_ms": [_time_ms(tiny, repeats=100) for _ in range(3)],
-            "tiny_graph_ms": [_graph_ms(tiny) for _ in range(3)]}
+            "tiny_graph_ms": [_graph_ms(GO.tiny, (x,)) for _ in range(3)]}
 
 
 def compare_with_parent(parent: Path, card: str) -> None:

@@ -14,8 +14,11 @@
 //   as few instructions per byte as the card allows:
 //   - the bound test is inside the gather: the kernel reads every index
 //     anyway, tests it with one unsigned compare and traps on one out of
-//     range (fused_check = 0 runs checks.cu's kernel first instead, for the
-//     A/B that chose this);
+//     range. Measured once against checks.cu's kernel launched first
+//     (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py at c42f1ef, 100 calls
+//     in a CUDA graph, in turns): 0.00292 ms a call at D2 against 0.00516
+//     apart (C-E2: 0.0016-0.0019 against 0.0029-0.0033), so only the fused
+//     test is built;
 //   - a 2-D grid, output rows by blockIdx.y, column quads by thread: no
 //     division per element; 32-bit offsets where the table and the output
 //     hold fewer than 2^31 elements, 64-bit ones otherwise;
@@ -31,18 +34,17 @@
 //     (over 227 KB, 58,000 floats) is read through L1/L2 instead.
 //   The entry takes the device index and makes that device current only
 //   where it is not (common.cuh's DeviceGuard), so the wrapper needs no
-//   Python device guard and no stream object; it is called through
-//   launch.cu's module, not ctypes. Measured (NVIDIA H100 80GB HBM3, 700.00
-//   W, chip_smoke.py phase 11d, each number the mean of two samples in turns
-//   with its counterpart): at D2, 100 calls in a CUDA graph take 0.00293 ms
-//   a call against torch.gather's 0.00533, below the 3.3 us HBM bound as the
-//   inputs stay in L2 between calls (C-E2: 0.0015-0.0019 against
-//   0.0044-0.0047); the bound test fused 0.00293 against 0.00517 in
-//   checks.cu's kernel apart (C-E2: 0.0016-0.0019 against 0.0029-0.0033).
-//   Eagerly the host sets the time: 0.01106 ms against torch.gather's
-//   0.00924, the wrapper issuing a call in 10.8 us against 9.3, of which
-//   the launch itself (this entry's C side) takes 3.9 and the output's
-//   allocation through PyTorch's Python API 3.5.
+//   Python device guard and no stream object (ops/_cuda.py's Entry keeps
+//   the ctypes function). Measured (NVIDIA H100 80GB HBM3, 700.00 W,
+//   chip_smoke.py phase 11d, each number the mean of two samples in turns
+//   with torch.gather's): at D2, 100 calls in a CUDA graph, each on its own
+//   copy of the inputs (113 MB of copies, past the 50 MB L2), take 0.00563
+//   ms a call against torch.gather's 0.01093, 58% of the 3.3 us HBM bound
+//   (C-E2: 0.0022-0.0030 against 0.0078-0.0086). Eagerly the host sets the
+//   time: 0.0170 ms against torch.gather's 0.0117, the wrapper issuing a
+//   call in 20.7 us against 10.8, of which the launch through Entry takes
+//   9.8 (2.5 of it before the C entry's device guard and launch) and the
+//   output's allocation through PyTorch's Python API 3.0.
 // - ig_kernel (:183-210), the in-kernel gather bench over a table held in
 //   on-chip memory (the TPU's VMEM holds the [8192, 32] f32 table, 1 MiB):
 //     total = sum_i sum_w table[idx[i], w], steps of `step` indices
@@ -92,8 +94,8 @@ constexpr int kStageBytes = 48 * 1024;  // staged table rows a block takes witho
 // Off: uint32_t when the table and the output hold fewer than 2^31 elements, else int64_t.
 // kVec: cols_out % 4 == 0 and idx, out on 16-byte boundaries: one 16-byte index load and one 16-byte store per
 // thread and row; else 4 scalar loads and stores, the row's tail masked.
-// kCheck: each index is tested against `limit` (one unsigned compare: a negative index wraps past it) and an
-// index out of range traps; without it checks.cu's kernel has run first.
+// Each index is tested against `limit` (one unsigned compare: a negative index wraps past it) and an index out of
+// range traps.
 template <bool kVec>
 __device__ __forceinline__ void load_indices(const int32_t* __restrict__ p, int valid, int32_t (&k)[4]) {
     if constexpr (kVec) {
@@ -120,15 +122,12 @@ __device__ __forceinline__ void store_outputs(float* __restrict__ p, int valid, 
     }
 }
 
-template <bool kCheck>
 __device__ __forceinline__ void check_index(int32_t k, uint32_t limit) {
-    if constexpr (kCheck) {
-        if ((uint32_t)k >= limit) __trap();
-    }
+    if ((uint32_t)k >= limit) __trap();
 }
 
 // axis 0: out[i, j] = table[idx[i, j], j]; the table reads are scalar (4 rows per thread, anywhere in the table)
-template <typename Off, bool kVec, bool kCheck>
+template <typename Off, bool kVec>
 __global__ void __launch_bounds__(kThreads) take_axis0_kernel(const float* __restrict__ table, Off ld,
                                                               const int32_t* __restrict__ idx, Off rows_out,
                                                               int cols_out, uint32_t limit, float* __restrict__ out) {
@@ -144,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) take_axis0_kernel(const float* __res
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
             if (kVec || u < valid) {
-                check_index<kCheck>(k[u], limit);
+                check_index(k[u], limit);
                 v[u] = table[(Off)(uint32_t)k[u] * ld + (Off)(j + u)];
             }
         }
@@ -156,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) take_axis0_kernel(const float* __res
 // (a stride of `stage` floats, 16-byte loads where the rows are 16-byte aligned) and its lanes gather from there;
 // without it (a row past a block's shared memory) they read the table through L1/L2. The loop over row groups
 // is uniform across the block, so every thread reaches both barriers.
-template <typename Off, bool kVec, bool kCheck, bool kStaged>
+template <typename Off, bool kVec, bool kStaged>
 __global__ void __launch_bounds__(kThreads) take_axis1_kernel(const float* __restrict__ table, Off ld, int n_cols,
                                                               int stage, bool stage_vec, const int32_t* __restrict__ idx,
                                                               Off rows, int cols_out, uint32_t limit,
@@ -190,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) take_axis1_kernel(const float* __res
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
                 if (kVec || u < valid) {
-                    check_index<kCheck>(k[u], limit);
+                    check_index(k[u], limit);
                     v[u] = kStaged ? row[k[u]] : src[(uint32_t)k[u]];
                 }
             }
@@ -232,11 +231,11 @@ struct Take {
     cudaStream_t stream;
 };
 
-template <typename Off, bool kVec, bool kCheck>
+template <typename Off, bool kVec>
 int launch_take(const Take& a) {
     if (a.axis == 0) {
         const TakeShape shape = take_shape(a.rows_out, a.cols_out, kThreads);
-        take_axis0_kernel<Off, kVec, kCheck><<<shape.grid, shape.block, 0, a.stream>>>(
+        take_axis0_kernel<Off, kVec><<<shape.grid, shape.block, 0, a.stream>>>(
             a.table, (Off)a.n_cols, a.idx, (Off)a.rows_out, (int)a.cols_out, a.limit, a.out);
         return (int)cudaGetLastError();
     }
@@ -254,14 +253,14 @@ int launch_take(const Take& a) {
     const bool stage_vec = a.n_cols % 4 == 0 && demux::aligned16(a.table);
     if (staged) {
         const size_t shared = (size_t)shape.block.y * row_bytes;
-        auto kernel = take_axis1_kernel<Off, kVec, kCheck, true>;
+        auto kernel = take_axis1_kernel<Off, kVec, true>;
         if (shared > (size_t)kStageBytes &&
             (status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared)) != 0)
             return status;
         kernel<<<shape.grid, shape.block, shared, a.stream>>>(a.table, (Off)a.n_cols, (int)a.n_cols, stage, stage_vec,
                                                               a.idx, (Off)a.rows_out, (int)a.cols_out, a.limit, a.out);
     } else {
-        take_axis1_kernel<Off, kVec, kCheck, false><<<shape.grid, shape.block, 0, a.stream>>>(
+        take_axis1_kernel<Off, kVec, false><<<shape.grid, shape.block, 0, a.stream>>>(
             a.table, (Off)a.n_cols, (int)a.n_cols, stage, stage_vec, a.idx, (Off)a.rows_out, (int)a.cols_out, a.limit,
             a.out);
     }
@@ -271,9 +270,8 @@ int launch_take(const Take& a) {
 using TakeLaunch = int (*)(const Take&);
 
 template <typename Off>
-TakeLaunch pick_take(bool vec, bool check) {
-    return vec ? (check ? launch_take<Off, true, true> : launch_take<Off, true, false>)
-               : (check ? launch_take<Off, false, true> : launch_take<Off, false, false>);
+TakeLaunch pick_take(bool vec) {
+    return vec ? launch_take<Off, true> : launch_take<Off, false>;
 }
 
 // kW: floats per load (4 or 1)
@@ -376,8 +374,8 @@ int launch_clusters(Kernel kernel, size_t shared, const float* table, int64_t n_
 }  // namespace
 
 extern "C" int demux_take_along_axis(const float* table, int64_t n_rows, int64_t n_cols, const int32_t* idx,
-                                     int64_t rows_out, int64_t cols_out, int axis, float* out, int fused_check,
-                                     int device, void* stream) {
+                                     int64_t rows_out, int64_t cols_out, int axis, float* out, int device,
+                                     void* stream) {
     if (n_rows <= 0 || n_cols <= 0 || rows_out < 0 || cols_out <= 0 || cols_out > 0x7fffffff ||
         (axis != 0 && axis != 1) || (axis == 0 ? cols_out != n_cols : rows_out != n_rows || n_cols > 0x7fffffff))
         return (int)cudaErrorInvalidValue;
@@ -388,12 +386,10 @@ extern "C" int demux_take_along_axis(const float* table, int64_t n_rows, int64_t
     cudaStream_t s = (cudaStream_t)stream;
     const int64_t limit = axis == 0 ? n_rows : n_cols;  // an int32 index is below 2^31 whatever the limit
     const uint32_t limit32 = (uint32_t)(limit < 0x80000000LL ? limit : 0x80000000LL);
-    int status;
-    if (!fused_check && (status = demux_check_index(idx, n, limit, s)) != 0) return status;
     const bool wide = n_rows * n_cols > 0x7fffffff || n > 0x7fffffff;
     const bool vec = cols_out % 4 == 0 && demux::aligned16(idx) && demux::aligned16(out);
     const Take take{table, n_rows, n_cols, idx, rows_out, cols_out, axis, limit32, out, device, s};
-    return (wide ? pick_take<int64_t>(vec, fused_check != 0) : pick_take<uint32_t>(vec, fused_check != 0))(take);
+    return (wide ? pick_take<int64_t>(vec) : pick_take<uint32_t>(vec))(take);
 }
 
 // partial: scratch of at least ceil(n / step) * 8 floats; total: one float

@@ -54,9 +54,6 @@ SUM_RTOL = 1e-6
 R, W, C = 1024, 128, 256
 R2, S, L, L2 = 8192, 256, 128, 512
 FORMS = ("A", "B", "C", "D", "D2", "E", "E2")
-# take_along_axis tests each index inside its gather (True) or launches checks.cu's kernel before it (False);
-# flipped only by chip_smoke's A/B and the card tests
-FUSED_CHECK = True
 
 
 def _device_of(name: str, table: torch.Tensor) -> torch.device:
@@ -109,8 +106,7 @@ def take_along_axis(table: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.
         shapes = (*table.shape, *idx.shape)
     out = torch.empty_like(idx, dtype=torch.float32)
     rows, cols, rows_out, cols_out = shapes
-    _take_along_axis(table, table.data_ptr(), rows, cols, idx.data_ptr(), rows_out, cols_out, axis, out.data_ptr(),
-                     FUSED_CHECK)
+    _take_along_axis(table, table.data_ptr(), rows, cols, idx.data_ptr(), rows_out, cols_out, axis, out.data_ptr())
     take_along_axis.launches += 1
     return out
 

@@ -5,9 +5,8 @@ use one ``nvcc`` per source under ``demuxalot_tpu_torch/csrc``, all started
 together, compiles it for Hopper (``sm_90a``); one more links the objects
 into ``demuxalot_tpu_torch/_build/``, under a file name keyed by a hash of
 the sources, their shared headers (``csrc/*.cuh``) and the flags. The
-library has a plain C interface and is loaded with ``ctypes``; it is also
-the Python extension module ``demux_launch`` (``csrc/launch.cu``), through
-which :class:`Entry` launches without ctypes. A missing ``nvcc`` or a
+library has a plain C interface and is loaded with ``ctypes``;
+:class:`Entry` is the light launch path over it. A missing ``nvcc`` or a
 failed build raises: there is no fallback.
 
 Nothing here runs at import time, so the package loads where there is no
@@ -17,12 +16,9 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import importlib.machinery
-import importlib.util
 import os
 import shutil
 import subprocess
-import sysconfig
 import tempfile
 import time
 from dataclasses import dataclass
@@ -39,9 +35,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
-    "-I", sysconfig.get_paths()["include"],  # Python.h: the library is also the extension module demux_launch
 )
-LAUNCH_MODULE = "demux_launch"  # csrc/launch.cu's module: the light launch path's entries
 
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
@@ -114,7 +108,7 @@ _SIGNATURES = {
     ),
     "demux_take_along_axis": (
         _vp, _i64, _i64, _vp, _i64, _i64, _i32,  # table, n_rows, n_cols, idx, rows_out, cols_out, axis
-        _vp, _i32, _i32, _vp,  # out, fused_check, device, stream
+        _vp, _i32, _vp,  # out, device, stream
     ),
     "demux_cluster_gather_sum": (
         _vp, _i64, _i32, _vp, _i64, _i64,  # table, n_rows, width, idx, n, step
@@ -132,7 +126,6 @@ class BuildResult:
 
 
 _library: Optional[ctypes.CDLL] = None
-_launch_module = None
 _build: Optional[BuildResult] = None
 
 
@@ -201,19 +194,6 @@ def build() -> BuildResult:
     return _build
 
 
-def launch_module():
-    """The library as the Python extension module ``demux_launch`` (built at first call): the light path's entries."""
-    global _launch_module
-    if _launch_module is None:
-        path = str(build().path)
-        loader = importlib.machinery.ExtensionFileLoader(LAUNCH_MODULE, path)
-        module = importlib.util.module_from_spec(importlib.util.spec_from_file_location(LAUNCH_MODULE, path,
-                                                                                        loader=loader))
-        loader.exec_module(module)
-        _launch_module = module
-    return _launch_module
-
-
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first call)."""
     global _library
@@ -230,10 +210,9 @@ def library() -> ctypes.CDLL:
 class Entry:
     """One entry point of the library, launched on a tensor's card and that card's current stream.
 
-    The light launch path: the entry's function in ``demux_launch``
-    (``csrc/launch.cu``, which takes the C arguments as Python ints without
-    ctypes' per-argument conversion) is resolved at the first launch and
-    kept, and the C entry takes the device index and the current stream's
+    The light launch path: the entry's ctypes function is resolved at the
+    first launch and kept (no ``library()`` call and no attribute lookup per
+    launch), and the C entry takes the device index and the current stream's
     raw handle as its last two arguments. C makes the device current only
     where it is not (``csrc/common.cuh``'s ``DeviceGuard``), so a launch
     builds no ``torch.cuda.device`` guard and no ``torch.cuda.Stream``.
@@ -256,12 +235,10 @@ class Entry:
             raise ValueError(f"{self.name} launches on CUDA tensors, not on {on.device}")
         fn = self._fn
         if fn is None:
-            fn = self._fn = getattr(launch_module(), self.name)
+            fn = self._fn = getattr(library(), self.name)
             # the raw handle of the current stream, as Triton's launcher reads it
             self._stream = torch._C._cuda_getCurrentRawStream
-        status = fn(*args, index, self._stream(index))
-        if status != 0:
-            raise RuntimeError(f"{self.name}: CUDA launch failed with cudaError_t {status}")
+        check_launch(self.name, fn(*args, index, self._stream(index)))
 
 
 def check_launch(name: str, status: int) -> None:

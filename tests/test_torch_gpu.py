@@ -232,7 +232,6 @@ from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
 from torch_problems import estep_args, estep_problem, mstep_operands, mstep_problem, t
 if {kernel!r}.startswith("take"):
     from demuxalot_tpu_torch.experiments import gather_forms as GF
-    GF.FUSED_CHECK = not {kernel!r}.endswith("apart")  # the bound test in the gather, or checks.cu's kernel first
     axis = int({kernel!r}[len("take_axis")])
     table = torch.rand(64, 32, device="cuda")
     idx = torch.randint(0, table.shape[axis], (64, 32), dtype=torch.int32, device="cuda")
@@ -258,12 +257,11 @@ except Exception as error:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["estep", "mstep", "take_axis0", "take_axis1", "take_axis0_apart",
-                                    "take_axis1_apart"])
+@pytest.mark.parametrize("kernel", ["estep", "mstep", "take_axis0", "take_axis1"])
 def test_gpu_out_of_range_index_traps(kernel):
     """An index past its table traps in checks.cu before the main kernel reads it: the E-step's at each
     launch, the M-step's when its operands are built. take_along_axis tests each index inside its gather
-    and traps there (or in checks.cu's kernel first, "apart").
+    and traps there.
 
     A trap ends the process's CUDA context, so the launch runs in a child process.
     """
@@ -856,15 +854,13 @@ def test_gpu_take_along_axis_is_bit_equal(axis, shape, out_rows, table_offset, i
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("axis, shape, out_rows", _TAKE_SHAPES)
-def test_gpu_take_along_axis_on_a_side_stream_and_in_a_graph(axis, shape, out_rows, fused, monkeypatch):
+def test_gpu_take_along_axis_on_a_side_stream_and_in_a_graph(axis, shape, out_rows):
     """The kernel goes on whatever stream is current: a side stream's output and a graph's replay equal the
-    eager call's, bit for bit, with the bound test fused and apart."""
+    eager call's, bit for bit."""
     _need_card()
     from demuxalot_tpu_torch.experiments import gather_forms as GF
 
-    monkeypatch.setattr(GF, "FUSED_CHECK", fused)
     table, idx = _take_problem(axis, shape, out_rows)
     eager = GF.take_along_axis(table, idx, axis)
     on_side, replayed = side_stream_and_replay(lambda: GF.take_along_axis(table, idx, axis))

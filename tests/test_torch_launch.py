@@ -4,19 +4,15 @@ Each ``_SIGNATURES`` entry is held to its ``extern "C"`` declaration, parsed
 from the source: a slip in the argument count or in a pointer's width shows
 on the card only as a cut pointer or a wrong argument, so it is caught here.
 ``Entry`` raises on a CPU tensor before it loads the library, and importing
-the modules that hold entries touches no CUDA. ``csrc/launch.cu``, the
-Python side of the light launch path, is host code: g++ builds it here
-against stub entries that fold their arguments into the status they
-return, so its argument order and conversions are held on the CPU.
+the modules that hold entries touches no CUDA. Over a stand-in library and
+tensor, ``Entry`` is held to what it passes the C entry (the arguments in
+order, then the device index and the stream's raw handle), to resolving the
+function once, and to raising on a non-zero status.
 """
 import ctypes
-import importlib.machinery
-import importlib.util
 import re
-import shutil
 import subprocess
 import sys
-import sysconfig
 from pathlib import Path
 
 import pytest
@@ -54,8 +50,8 @@ def test_every_extern_c_declaration_has_a_signature():
 
 
 def test_entry_raises_on_a_cpu_tensor_before_loading_the_library(monkeypatch):
-    monkeypatch.setattr(_cuda, "_launch_module", None)
-    monkeypatch.setattr(_cuda, "launch_module", lambda: pytest.fail("a CPU tensor must not load the library"))
+    monkeypatch.setattr(_cuda, "_library", None)
+    monkeypatch.setattr(_cuda, "library", lambda: pytest.fail("a CPU tensor must not load the library"))
     entry = _cuda.Entry("demux_tiny")
     x = torch.ones(8, 128)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -77,7 +73,7 @@ torch.cuda.init = refuse
 from demuxalot_tpu_torch.ops import _cuda
 from demuxalot_tpu_torch.experiments import gather_forms, gather_operand
 assert not torch.cuda.is_initialized()
-assert _cuda._library is None and _cuda._launch_module is None and _cuda._build is None
+assert _cuda._library is None and _cuda._build is None
 assert gather_forms._take_along_axis._fn is None and gather_operand._tiny._fn is None
 print("ok")
 """
@@ -85,67 +81,61 @@ print("ok")
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
-_STUBS = r"""
-#include <stdint.h>
-// each folds its arguments into the status it returns
-extern "C" int demux_take_along_axis(const float* table, int64_t n_rows, int64_t n_cols, const int32_t* idx,
-                                     int64_t rows_out, int64_t cols_out, int axis, float* out, int fused_check,
-                                     int device, void* stream) {
-    const uint64_t p = (uint64_t)(uintptr_t)table ^ ((uint64_t)(uintptr_t)idx >> 1) ^ ((uint64_t)(uintptr_t)out >> 2) ^
-                       ((uint64_t)(uintptr_t)stream >> 3);
-    return (int)(p % 1000003 + (uint64_t)(n_rows * 3 + n_cols * 5 + rows_out * 7 + cols_out * 11 + axis * 13 +
-                                          fused_check * 17 + device * 19));
-}
-extern "C" int demux_tiny(const float* x, int64_t n, float* out, int device, void* stream) {
-    const uint64_t p = (uint64_t)(uintptr_t)x ^ ((uint64_t)(uintptr_t)out >> 1) ^ ((uint64_t)(uintptr_t)stream >> 2);
-    return (int)(p % 1000003 + (uint64_t)(n * 3 + device * 5));
-}
-"""
+class _OnCard:
+    """A stand-in for a CUDA tensor on card ``index``: all ``Entry`` reads of the tensor it launches on."""
+
+    def __init__(self, index: int):
+        self.index = index
+
+    def get_device(self) -> int:
+        return self.index
 
 
-@pytest.fixture(scope="module")
-def launch_stub(tmp_path_factory):
-    """csrc/launch.cu built by g++ as the module demux_launch, over stub entries."""
-    gxx = shutil.which("g++")
-    include = sysconfig.get_paths()["include"]
-    if gxx is None or not Path(include, "Python.h").exists():
-        pytest.skip("needs g++ and Python's headers")
-    tmp = tmp_path_factory.mktemp("launch")
-    (tmp / "stubs.cpp").write_text(_STUBS)
-    target = tmp / "demux_launch.so"
-    subprocess.run([gxx, "-shared", "-fPIC", "-O1", "-std=c++17", "-I", include, "-x", "c++",
-                    str(_cuda.CSRC_DIR / "launch.cu"), str(tmp / "stubs.cpp"), "-o", str(target)],
-                   check=True, capture_output=True, timeout=300)
-    loader = importlib.machinery.ExtensionFileLoader(_cuda.LAUNCH_MODULE, str(target))
-    module = importlib.util.module_from_spec(importlib.util.spec_from_file_location(_cuda.LAUNCH_MODULE,
-                                                                                    str(target), loader=loader))
-    loader.exec_module(module)
-    return module
+class _Library:
+    """A stand-in kernel library: each entry records its arguments and returns ``status``."""
+
+    def __init__(self, status: int = 0):
+        self.status, self.calls, self.loads = status, [], 0
+
+    def __getattr__(self, name):
+        self.loads += 1
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.status
+        return entry
 
 
-def _fold(*pointers):
-    p = 0
-    for shift, pointer in enumerate(pointers):
-        p ^= pointer >> shift
-    return p % 1000003
+def _stand_in(monkeypatch, status: int = 0) -> _Library:
+    lib = _Library(status)
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    # the raw stream handle of card i: a made-up pointer that names the card
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0x7F00_0000_0000 + index,
+                        raising=False)
+    return lib
 
 
-def test_launch_module_passes_each_argument_in_order(launch_stub):
-    table, idx, out, stream = 0x7F12_3456_7000, 0x7F12_0000_1230, 0x7E00_0000_0040, 0x5A5A_5A5A_5A5A
-    assert launch_stub.demux_take_along_axis(table, 8192, 128, idx, 4096, 128, 1, out, 1, 3, stream) == (
-        _fold(table, idx, out, stream) + 8192 * 3 + 128 * 5 + 4096 * 7 + 128 * 11 + 13 + 17 + 3 * 19)
-    x = 0x7F00_DEAD_BEE0
-    # n * 3 overflows the status's 32 bits: 3 << 33 wraps to 0
-    assert launch_stub.demux_tiny(x, 1 << 33, out, 2, stream) == _fold(x, out, stream) + 10
+@pytest.mark.parametrize("index", [0, 3])
+@pytest.mark.parametrize("name, args", [("demux_tiny", (0x7F12_3456_7000, 1024, 0x7E00_0000_0040)),
+                                        ("demux_take_along_axis", (0x7F12_3456_7000, 8192, 128, 0x7F12_0000_1230,
+                                                                   4096, 128, 1, 0x7E00_0000_0040))])
+def test_entry_passes_its_arguments_then_the_device_and_the_stream(monkeypatch, name, args, index):
+    lib = _stand_in(monkeypatch)
+    entry = _cuda.Entry(name)
+    entry(_OnCard(index), *args)
+    assert lib.calls == [(name, (*args, index, 0x7F00_0000_0000 + index))]
+    assert len(args) + 2 == len(_cuda._SIGNATURES[name]), "the C arguments, then the device and the stream"
 
 
-@pytest.mark.parametrize("name, args, error", [
-    ("demux_tiny", (1, 2, 3, 4), TypeError),  # one argument short
-    ("demux_tiny", (1, 2, 3, 4, 5, 6), TypeError),
-    ("demux_tiny", (1, 2, 3, 1 << 31, 5), OverflowError),  # a device index past a C int
-    ("demux_tiny", (1, 2.5, 3, 4, 5), TypeError),
-    ("demux_take_along_axis", (1, 2, 3, 4, 5, 6, 7, 8, 9, 10), TypeError),
-])
-def test_launch_module_refuses_malformed_arguments(launch_stub, name, args, error):
-    with pytest.raises(error):
-        getattr(launch_stub, name)(*args)
+def test_entry_resolves_its_function_once(monkeypatch):
+    lib = _stand_in(monkeypatch)
+    entry = _cuda.Entry("demux_tiny")
+    for _ in range(5):
+        entry(_OnCard(0), 1, 2, 3)
+    assert lib.loads == 1 and len(lib.calls) == 5
+
+
+def test_entry_raises_on_a_failed_launch(monkeypatch):
+    _stand_in(monkeypatch, status=700)  # cudaErrorIllegalAddress
+    with pytest.raises(RuntimeError, match="demux_tiny: CUDA launch failed with cudaError_t 700"):
+        _cuda.Entry("demux_tiny")(_OnCard(0), 1, 2, 3)
