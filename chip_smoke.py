@@ -12,7 +12,9 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
 2. build: nvcc builds ``demuxalot_tpu_torch/csrc/*.cu`` while g++ builds
    the BAM scanner and the host ops (``demuxalot_tpu_torch.native``);
    seconds of each and ptxas' registers/spills per kernel (no kernel may
-   spill);
+   spill), the split and group kernels' registers by instantiation, the
+   E-step's hot loop and split (2,2)'s instruction mix per term from
+   cuobjdump's SASS (split's kernels must hold HGMMA and no HMMA);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at edge shapes (the E-step logits-only and with its fused softmax, with
    and without prior logits), the padding no-op, barcodes that span several
@@ -99,7 +101,8 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
 10. the E-step variants (``experiments.folded_estep``, ``split_estep``,
    ``group_estep``). (a) Each kernel against its plain version at edge
    shapes: donors 2, 7, 32, 64 (2,080 columns), prior 0.25, two barcodes
-   in three without calls and one of 1,200; folded with and without the
+   in three without calls, one of 1,200 and barcodes at the tiles' edges
+   (1, 31, 33, 63, 64, 65 and 129 calls); folded with and without the
    log, split at the harness's five word pairs (all twelve at 7 and 64
    donors), group at G 4 and 8 with 0-2 words; two runs bit-equal, and 999
    padding calls leaving every kernel's logits bit-equal. (b) The A/B of
@@ -167,10 +170,13 @@ and 11b-d;
 function they compute, with their band CSRs in ``layout_bytes``; the
 E-step's ``ms`` is its fused call, logits and posteriors, as the EM loop
 and predict make it; the gathers' ``ms`` is the TPU bench's table; the
-variants' bound is the E-step's own, with their U bytes in
-``layout_bytes`` and their logs in ``log_count``, split's ``ms`` at (2,2),
-group's at G 4; the streams' ``ms`` at step 512 with every step in
-``by_step``, take_along_axis's at form D2 with every form in ``by_form``,
+variants' bound is ``utils.profiling.VariantRoofline``'s, the E-step's
+terms over U with the logs the function needs (``log_count``) at the MUFU
+rate and split's dense bf16 products on the tensor cores, their U bytes in
+``layout_bytes``, split's ``ms`` at (2,2), group's at G 4, each other
+setting with its bound in ``by_pair`` and ``by_group``; the streams'
+``ms`` at step 512 with every step in ``by_step``, take_along_axis's at
+form D2 with every form in ``by_form``,
 the tiny kernel's with the gather-operand stages in ``stages_ms``;
 take_along_axis and tiny carry ``graph_ms``, ``host_us`` and the library
 call's ``library_graph_ms`` and ``library_host_us``, with the bytes their
@@ -181,9 +187,11 @@ the line before it is nvidia-smi's name and power limit; the last line is
 ``python3 chip_smoke.py --parent DIR`` runs only the comparison of this
 tree with the one under ``DIR`` (an unpacked older commit): phases 1-2,
 then each tree's E-step and softmax, M-step and EM iteration at the bench
-shape, as its EM loop runs them, and its take_along_axis at form D2 and
-tiny at [8, 128], eagerly (100 calls) and in a CUDA graph's replay, in its
-own process, in turns (parent, this tree, this tree, parent).
+shape, as its EM loop runs them, its take_along_axis at form D2 and tiny
+at [8, 128], eagerly (100 calls) and in a CUDA graph's replay, and its
+split E-step at (2,2) and (0,0) and group E-step at G 4 with 2 words at
+phase 10b's shape, in its own process, in turns (parent, this tree, this
+tree, parent).
 """
 from __future__ import annotations
 
@@ -313,16 +321,72 @@ def phase_build() -> None:
     result = _cuda.build()
     _cuda.library()
     say("build", seconds=seconds, library=result.path.name)
+    # C7519: ptxas put a warpgroup.arrive before a wgmma that reads registers (split.cu); counted, not printed
     for line in result.log.splitlines():
-        if any(key in line for key in ("Compiling entry", "registers", "spill")):
+        if any(key in line for key in ("Compiling entry", "registers", "spill")) and "C7519" not in line:
             print("  ptxas: " + line.strip(), flush=True)
     spills = [line.strip() for line in result.log.splitlines()
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     require(not spills, f"kernels spill registers: {spills}")
+    say("build", variant_registers=_variant_registers(result.log),
+        injected_warpgroup_arrives=result.log.count("C7519"))
     cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
-    if cuobjdump.is_file():
-        sass = subprocess.run([str(cuobjdump), "-sass", str(result.path)], capture_output=True, text=True).stdout
-        say("build", estep_hot_loop=_estep_hot_loops(sass))
+    require(cuobjdump.is_file(), f"{cuobjdump} reads the kernels' SASS")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(result.path)], capture_output=True, text=True).stdout
+    say("build", estep_hot_loop=_estep_hot_loops(sass))
+    split = _split_sass(sass)
+    say("build", split_hot_loop=split)
+    require(split["HGMMA"] > 0 and split["HMMA"] == 0,
+            f"split.cu's kernels must run on wgmma (HGMMA {split['HGMMA']}) and not mma.sync (HMMA {split['HMMA']})")
+
+
+def _variant_registers(log: str) -> dict:
+    """{kernel: registers} of split.cu's and group.cu's kernels, from ptxas' report (the template arguments
+    in the mangled name: split's exp_words, sc_words, MMA steps; group's words, mode, fold, chunked, vec)."""
+    import re
+
+    found, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\S*?((?:split|split_f32|group)_kernel)I(\S*?)EEv", line)
+        if entry is not None:
+            name = entry.group(1) + "<" + ",".join(re.findall(r"L[ib](\d+)E", entry.group(2) + "E")) + ">"
+            continue
+        used = re.search(r"Used (\d+) registers", line)
+        if used is not None and name is not None:
+            found[name] = int(used.group(1))
+            name = None
+    return found
+
+
+def _split_sass(sass: str) -> dict:
+    """split.cu's kernels in cuobjdump's SASS: their HGMMA and HMMA counts, and the instruction mix per term of
+    the (2,2) kernel at two MMA steps (the harness's pair at 32 donors): the stretch from its first log2 to the
+    running sums' store after its last, over the log2 count (one per term)."""
+    import collections
+    import re
+
+    counts = {"HGMMA": 0, "HMMA": 0}
+    per_term = {}
+    for function in re.split(r"\n\s+Function : ", sass)[1:]:
+        header = function.splitlines()[0]
+        if "split" not in header:
+            continue
+        full = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", function)
+        kinds = collections.Counter(op.split(".")[0] for op in full)
+        counts["HGMMA"] += kinds["HGMMA"]
+        counts["HMMA"] += kinds["HMMA"]
+        if "split_kernelILi2ELi2ELi2E" not in header:
+            continue
+        logs = [i for i, op in enumerate(full) if op == "MUFU.LG2"]
+        if not logs:
+            continue
+        end = next((i for i in range(logs[-1], len(full)) if full[i].startswith("STS")), len(full) - 1)
+        kinds = collections.Counter(op.split(".")[0] for op in full[logs[0]: end + 1])
+        terms = len(logs)
+        per_term = {"terms": terms, "instructions": round(sum(kinds.values()) / terms, 3),
+                    **{k: round(kinds[k] / terms, 3) for k in ("MUFU", "F2FP", "FADD", "FMUL", "IMAD", "LOP3",
+                                                               "BRA", "ISETP")}}
+    return {**counts, "per_term_22": per_term}
 
 
 def _estep_hot_loops(sass: str) -> dict:
@@ -1700,17 +1764,23 @@ def _variant_kernels() -> dict:
     return {"folded_logits": folded_logits, "split_logits": split_logits, "group_logits": group_logits}
 
 
+# barcode: calls of phase 10a's tile edges (split's 64-call and group's 32-call tiles), on barcodes the base
+# inputs leave empty
+VARIANT_EDGE_CALLS = {2: 1, 4: 31, 5: 33, 7: 63, 8: 64, 10: 65, 11: 129}
+
+
 def _variant_inputs(n_donors: int, pad: int = 0) -> dict:
-    """:func:`_estep_inputs` at the variants' prior (calls on every third barcode) plus 1,200 calls of barcode 1;
-    ``pad`` q = 1 calls after each barcode's real calls."""
+    """:func:`_estep_inputs` at the variants' prior (calls on every third barcode) plus 1,200 calls of barcode 1
+    and the tile edges of ``VARIANT_EDGE_CALLS``; ``pad`` q = 1 calls after each barcode's real calls."""
     from demuxalot_tpu_torch.experiments.estep_variants import DOUBLET_PRIOR as VARIANT_PRIOR
 
     p = _estep_inputs(n_donors, VARIANT_PRIOR, seed=n_donors)
     rng = np.random.RandomState(n_donors + 100)
     n_variants = len(p["variant2snp"])
-    vid = np.concatenate([p["vid"], rng.randint(0, n_variants, 1200).astype(np.int32)])
-    q = np.concatenate([p["q"], (rng.rand(1200) * 0.5).astype(np.float32), np.ones(pad, np.float32)])
-    cb = np.concatenate([p["cb"], np.ones(1200, np.int32), rng.randint(0, p["n_barcodes"], pad).astype(np.int32)])
+    extra = np.concatenate([np.ones(1200, np.int32)] + [np.full(n, b, np.int32) for b, n in VARIANT_EDGE_CALLS.items()])
+    vid = np.concatenate([p["vid"], rng.randint(0, n_variants, len(extra)).astype(np.int32)])
+    q = np.concatenate([p["q"], (rng.rand(len(extra)) * 0.5).astype(np.float32), np.ones(pad, np.float32)])
+    cb = np.concatenate([p["cb"], extra, rng.randint(0, p["n_barcodes"], pad).astype(np.int32)])
     vid = np.concatenate([vid, rng.randint(0, n_variants, pad).astype(np.int32)])
     order = np.argsort(cb, kind="stable")
     return dict(p, cb=cb[order], vid=vid[order], q=q[order])
@@ -1741,7 +1811,7 @@ def phase_variant_kernels() -> None:
 
     cuda = torch.device("cuda")
     every_pair = [(e, s) for e in range(MAX_EXP_WORDS + 1) for s in range(MAX_SC_WORDS + 1)]
-    # 64 donors: 2,080 columns, no multiple of the MMA's or the staging tile's; 7: the MMA's K padded
+    # 64 donors: 2,080 columns, 33 column tiles of 64 in three ranges; 7: the MMA's K padded
     for n_donors in (2, 7, 32, 64):
         p = _variant_inputs(n_donors)
         gprob, estep = _estep_tensors(p, cuda)
@@ -1776,7 +1846,6 @@ def phase_variants(card: str) -> dict:
     from demuxalot_tpu_torch.experiments import group_estep as GE
     from demuxalot_tpu_torch.experiments import split_estep as SE
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
-    from demuxalot_tpu_torch.utils.profiling import Roofline
 
     cuda = torch.device("cuda")
     counted = {"estep_logits": estep_logits, **_variant_kernels()}
@@ -1814,44 +1883,76 @@ def phase_variants(card: str) -> dict:
         require(torch.equal(got.argmax(1), want.argmax(1)), f"harness-shape {name}: same argmax as plain")
         plain_ms[name] = _time_ms(plain, repeats=2)
     del u, ug
-    # the bound is the function's own, the E-step's; the variants' extra logs and U bytes stand beside it
-    bound = Roofline(n_calls=ab["n_calls"], n_donors=ab["n_donors"], n_pseudogenotypes=ab["n_pg"],
-                     n_barcodes=ab["n_barcodes"], n_variants=ab["n_variants"])
+    bounds = _variant_bounds(w, ab)
     say("variants", stage="kernels vs plain, harness shape", card=card, max_abs_err=errors, plain_ms=plain_ms,
-        bound_ms=bound.speed_of_light_s() * 1e3, bound_by=bound.bound_by())
-    return {"ab": ab, "launches": launches, "errors": errors, "plain_ms": plain_ms, "bound": bound}
+        bound_ms={name: b.speed_of_light_s() * 1e3 for name, b in bounds.items()},
+        bound_by={name: b.bound_by() for name, b in bounds.items()},
+        log_count={name: b.log_count for name, b in bounds.items()})
+    return {"ab": ab, "launches": launches, "errors": errors, "plain_ms": plain_ms, "bounds": bounds}
+
+
+def _variant_bounds(w, ab: dict) -> dict:
+    """{A/B name: VariantRoofline} of phase 10b's variants: the E-step's terms over the calls each reads, U's
+    bytes, the logs the function needs (a log per term where each is rounded to bf16 words: split with
+    sc_words >= 1, group at 1 word; else one per 8 calls or per group) and split's dense bf16 products."""
+    from demuxalot_tpu_torch.experiments.estep_variants import GROUP_WORDS
+    from demuxalot_tpu_torch.experiments.split_estep import HARNESS_PAIRS
+    from demuxalot_tpu_torch.utils.profiling import VariantRoofline, logs_needed
+
+    n_pg, n_donors = ab["n_pg"], ab["n_donors"]
+    counts = w.estep.row_ptr.diff().cpu().numpy()
+
+    def bound(n_calls, u_bytes, counts, per, exp_words=0):
+        return VariantRoofline(n_calls=n_calls, n_donors=n_donors, n_pseudogenotypes=n_pg,
+                               n_barcodes=ab["n_barcodes"], n_variants=ab["n_variants"], u_bytes=u_bytes,
+                               log_count=logs_needed(counts, n_pg, per),
+                               tensor_flop=2 * exp_words * n_donors * n_pg * n_calls)
+
+    bounds = {"folded": bound(ab["n_calls"], ab["u_bytes"], counts, 8)}
+    for e, sc in HARNESS_PAIRS:
+        bounds[f"split_{e}{sc}"] = bound(ab["n_calls"], ab["u_bytes"], counts, 1 if sc else 8, e)
+    for g, calls in w.groups.items():
+        layout = ab["groups"][g]
+        per = 1 if GROUP_WORDS == 1 else min(g, 8)
+        bounds[f"group_G{g}"] = bound(layout["n_calls"], layout["u_bytes"],
+                                      calls.operands.row_ptr.diff().cpu().numpy(), per)
+    return bounds
 
 
 def _variant_entries(variants: dict, launches) -> list:
     """The kernels line's entries of phase 10's three kernels; ``launches(name)`` gives their launch fields."""
     # the E-step variants at the JAX harnesses' shape (phase 10b-c): split's ms at (2,2), the pair that meets
-    # the posterior bar, group's at G 4 (TC 512), 2 words; the other settings beside them
+    # the posterior bar, group's at G 4 (TC 512), 2 words; the other settings beside them, each with its bound
     v = variants
     entries = []
-    ab, bound = v["ab"], v["bound"]
+    ab, bounds = v["ab"], v["bounds"]
     mean = lambda step: ab["ms"][step]["mean"]  # noqa: E731
+    bound_ms = lambda step: bounds[step].speed_of_light_s() * 1e3  # noqa: E731
     by_kernel = {
-        "folded_logits": ("folded", "benchmarks/exp_estep.py:40", ab["u_bytes"], ab["log_count"],
+        "folded_logits": ("folded", "benchmarks/exp_estep.py:40", ab["u_bytes"],
                           {"fold_calls_ms": mean("fold_calls"), "fold_and_folded_ms": mean("fold_and_folded")}),
-        "split_logits": ("split_22", "benchmarks/exp_split.py:62", ab["u_bytes"], ab["log_count"],
-                         {"by_pair": {name[6:]: {"ms": mean(name), **ab["checks"][name]}
+        "split_logits": ("split_22", "benchmarks/exp_split.py:62", ab["u_bytes"],
+                         {"by_pair": {name[6:]: {"ms": mean(name), "bound_ms": bound_ms(name),
+                                                 "share_of_bound": bound_ms(name) / mean(name),
+                                                 "log_count": bounds[name].log_count, **ab["checks"][name]}
                                       for name in ab["checks"] if name.startswith("split_")}}),
         "group_logits": ("group_G4", "benchmarks/exp_group.py:123", ab["groups"][4]["u_bytes"],
-                         ab["groups"][4]["log_count"],
                          {"by_group": {g: {"ms": mean(f"group_G{g}"), "n_calls": x["n_calls"],
+                                           "bound_ms": bound_ms(f"group_G{g}"),
+                                           "share_of_bound": bound_ms(f"group_G{g}") / mean(f"group_G{g}"),
                                            **ab["checks"][f"group_G{g}"]} for g, x in ab["groups"].items()}}),
     }
-    for name, (step, replaces, layout_bytes, log_count, extra) in by_kernel.items():
+    for name, (step, replaces, layout_bytes, extra) in by_kernel.items():
         ms = mean(step)
         entries.append({
             "name": name, "route": "cuda", "source": f"demuxalot_tpu_torch/csrc/{name.split('_')[0]}.cu",
             "replaces": replaces, **launches(name), "max_abs_err": v["errors"][name],
             "posterior_max_abs_err": ab["checks"][step]["posterior_max_abs_err"], "ms": ms,
-            "plain_ms": v["plain_ms"][name], "bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by(),
-            "share_of_bound": bound.speed_of_light_s() * 1e3 / ms, "library_ms": None,
+            "plain_ms": v["plain_ms"][name], "bound_ms": bound_ms(step), "bound_by": bounds[step].bound_by(),
+            "share_of_bound": bound_ms(step) / ms, "library_ms": None,
             "library_ms_reason": "no single PyTorch call computes it", "mainline_ms": mean("estep_logits"),
-            "mainline_fused_ms": mean("estep_fused"), "layout_bytes": layout_bytes, "log_count": log_count,
-            **extra})
+            "mainline_fused_ms": mean("estep_fused"), "layout_bytes": layout_bytes,
+            "log_count": bounds[step].log_count, **extra})
     return entries
 
 
@@ -2250,7 +2351,24 @@ def steps_ms() -> dict:
                                                                   run.n_genotypes, 2.0)) for _ in range(3)],
             "m_step_ms": [_time_ms(m_step) for _ in range(3)],
             "em_iteration_ms": [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)],
-            **_launch_bound_ms(cuda)}
+            **_launch_bound_ms(cuda), **_variant_steps_ms(cuda)}
+
+
+def _variant_steps_ms(cuda) -> dict:
+    """split at (2,2) and (0,0) and group at G 4 with 2 words, at the E-step variants' harness shape (phase
+    10b), of the package on sys.path: three samples each."""
+    from demuxalot_tpu_torch.experiments import estep_variants as EV
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    from demuxalot_tpu_torch.experiments import group_estep as GE
+    from demuxalot_tpu_torch.experiments import split_estep as SE
+
+    w = EV.variants_workload(cuda, groups=(4,))
+    u, calls = FE.fold_calls(w.genotype_prob, w.estep), w.groups[4]
+    ug = FE.fold_calls(w.genotype_prob, calls)
+    runs = {"split_22_ms": lambda: SE.split_logits(u, w.operands, 2, 2),
+            "split_00_ms": lambda: SE.split_logits(u, w.operands, 0, 0),
+            "group_G4_ms": lambda: GE.group_logits(ug, calls, EV.GROUP_WORDS)}
+    return {name: [_time_ms(run) for _ in range(3)] for name, run in runs.items()}
 
 
 def _launch_bound_ms(cuda) -> dict:
@@ -2285,7 +2403,7 @@ def compare_with_parent(parent: Path, card: str) -> None:
     mean = lambda key, which: sum(sum(r[key]) / len(r[key]) for r in samples[which]) / 2  # noqa: E731
     say("parent", card=card, **{key: {w: mean(key, w) for w in samples} for key in (
         "estep_softmax_ms", "estep_ms", "mstep_addition_ms", "m_step_ms", "em_iteration_ms", "take_along_axis_ms",
-        "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms")})
+        "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms", "split_22_ms", "split_00_ms", "group_G4_ms")})
 
 
 def main() -> int:

@@ -1,14 +1,14 @@
 // Bounds checks of the kernels' index inputs, for Hopper (sm_90a).
 //
-// The E-step and M-step entry points run these small kernels on the same
-// stream just before their main kernel, so an out-of-range index or a
-// malformed CSR traps before anything reads through it. They are separate
+// Entry points run these small kernels on the same stream just before their
+// main kernel, so an out-of-range index or a malformed CSR traps before
+// anything reads through it; the M-step's operands and the split and group
+// E-steps' are checked once instead, when they are built. They are separate
 // kernels because a __trap inside the hot kernels cost the E-step 3-11% of
 // its time on the H100 wherever it sat (the branch keeps the compiler from
 // batching the loads around it); here they cost one read of each index
 // array, which stays in L2 for the main kernel.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -73,9 +73,8 @@ unsigned int blocks_for(int64_t n) {
 
 }  // namespace
 
-// Host launchers used by likelihood.cu, mstep.cu, banded.cu, gather.cu, folded.cu, split.cu
-// and group.cu;
-// each returns cudaGetLastError().
+// Host launchers used by likelihood.cu, mstep.cu, banded.cu, gather.cu and folded.cu, and by
+// demux_variant_check below; each returns cudaGetLastError().
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream) {
     if (n > 0) check_index_kernel<<<blocks_for(n), kThreads, 0, stream>>>(idx, n, limit);
     return (int)cudaGetLastError();
@@ -104,4 +103,22 @@ int demux_check_banded_index(const int32_t* idx, const int64_t* band_ptr, const 
         check_banded_index_kernel<<<grid, kThreads, 0, stream>>>(idx, band_ptr, edges, n_rows, cap);
     }
     return (int)cudaGetLastError();
+}
+
+// The split and group E-steps' operands, checked once when they are built (experiments/folded_estep.py:
+// variant_operands, group_estep.py:group_layout): row_ptr a CSR over n_calls, every pair in [0, n_donors),
+// and the group kernel's tile schedule (null for split) as demux_check_schedule takes it.
+extern "C" int demux_variant_check(const int64_t* row_ptr, int64_t n_barcodes, int64_t n_calls, const int32_t* pairs,
+                                   int n_pg, int n_donors, const int32_t* schedule, int n_passes, int entry,
+                                   int device, void* stream) {
+    if (n_barcodes < 0 || n_pg <= 0 || n_donors <= 0 || n_passes < 0 || entry <= 4) return (int)cudaErrorInvalidValue;
+    const demux::DeviceGuard guard(device);
+    if (guard.status() != 0) return guard.status();
+    cudaStream_t s = (cudaStream_t)stream;
+    int status;
+    if ((status = demux_check_csr(row_ptr, n_barcodes, n_calls, s)) != 0) return status;
+    if ((status = demux_check_index(pairs, 2 * (int64_t)n_pg, n_donors, s)) != 0) return status;
+    if (schedule == nullptr) return 0;
+    return demux_check_schedule(schedule, (int64_t)n_passes * demux::kWarpSize * entry, entry, (n_donors + 3) / 4,
+                                n_pg, s);
 }

@@ -24,6 +24,8 @@ at 32 donors.
 The wrapper launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors; anything else raises. ``.launches`` counts launches. The
 three variant modules share :class:`VariantOperands` and the checks here;
+:func:`variant_operands` checks the barcode CSR and the pairs once on a
+card (:class:`CheckedOperands`, which ``split_estep`` requires);
 ``python -m demuxalot_tpu_torch.experiments.folded_estep [--device cpu]``
 runs the A/B of :mod:`.estep_variants` for this kernel alone.
 """
@@ -37,7 +39,7 @@ import torch
 
 from ..ops import _cuda
 from ..ops.likelihood import DEFAULT_CALL_CHUNK
-from ..ops.likelihood_kernel import EStepOperands, _check
+from ..ops.likelihood_kernel import ENTRY, EStepOperands, _check
 
 
 class VariantOperands(NamedTuple):
@@ -69,10 +71,31 @@ def column_pairs(mixing: np.ndarray) -> np.ndarray:
     return np.stack([first, last]).astype(np.int32)
 
 
-def variant_operands(estep: EStepOperands) -> VariantOperands:
-    """The mainline's operands as the variants read them (the pairs are found on the host, once)."""
+class CheckedOperands(VariantOperands):
+    """Variant operands that :func:`variant_operands` built and checked; ``_replace`` returns unchecked ones."""
+
+    __slots__ = ()
+
+    def _replace(self, **fields) -> VariantOperands:
+        return VariantOperands(*self)._replace(**fields)
+
+
+def check_on_card(row_ptr: torch.Tensor, n_calls: int, pairs: torch.Tensor, n_donors: int,
+                  schedule=None) -> None:
+    """On a card: the barcode CSR over ``n_calls``, every pair in ``[0, n_donors)`` and the group kernel's
+    tile ``schedule`` (``csrc/checks.cu``'s kernels trap on a bad index); nothing on the CPU."""
+    if row_ptr.device.type != "cuda":
+        return
+    n_passes = 0 if schedule is None else schedule.shape[0]
+    _check_variant(row_ptr, row_ptr.data_ptr(), row_ptr.shape[0] - 1, n_calls, pairs.data_ptr(), pairs.shape[1],
+                   n_donors, 0 if schedule is None else schedule.data_ptr(), n_passes, ENTRY)
+
+
+def variant_operands(estep: EStepOperands) -> CheckedOperands:
+    """The mainline's operands as the variants read them, checked once (the pairs are found on the host)."""
     pairs = torch.from_numpy(column_pairs(estep.mixing.cpu().numpy())).to(estep.mixing.device)
-    return VariantOperands(estep.penalties, estep.mixing, pairs, estep.row_ptr, estep.cb)
+    check_on_card(estep.row_ptr, estep.cb.shape[0], pairs, estep.mixing.shape[0])
+    return CheckedOperands(estep.penalties, estep.mixing, pairs, estep.row_ptr, estep.cb)
 
 
 def fold_calls(genotype_prob: torch.Tensor, calls) -> torch.Tensor:
@@ -164,6 +187,7 @@ def folded_logits(u: torch.Tensor, operands: VariantOperands, *, use_log: bool =
 
 
 folded_logits.launches = 0
+_check_variant = _cuda.Entry("demux_variant_check")
 
 
 def main(argv=None) -> int:

@@ -94,12 +94,17 @@ _SIGNATURES = {
     "demux_split_logits": (
         _vp, _i64, _i32, _vp, _i64,  # u, n_calls, n_donors, row_ptr, n_barcodes
         _vp, _vp, _i32, _vp,  # pairs, penalties, n_pg, logits
-        _i32, _i32, _vp,  # exp_words, sc_words, stream
+        _i32, _i32, _i32, _vp,  # exp_words, sc_words, device, stream
     ),
     "demux_group_logits": (
         _vp, _i64, _i32, _vp, _i64, _i32,  # u, n_calls, n_donors, row_ptr, n_barcodes, group
-        _vp, _vp, _i32, _vp,  # pairs, penalties, n_pg, logits
-        _i32, _i32, _vp,  # n_words, use_log, stream
+        _vp, _i32, _vp, _i32, _vp,  # schedule, n_passes, penalties, n_pg, logits
+        _i32, _i32, _i32, _vp,  # n_words, use_log, device, stream
+    ),
+    "demux_variant_check": (
+        _vp, _i64, _i64, _vp,  # row_ptr, n_barcodes, n_calls, pairs
+        _i32, _i32, _vp, _i32, _i32,  # n_pg, n_donors, schedule (or null), n_passes, entry
+        _i32, _vp,  # device, stream
     ),
     "demux_stream_sum": (
         _vp, _i64, _i64, _i64,  # x, ld, step_offset, n_steps

@@ -9,7 +9,7 @@ from .encoding import (
 )
 from .files import as_str
 from .lookup import FeatureLookup
-from .profiling import GatherRoofline, MStepRoofline, Roofline, StreamRoofline, device_trace
+from .profiling import GatherRoofline, MStepRoofline, Roofline, StreamRoofline, VariantRoofline, device_trace
 from .summary import _compute_qualities, compute_qualities, summarize_counted_SNPs
 from .timing import Timer
 
@@ -28,6 +28,7 @@ __all__ = [
     "MStepRoofline",
     "Roofline",
     "StreamRoofline",
+    "VariantRoofline",
     "Timer",
     "as_str",
     "base_lookup",

@@ -6,11 +6,17 @@ records a ``torch.profiler`` trace, and :class:`Roofline` (E-step),
 kernel_gather``, ``gather_forms``) and :class:`StreamRoofline`
 (``experiments.dma_pattern``, ``gather_operand``'s tiny kernel) give the least time one NVIDIA H100 could take for a
 kernel's work, the larger of its bytes over the HBM rate and its FP32
-operations over the FP32 rate. Bytes count each input read once and each
-output written once, whatever the kernel reads again; operations count
-what these inputs need. The default rates are the published peaks of the
-H100 SXM at its 700 W limit (3.35 TB/s of HBM, 67 TFLOP/s in FP32 outside
-the tensor cores); a card set below 700 W runs slower.
+operations over the FP32 rate; :class:`VariantRoofline` (the E-step
+variants, ``experiments.folded_estep``, ``split_estep``, ``group_estep``)
+adds their logs over the MUFU rate and split's dense bf16 products over
+the tensor cores' rate. Bytes count each input read once and each output
+written once, whatever the kernel reads again; operations count what these
+inputs need. The default rates are the published peaks of the H100 SXM at
+its 700 W limit (3.35 TB/s of HBM and 67 TFLOP/s in FP32 outside the
+tensor cores, 989 TFLOP/s dense bf16 on them: NVIDIA's H100 data sheet;
+16 MUFU log2 results a clock per SM: the CUDA C++ Programming Guide's
+throughput table for compute capability 9.0, at the data sheet's 132 SMs
+and 1,980 MHz boost clock); a card set below 700 W runs slower.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ from dataclasses import dataclass
 
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS_PER_S = 67e12
+H100_BF16_DENSE_FLOPS_PER_S = 989e12
+H100_MUFU_LOGS_PER_S = 16 * 132 * 1.98e9  # 4.18e12 log2 results a second
 
 
 @contextmanager
@@ -198,3 +206,48 @@ class StreamRoofline(_Bound):
 
     def operations(self) -> int:
         return self.n_operations
+
+
+def logs_needed(counts, n_columns: int, per: int) -> int:
+    """Logs an E-step variant needs: for each barcode of ``counts`` calls, one log per ``per`` calls (1: a
+    log per term; 8: the product of 8 arguments, U >= 1e-4, stays a normal float), for each column."""
+    return n_columns * sum(-(-int(c) // per) for c in counts)
+
+
+@dataclass
+class VariantRoofline(Roofline):
+    """Speed of light of an E-step variant (``csrc/folded.cu``, ``split.cu``, ``group.cu``).
+
+    The E-step's bytes and operations (:class:`Roofline`) over the folded
+    calls U: ``u_bytes`` (U read once) in place of the calls' ids, ``q`` and
+    the genotype table, and per call only the columns' work (U is folded
+    already). Two terms more, as operations: ``log_count`` logs at the MUFU
+    rate, as many as the function needs (:func:`logs_needed`: a log per term
+    where each call's log is rounded to bf16 words, split with ``sc_words``
+    >= 1 and group at 1 word; otherwise one per group or per 8 calls); and
+    ``tensor_flop``, split's dense bf16 products (2·words·D·PG per call), at
+    the tensor cores' rate.
+    """
+
+    u_bytes: int = 0
+    log_count: int = 0
+    tensor_flop: int = 0
+    mufu_logs_per_s: float = H100_MUFU_LOGS_PER_S
+    bf16_flops_per_s: float = H100_BF16_DENSE_FLOPS_PER_S
+
+    def bytes_moved(self) -> int:
+        rows = 1 + self.softmax + self.prior
+        return self.u_bytes + 8 * (self.n_barcodes + 1) + 12 * self.n_pseudogenotypes + \
+            4 * self.n_barcodes * self.n_pseudogenotypes * rows
+
+    def operations(self) -> int:
+        per_cell = 5 * self.softmax + self.prior
+        return self.n_calls * 4 * self.n_pseudogenotypes + per_cell * self.n_barcodes * self.n_pseudogenotypes
+
+    def estimate_seconds(self) -> dict:
+        return {**super().estimate_seconds(), "mufu_bound_s": self.log_count / self.mufu_logs_per_s,
+                "tensor_bound_s": self.tensor_flop / self.bf16_flops_per_s}
+
+    def bound_by(self) -> str:
+        bounds = self.estimate_seconds()
+        return "bytes" if bounds["hbm_bound_s"] >= max(bounds.values()) else "operations"

@@ -237,6 +237,13 @@ if {kernel!r}.startswith("take"):
     idx = torch.randint(0, table.shape[axis], (64, 32), dtype=torch.int32, device="cuda")
     idx[40, 7] = table.shape[axis] if axis == 0 else -1  # one past the last row; a negative column
     launch = lambda: GF.take_along_axis(table, idx, axis)
+elif {kernel!r} == "variants":
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    gprob, operands = estep_args(estep_problem(n_donors=4), "cuda")
+    bad = operands.row_ptr.clone()
+    bad[-1] = len(operands.cb) + 1  # a barcode's calls past the last call
+    # the operands' constructor checks the CSR once, so no split kernel ever reads through it
+    launch = lambda: FE.variant_operands(operands._replace(row_ptr=bad))
 elif {kernel!r} == "estep":
     gprob, operands = estep_args(estep_problem(n_donors=4), "cuda")
     bad = operands.vid.clone()
@@ -257,11 +264,11 @@ except Exception as error:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["estep", "mstep", "take_axis0", "take_axis1"])
+@pytest.mark.parametrize("kernel", ["estep", "mstep", "variants", "take_axis0", "take_axis1"])
 def test_gpu_out_of_range_index_traps(kernel):
     """An index past its table traps in checks.cu before the main kernel reads it: the E-step's at each
-    launch, the M-step's when its operands are built. take_along_axis tests each index inside its gather
-    and traps there.
+    launch, the M-step's and the split and group E-steps' when their operands are built. take_along_axis
+    tests each index inside its gather and traps there.
 
     A trap ends the process's CUDA context, so the launch runs in a child process.
     """
@@ -699,17 +706,23 @@ def test_gpu_banded_out_of_range_index_traps(kernel):
 # the E-step variants: folded, split-word (tensor cores), group-G
 # ---------------------------------------------------------------------------
 
+# barcode: calls at the kernels' tile edges (split's 64-call and group's 32-call tiles), on barcodes that
+# _variant_problem otherwise leaves empty
+VARIANT_EDGE_CALLS = {2: 1, 4: 31, 5: 33, 7: 63, 8: 64, 10: 65, 11: 129}
+
+
 def _variant_problem(n_donors, pad=0, seed=0):
-    """Calls on every third of 60 barcodes, barcode 1 with 1,200 of its own; ``pad`` q = 1 calls after each
-    barcode's real calls."""
+    """Calls on every third of 60 barcodes, barcode 1 with 1,200 of its own, the tile edges of
+    VARIANT_EDGE_CALLS; ``pad`` q = 1 calls after each barcode's real calls."""
     gprob, vid, cb, q, n_barcodes, _, _ = estep_problem(seed=seed, n_donors=n_donors, n_barcodes=60, n_calls=3000)
     rng = np.random.RandomState(seed + 1)
     n_variants = gprob.shape[0]
-    vid = np.concatenate([vid, rng.randint(0, n_variants, 1200).astype(np.int32)])
-    q = np.concatenate([q, (rng.rand(1200) * 0.5).astype(np.float32), np.ones(pad, np.float32)])
+    extra = np.concatenate([np.ones(1200, np.int32)] + [np.full(n, b, np.int32) for b, n in VARIANT_EDGE_CALLS.items()])
+    vid = np.concatenate([vid, rng.randint(0, n_variants, len(extra)).astype(np.int32)])
+    q = np.concatenate([q, (rng.rand(len(extra)) * 0.5).astype(np.float32), np.ones(pad, np.float32)])
     # the padding is drawn last, so the real calls are the same with and without it
     vid = np.concatenate([vid, rng.randint(0, n_variants, pad).astype(np.int32)])
-    cb = np.concatenate([cb // 3 * 3, np.ones(1200, np.int32), rng.randint(0, n_barcodes, pad).astype(np.int32)])
+    cb = np.concatenate([cb // 3 * 3, extra, rng.randint(0, n_barcodes, pad).astype(np.int32)])
     order = np.argsort(cb, kind="stable")
     return gprob, vid[order], cb[order], q[order], n_barcodes
 
@@ -754,9 +767,10 @@ def test_gpu_folded_matches_plain(n_donors, use_log):
 @pytest.mark.gpu
 @pytest.mark.parametrize("sc_words", [0, 1, 2])
 @pytest.mark.parametrize("exp_words", [0, 1, 2, 3])
-@pytest.mark.parametrize("n_donors", [2, 7, 32, 64])
+@pytest.mark.parametrize("n_donors", [2, 7, 32, 48, 64])
 def test_gpu_split_matches_plain(n_donors, exp_words, sc_words):
-    """64 donors give 2,080 columns, not a multiple of the 32-column staging tile; 7 donors pad the MMA's K."""
+    """64 donors give 2,080 columns (33 column tiles of 64, in several column ranges), 48 donors pad the
+    donor axis to 64 and 7 pad the MMA's K; barcodes of 1,200 calls and at the 64-call tile's edges."""
     _need_card()
     from demuxalot_tpu_torch.experiments import folded_estep as FE
     from demuxalot_tpu_torch.experiments import split_estep as SE
@@ -768,9 +782,11 @@ def test_gpu_split_matches_plain(n_donors, exp_words, sc_words):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_words", [0, 1, 2])
-@pytest.mark.parametrize("group", [4, 8])
+@pytest.mark.parametrize("group", [1, 4, 8, 16])
 @pytest.mark.parametrize("n_donors", [2, 7, 32, 64])
 def test_gpu_group_matches_plain(n_donors, group, n_words):
+    """G 1, 4 and 8 take a log per group, 16 the sum of four logs of 4 calls per group; barcodes of
+    1,200 calls and at the 32-call tile's edges; 64 donors walk the calls in several schedule passes."""
     _need_card()
     from demuxalot_tpu_torch.experiments import folded_estep as FE
     from demuxalot_tpu_torch.experiments import group_estep as GE
@@ -779,6 +795,38 @@ def test_gpu_group_matches_plain(n_donors, group, n_words):
     calls = GE.group_layout(estep, group)
     u = FE.fold_calls(gprob, calls)
     _held_to_plain(GE.group_logits, GE.group_logits_plain, u, calls, n_words)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_words", [0, 1, 2])
+def test_gpu_group_without_log_matches_plain(n_words):
+    """The nolog ablation: each group's arguments summed."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    from demuxalot_tpu_torch.experiments import group_estep as GE
+
+    gprob, estep = _variant_args(32)
+    calls = GE.group_layout(estep, 4)
+    _held_to_plain(GE.group_logits, GE.group_logits_plain, FE.fold_calls(gprob, calls), calls, n_words,
+                   use_log=False, argmax=False)
+
+
+@pytest.mark.gpu
+def test_gpu_variant_kernels_refuse_unchecked_operands():
+    """Split and group launch only on operands their constructors checked; a replaced CSR drops the check."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    from demuxalot_tpu_torch.experiments import group_estep as GE
+    from demuxalot_tpu_torch.experiments import split_estep as SE
+
+    gprob, estep = _variant_args(7)
+    u, ops = FE.fold_calls(gprob, estep), FE.variant_operands(estep)
+    for unchecked in (FE.VariantOperands(*ops), ops._replace(row_ptr=ops.row_ptr.clone())):
+        with pytest.raises(ValueError, match="variant_operands"):
+            SE.split_logits(u, unchecked, 2, 2)
+    calls = GE.group_layout(estep, 4)
+    with pytest.raises(ValueError, match="group_layout"):
+        GE.group_logits(FE.fold_calls(gprob, calls), calls._replace(built=None), 2)
 
 
 @pytest.mark.gpu

@@ -23,7 +23,7 @@ from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, convert
 from demuxalot_tpu_torch.models import demux as demux_mod
 from demuxalot_tpu_torch.ops import packing as P
 from demuxalot_tpu_torch.utils import (
-    FeatureLookup, GatherRoofline, MStepRoofline, Roofline, Timer, compute_qualities, device_trace,
+    FeatureLookup, GatherRoofline, MStepRoofline, Roofline, Timer, VariantRoofline, compute_qualities, device_trace,
     summarize_counted_SNPs,
 )
 from oracle import iterate_pseudogenotypes, oracle_barcode_logits, oracle_probs_from_betas
@@ -293,6 +293,33 @@ def test_banded_and_gather_roofline_counts():
     total = GatherRoofline(n_idx=1 << 20, n_rows_touched=8192, width=64, rows_out=False)
     assert total.bytes_moved() == 4 * (1 << 20) + 4 * 8192 * 64 + 4
     assert total.operations() == (1 << 20) * 64
+
+
+def test_variant_roofline_counts_logs_and_products():
+    """The E-step variants at the JAX harnesses' shape (65,536 barcodes x 64 calls, 32 donors, 528 columns):
+    U's bytes in place of the calls and the genotype table; a log per term (split with rounded logs, group at
+    1 word) sets 0.53 ms on the MUFU unit; one per 8 calls or per group of 4 leaves U's bytes to bound it;
+    split's products count on the tensor cores."""
+    from demuxalot_tpu_torch.utils.profiling import logs_needed
+
+    n_calls, counts = 4_194_304, [64] * 65_536
+    shape = dict(n_calls=n_calls, n_donors=32, n_pseudogenotypes=528, n_barcodes=65_536)
+    assert logs_needed(counts, 528, 1) == n_calls * 528 == 2_214_592_512
+    assert logs_needed(counts, 528, 8) == n_calls // 8 * 528
+    assert logs_needed([0, 1, 7, 8, 9, 64], 10, 8) == 10 * (0 + 1 + 1 + 1 + 2 + 8)
+    u_bytes = n_calls * 32 * 4
+    split = VariantRoofline(**shape, u_bytes=u_bytes, log_count=logs_needed(counts, 528, 1),
+                            tensor_flop=2 * 2 * 32 * 528 * n_calls)
+    assert split.bytes_moved() == u_bytes + 8 * 65_537 + 12 * 528 + 4 * 65_536 * 528
+    assert split.operations() == n_calls * 4 * 528
+    bounds = split.estimate_seconds()
+    assert bounds["mufu_bound_s"] == 2_214_592_512 / (16 * 132 * 1.98e9)
+    assert bounds["tensor_bound_s"] == 2 * 2 * 32 * 528 * n_calls / 989e12
+    assert split.speed_of_light_s() == bounds["mufu_bound_s"] and split.bound_by() == "operations"
+    assert 0.529 < split.speed_of_light_s() * 1e3 < 0.530
+    group = VariantRoofline(**shape, u_bytes=u_bytes, log_count=logs_needed(counts, 528, 4))
+    assert group.bound_by() == "bytes" and group.speed_of_light_s() == group.bytes_moved() / 3.35e12
+    assert group.estimate_seconds()["tensor_bound_s"] == 0
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
