@@ -13,6 +13,7 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    the BAM scanner and the host ops (``demuxalot_tpu_torch.native``);
    seconds of each and ptxas' registers/spills per kernel (no kernel may
    spill), the split and group kernels' registers by instantiation, the
+   folded and gather-sum kernels' registers and spills, the
    E-step's hot loop and split (2,2)'s instruction mix per term from
    cuobjdump's SASS (split's kernels must hold HGMMA and no HMMA);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
@@ -85,8 +86,11 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    some empty; donors 2, 7, 32, 64; padding calls), the banded M-step (2
    and 40 bands, p = 1 and 2, variants with no calls, a band too large for
    shared memory), the row gather and the gather-sum against their plain
-   versions (the gather bit for bit, the sum against float64), two runs
-   bit-equal. (b) The A/B at
+   versions (the gather bit for bit, the sum against float64: on chip and
+   through L2, W = 7, steps of 1 and 1001, a table of exactly 3 slices and
+   one with its last slice short), two runs bit-equal, and an index out of
+   range trapping inside the gather-sum on each path, in child processes.
+   (b) The A/B at
    the JAX harness's shape (``benchmarks/exp_inkernel_gather_estep.py:28-32``:
    32 donors, 65,536 SNPs, 65,536 barcodes x 64 calls, prior 0.35, 12
    variant bands; learnt-beta G from one EM step of the mainline kernels):
@@ -97,12 +101,14 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    gather kernels with 1,048,576 uniform indices (seed 0) on [8192, 64]
    (the TPU bench's table), [131,072, 32] (the bench G) and [800,000, 32];
    (b)-(d) are the experiments' path, counted. Then the plain versions'
-   and the library calls' times on the same inputs;
+   and the library calls' times on the same inputs, and the gather-sum's
+   CUDA-graph replay beside ``index_select(...).sum()``'s, in turns, with
+   its plan's path, index passes and shared memory;
 10. the E-step variants (``experiments.folded_estep``, ``split_estep``,
    ``group_estep``). (a) Each kernel against its plain version at edge
    shapes: donors 2, 7, 32, 64 (2,080 columns), prior 0.25, two barcodes
    in three without calls, one of 1,200 and barcodes at the tiles' edges
-   (1, 31, 33, 63, 64, 65 and 129 calls); folded with and without the
+   (1, 7, 9, 31, 33, 63, 64, 65 and 129 calls); folded with and without the
    log, split at the harness's five word pairs (all twelve at 7 and 64
    donors), group at G 4 and 8 with 0-2 words; two runs bit-equal, and 999
    padding calls leaving every kernel's logits bit-equal. (b) The A/B of
@@ -131,7 +137,7 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    harness's shape (570.4 MB; widths and rows of 512, 2,048, 8,192 and
    32,768), each failing above 1.05 of its bytes' bound. (c) The forms probe
    (A-E2 on ``main``'s inputs) and the microbench (4,194,304 indices on
-   [8192, 32]: ``index_select(...).sum()``, ``gather_sum``,
+   [8192, 32]: ``index_select(...).sum()``, ``gather_sum`` with its path,
    ``cluster_gather_sum``). (d) The gather-operand stages of phases 1-3 at
    the harness's shape (post [131,072, 528], 10,652,672 gathered columns,
    the mainline E-step on 131,072 barcodes x 72 calls over 327,680 SNPs);
@@ -169,7 +175,8 @@ and 11b-d;
 ``ms`` times, from ``utils.profiling``, the banded kernels' that of the
 function they compute, with their band CSRs in ``layout_bytes``; the
 E-step's ``ms`` is its fused call, logits and posteriors, as the EM loop
-and predict make it; the gathers' ``ms`` is the TPU bench's table; the
+and predict make it; the gathers' ``ms`` is the TPU bench's table, the gather-sum's with its
+``graph_ms`` and plan beside it; the
 variants' bound is ``utils.profiling.VariantRoofline``'s, the E-step's
 terms over U with the logs the function needs (``log_count``) at the MUFU
 rate and split's dense bf16 products on the tensor cores, their U bytes in
@@ -188,10 +195,11 @@ the line before it is nvidia-smi's name and power limit; the last line is
 tree with the one under ``DIR`` (an unpacked older commit): phases 1-2,
 then each tree's E-step and softmax, M-step and EM iteration at the bench
 shape, as its EM loop runs them, its take_along_axis at form D2 and tiny
-at [8, 128], eagerly (100 calls) and in a CUDA graph's replay, and its
-split E-step at (2,2) and (0,0) and group E-step at G 4 with 2 words at
-phase 10b's shape, in its own process, in turns (parent, this tree, this
-tree, parent).
+at [8, 128] and gather_sum at [8192, 64] (1,048,576 indices), eagerly
+(100 calls) and in a CUDA graph's replay, and its split E-step at (2,2)
+and (0,0), group E-step at G 4 with 2 words and folded E-step at phase
+10b's shape, in its own process, in turns (parent, this tree, this tree,
+parent).
 """
 from __future__ import annotations
 
@@ -328,8 +336,12 @@ def phase_build() -> None:
     spills = [line.strip() for line in result.log.splitlines()
               if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
     require(not spills, f"kernels spill registers: {spills}")
-    say("build", variant_registers=_variant_registers(result.log),
+    kernels = _ptxas_kernels(result.log)
+    say("build", variant_registers={name: k["registers"] for name, k in kernels.items()
+                                    if name.startswith(("split", "group"))},
         injected_warpgroup_arrives=result.log.count("C7519"))
+    say("build", folded_and_gather_sum={name: k for name, k in kernels.items()
+                                        if name.startswith(("folded", "gather_sum"))})
     cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
     require(cuobjdump.is_file(), f"{cuobjdump} reads the kernels' SASS")
     sass = subprocess.run([str(cuobjdump), "-sass", str(result.path)], capture_output=True, text=True).stdout
@@ -340,20 +352,30 @@ def phase_build() -> None:
             f"split.cu's kernels must run on wgmma (HGMMA {split['HGMMA']}) and not mma.sync (HMMA {split['HMMA']})")
 
 
-def _variant_registers(log: str) -> dict:
-    """{kernel: registers} of split.cu's and group.cu's kernels, from ptxas' report (the template arguments
-    in the mangled name: split's exp_words, sc_words, MMA steps; group's words, mode, fold, chunked, vec)."""
+def _ptxas_kernels(log: str) -> dict:
+    """{kernel<template arguments>: {registers, spill_stores, spill_loads}} of the variants' and the gather-sum's
+    kernels, from ptxas' report: split.cu's (exp_words, sc_words, MMA steps), the register-tile kernels of
+    group.cu and folded.cu (words, mode, fold, chunked, vec; folded's are the ragged ones) and gather.cu's
+    gather-sums (the L2 path's floats per load; the on-chip path's floats per row read, 16-byte index loads)."""
     import re
 
-    found, name = {}, None
+    found, name, spills = {}, None, (0, 0)
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '\S*?((?:split|split_f32|group)_kernel)I(\S*?)EEv", line)
+        entry = re.search(r"Compiling entry function '\S*?((?:split_f32|split|tiles|gather_sum_chip|gather_sum)_kernel)"
+                          r"I(\S*?)EEv", line)
         if entry is not None:
-            name = entry.group(1) + "<" + ",".join(re.findall(r"L[ib](\d+)E", entry.group(2) + "E")) + ">"
+            kind, args = entry.group(1), re.findall(r"L[ib](\d+)E", entry.group(2) + "E")
+            if kind == "tiles_kernel":
+                kind = "folded_kernel" if args[5] == "1" else "group_kernel"
+                args = args[:5]
+            name, spills = f"{kind}<{','.join(args)}>", (0, 0)
             continue
+        spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spilled is not None and name is not None:
+            spills = (int(spilled.group(1)), int(spilled.group(2)))
         used = re.search(r"Used (\d+) registers", line)
         if used is not None and name is not None:
-            found[name] = int(used.group(1))
+            found[name] = {"registers": int(used.group(1)), "spill_stores": spills[0], "spill_loads": spills[1]}
             name = None
     return found
 
@@ -1650,18 +1672,67 @@ def phase_gather_kernels() -> None:
     require(raised is not None and "shared memory" in raised, "a band past shared memory raises")
     say("experiments", kernel="mstep_addition_banded", band_past_shared_memory=raised)
 
-    for shape, n_idx in (((8192, 64), 1 << 20), ((1000, 7), 100_003)):
+    # the gather-sum on both paths of its plan: on chip ([8192, 64]; W = 7 with 4-byte row reads; steps of 1 and
+    # 1001, 4-byte index loads; 3 slices of the most rows a slice holds at W = 64 on an H100, and 5 rows fewer,
+    # the last slice short) and through L2 ([131,072, 32])
+    full = KG.slice_rows(64, KG.H100_SHARED_OPTIN)
+    for shape, n_idx, step in (((8192, 64), 1 << 20, KG.STEP), ((1000, 7), 100_003, KG.STEP), ((1000, 7), 5000, 1),
+                               ((8192, 64), 50_001, 1001), ((3 * full, 64), 200_000, KG.STEP),
+                               ((3 * full - 5, 64), 200_000, KG.STEP), ((131_072, 32), 100_003, KG.STEP)):
         table, idx = KG.rate_inputs(*shape, n_idx=n_idx, seed=1, device=cuda)
         require(torch.equal(KG.gather_rows(table, idx), KG.gather_rows_plain(table, idx)),
                 f"gather_rows {shape}: bit-equal to table[idx]")
-        got, plain = float(KG.gather_sum(table, idx)), float(KG.gather_sum_plain(table, idx))
+        got, plain = float(KG.gather_sum(table, idx, step)), float(KG.gather_sum_plain(table, idx, step))
+        path = KG.gather_sum.last_path
         exact = float(table.double()[idx.long()].sum())
         for name, value in (("kernel", got), ("plain", plain)):
             require(abs(value - exact) <= GATHER_SUM_RTOL * abs(exact),
-                    f"gather_sum {shape} {name}: {value} vs {exact}")
-        require(float(KG.gather_sum(table, idx)) == got, f"gather_sum {shape}: two runs bit-equal")
-        say("experiments", kernel="gather_rows, gather_sum", table=list(shape), n_idx=n_idx, rows="bit-equal",
+                    f"gather_sum {shape} step {step} {name}: {value} vs {exact}")
+        require(float(KG.gather_sum(table, idx, step)) == got, f"gather_sum {shape} step {step}: two runs bit-equal")
+        say("experiments", kernel="gather_rows, gather_sum", table=list(shape), n_idx=n_idx, step=step, path=path,
+            plan=KG.plan_for(table, idx, step)._asdict(), rows="bit-equal",
             sum_rel_err=abs(got - exact) / abs(exact), plain_sum_rel_err=abs(plain - exact) / abs(exact))
+    # an index past the table (on chip) or negative (through L2) traps inside the gather-sum: a trap ends the
+    # process's CUDA context, so each runs in a child process, both at once
+    trapped = _trapping_children(_GATHER_TRAP, ("chip", "l2"))
+    say("experiments", kernel="gather_sum", index_out_of_range=trapped)
+
+
+# a child process: gather_sum with one index past the table (on chip) or negative (through L2) must trap
+_GATHER_TRAP = """
+import sys
+import torch
+sys.path.insert(0, {repo!r})
+from demuxalot_tpu_torch.experiments import kernel_gather as KG
+shape, bad = ((100, 8), 100) if {case!r} == "chip" else ((131_072, 32), -1)
+table, idx = KG.rate_inputs(*shape, n_idx=10_000, device="cuda")
+idx[5000] = bad
+try:
+    KG.gather_sum(table, idx)
+    torch.cuda.synchronize()
+except Exception as error:
+    print(type(error).__name__, error)
+    sys.exit(3)
+print("no trap", KG.gather_sum.last_path)
+"""
+
+
+def _trapping_children(script: str, cases) -> dict:
+    """Runs ``script`` formatted with each case in a child process, all at once; each must exit 3 (its launch
+    trapped). {case: the child's last line}."""
+    children = {case: subprocess.Popen([sys.executable, "-c", script.format(repo=str(REPO), case=case)],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for case in cases}
+    trapped = {}
+    for case, child in children.items():
+        try:
+            out, _ = child.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            out, _ = child.communicate()
+        require(child.returncode == 3, f"{case}: an index out of range did not trap (exit {child.returncode}): "
+                                       f"{out[-2000:]}")
+        trapped[str(case)] = out.strip().splitlines()[-1][:160]
+    return trapped
 
 
 def phase_experiments(card: str) -> dict:
@@ -1735,6 +1806,19 @@ def phase_experiments(card: str) -> dict:
             entry[name] = {**result[name], "plain_ms": _time_ms(plain), "library_ms": _time_ms(library),
                            "bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by()}
             entry[name]["share_of_bound"] = entry[name]["bound_ms"] / entry[name]["ms_mean"]
+        # the gather-sum's device time without the host's: 100 calls in a CUDA graph's replay, each on its own
+        # copy of the inputs (copies filling twice the L2), beside index_select(...).sum()'s, in turns; its
+        # plan's path, index passes and shared memory, the layout's cost beside the bound
+        g = entry["gather_sum"]
+        graphed = ((lambda t, i: KG.gather_sum(t, i)), (table, idx))
+        g["graph_ms"], g["library_graph_ms"] = _in_turns(
+            graphed, ((lambda t, i: torch.index_select(t, 0, i).sum()), (table, idx)), lambda c: _graph_ms(*c))
+        plan, (copies, nbytes) = KG.plan_for(table, idx), _rotation(*graphed)
+        g.update(path=result["gather_sum_path"], graph_ns_per_row=g["graph_ms"] * 1e6 / result["n_idx"],
+                 graph_share_of_bound=g["bound_ms"] / g["graph_ms"], graph_input_mb=copies * nbytes / 1e6,
+                 index_passes=plan.index_passes, index_pass_bytes=4 * result["n_idx"] * plan.index_passes,
+                 slices=plan.n_slices if plan.path == "chip" else 0, blocks_per_slice=plan.replicas,
+                 shared_bytes_per_block=plan.shared_bytes)
         # the kernels against their plain versions on the same inputs: the rows bit for bit, the sums
         # (f32, in other orders) within GATHER_SUM_RTOL of the float64 sum, as each is of it
         require(bool(torch.equal(KG.gather_rows(table, idx), KG.gather_rows_plain(table, idx))),
@@ -1764,9 +1848,9 @@ def _variant_kernels() -> dict:
     return {"folded_logits": folded_logits, "split_logits": split_logits, "group_logits": group_logits}
 
 
-# barcode: calls of phase 10a's tile edges (split's 64-call and group's 32-call tiles), on barcodes the base
-# inputs leave empty
-VARIANT_EDGE_CALLS = {2: 1, 4: 31, 5: 33, 7: 63, 8: 64, 10: 65, 11: 129}
+# barcode: calls of phase 10a's tile edges (split's 64-call and the register tiles' 32-call tiles, folded's
+# products of 8), on barcodes the base inputs leave empty
+VARIANT_EDGE_CALLS = {2: 1, 4: 31, 5: 33, 7: 63, 8: 64, 10: 65, 11: 129, 13: 7, 14: 9}
 
 
 def _variant_inputs(n_donors: int, pad: int = 0) -> dict:
@@ -1976,7 +2060,7 @@ import sys
 import torch
 sys.path.insert(0, {repo!r})
 from demuxalot_tpu_torch.experiments import gather_forms as GF
-axis = {axis!r}
+axis = {case!r}
 table = torch.rand(64, 32, device="cuda")
 idx = torch.randint(0, table.shape[axis], (64, 32), dtype=torch.int32, device="cuda")
 idx[40, 7] = table.shape[axis] if axis == 0 else -1
@@ -2060,20 +2144,8 @@ def phase_last_kernels() -> None:
         side_stream_and_graph="bit-equal", table_past_cluster=raised)
     # an index out of range traps inside the gather: a trap ends the process's CUDA context, so each axis runs
     # in a child process, both at once
-    children = {axis: subprocess.Popen(
-        [sys.executable, "-c", _TAKE_TRAP.format(repo=str(REPO), axis=axis)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for axis in (0, 1)}
-    trapped = {}
-    for axis, child in children.items():
-        try:
-            out, _ = child.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            child.kill()
-            out, _ = child.communicate()
-        require(child.returncode == 3, f"take_along_axis axis {axis}: an index out of range did not trap "
-                                       f"(exit {child.returncode}): {out[-2000:]}")
-        trapped[f"axis {axis}"] = out.strip().splitlines()[-1][:160]
-    say("last", kernel="take_along_axis", index_out_of_range=trapped)
+    trapped = _trapping_children(_TAKE_TRAP, (0, 1))
+    say("last", kernel="take_along_axis", index_out_of_range={f"axis {axis}": v for axis, v in trapped.items()})
 
 
 def phase_last(card: str) -> dict:
@@ -2292,7 +2364,8 @@ def _last_entries(last: dict, launches) -> list:
         "plain_ms": e["cluster_gather_sum"]["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
         "share_of_bound": b["bound_ms"] / b["cluster_gather_sum"]["ms_mean"],
         "library_ms": b["library"]["ms_mean"], "ns_per_row": b["cluster_gather_sum"]["ns_per_row"],
-        "gather_sum_ms": b["gather_sum"]["ms_mean"], "table": b["table"], "n_idx": b["n_idx"]})
+        "gather_sum_ms": b["gather_sum"]["ms_mean"], "gather_sum_path": b["gather_sum"]["path"], "table": b["table"],
+        "n_idx": b["n_idx"]})
     tiny, bound = e["tiny"], e["tiny"]["bound"]
     entries.append({
         "name": "tiny", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/tiny.cu",
@@ -2355,8 +2428,8 @@ def steps_ms() -> dict:
 
 
 def _variant_steps_ms(cuda) -> dict:
-    """split at (2,2) and (0,0) and group at G 4 with 2 words, at the E-step variants' harness shape (phase
-    10b), of the package on sys.path: three samples each."""
+    """split at (2,2) and (0,0), group at G 4 with 2 words and folded, at the E-step variants' harness shape
+    (phase 10b), of the package on sys.path: three samples each."""
     from demuxalot_tpu_torch.experiments import estep_variants as EV
     from demuxalot_tpu_torch.experiments import folded_estep as FE
     from demuxalot_tpu_torch.experiments import group_estep as GE
@@ -2367,25 +2440,31 @@ def _variant_steps_ms(cuda) -> dict:
     ug = FE.fold_calls(w.genotype_prob, calls)
     runs = {"split_22_ms": lambda: SE.split_logits(u, w.operands, 2, 2),
             "split_00_ms": lambda: SE.split_logits(u, w.operands, 0, 0),
-            "group_G4_ms": lambda: GE.group_logits(ug, calls, EV.GROUP_WORDS)}
+            "group_G4_ms": lambda: GE.group_logits(ug, calls, EV.GROUP_WORDS),
+            "folded_ms": lambda: FE.folded_logits(u, w.operands)}
     return {name: [_time_ms(run) for _ in range(3)] for name, run in runs.items()}
 
 
 def _launch_bound_ms(cuda) -> dict:
-    """take_along_axis at form D2 and tiny at [8, 128] of the package on sys.path: eager (100 calls between
-    events) and graph-replay ms per call (``_graph_ms``: copies of the inputs past L2), three samples each."""
+    """take_along_axis at form D2, tiny at [8, 128] and gather_sum at [8192, 64] x 1,048,576 indices of the
+    package on sys.path: eager (100 calls between events) and graph-replay ms per call (``_graph_ms``: copies of
+    the inputs past L2), three samples each."""
     from demuxalot_tpu_torch.experiments import gather_forms as GF
     from demuxalot_tpu_torch.experiments import gather_operand as GO
+    from demuxalot_tpu_torch.experiments import kernel_gather as KG
 
     table_np, idx_np, axis = GF.form_inputs(np.random.default_rng(0))["D2"]
     table, idx = torch.from_numpy(table_np).to(cuda), torch.from_numpy(idx_np).to(cuda)
     x = torch.randn(GO.TINY_SHAPE, device=cuda)
     take, tiny = (lambda: GF.take_along_axis(table, idx, axis)), (lambda: GO.tiny(x))
+    gtable, gidx = KG.rate_inputs(KG.N_ROWS, KG.WIDTH, device=cuda)
     return {"take_along_axis_ms": [_time_ms(take, repeats=100) for _ in range(3)],
             "take_along_axis_graph_ms": [_graph_ms(lambda t, i: GF.take_along_axis(t, i, axis), (table, idx))
                                          for _ in range(3)],
             "tiny_ms": [_time_ms(tiny, repeats=100) for _ in range(3)],
-            "tiny_graph_ms": [_graph_ms(GO.tiny, (x,)) for _ in range(3)]}
+            "tiny_graph_ms": [_graph_ms(GO.tiny, (x,)) for _ in range(3)],
+            "gather_sum_ms": [_time_ms(lambda: KG.gather_sum(gtable, gidx), repeats=100) for _ in range(3)],
+            "gather_sum_graph_ms": [_graph_ms(lambda t, i: KG.gather_sum(t, i), (gtable, gidx)) for _ in range(3)]}
 
 
 def compare_with_parent(parent: Path, card: str) -> None:
@@ -2403,7 +2482,8 @@ def compare_with_parent(parent: Path, card: str) -> None:
     mean = lambda key, which: sum(sum(r[key]) / len(r[key]) for r in samples[which]) / 2  # noqa: E731
     say("parent", card=card, **{key: {w: mean(key, w) for w in samples} for key in (
         "estep_softmax_ms", "estep_ms", "mstep_addition_ms", "m_step_ms", "em_iteration_ms", "take_along_axis_ms",
-        "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms", "split_22_ms", "split_00_ms", "group_G4_ms")})
+        "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms", "split_22_ms", "split_00_ms", "group_G4_ms",
+        "folded_ms", "gather_sum_ms", "gather_sum_graph_ms")})
 
 
 def main() -> int:
@@ -2534,17 +2614,22 @@ def main() -> int:
             "past_l2_ms": ab_past["ms"][step]["mean"], "past_l2_mainline_ms": ab_past["ms"][mainline]["mean"],
             "n_bands": ab["estep_bands" if step == "estep_banded" else "mstep_bands"]})
     tpu_table, *other_tables = e["gathers"]
+    # the gather-sum's graph-replay time, path and plan beside its eager time, at every table
+    sum_keys = ("path", "graph_ms", "library_graph_ms", "graph_share_of_bound", "graph_ns_per_row", "graph_input_mb",
+                "index_passes", "index_pass_bytes", "slices", "blocks_per_slice", "shared_bytes_per_block")
     for name, replaces in (("gather_rows", "benchmarks/exp_kernel_gather.py:39"),
                            ("gather_sum", "benchmarks/exp_kernel_gather.py:63")):
         g = tpu_table[name]
+        extra = (lambda x: {k: x[k] for k in sum_keys}) if name == "gather_sum" else (lambda x: {})  # noqa: E731
         kernels.append({
             "name": name, "route": "cuda", "source": "demuxalot_tpu_torch/csrc/gather.cu", "replaces": replaces,
             **launches(name), "max_abs_err": 0.0 if name == "gather_rows" else tpu_table["sum_abs_err"],
             "ms": g["ms_mean"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
             "share_of_bound": g["share_of_bound"], "library_ms": g["library_ms"], "ns_per_row": g["ns_per_row"],
-            "table": tpu_table["table"],
+            "table": tpu_table["table"], **extra(g),
             "by_table": [{"table": o["table"], "ms": o[name]["ms_mean"], "ns_per_row": o[name]["ns_per_row"],
-                          "library_ms": o[name]["library_ms"], "bound_ms": o[name]["bound_ms"]} for o in other_tables]})
+                          "library_ms": o[name]["library_ms"], "bound_ms": o[name]["bound_ms"],
+                          "share_of_bound": o[name]["share_of_bound"], **extra(o[name])} for o in other_tables]})
     kernels += _variant_entries(variants, launches)
     kernels += _last_entries(last, launches)
     print(card, flush=True)

@@ -1,7 +1,7 @@
-// Helpers shared by the kernel sources: alignment, vector loads, the
-// fixed-order block sum, and the in-order sum of per-step partials
-// (reduce.cu). Every helper sums in one fixed order, so two runs of a
-// kernel that uses them give the same bits.
+// Helpers shared by the kernel sources: alignment, the device guard,
+// cp.async, vector loads, the fixed-order block sum, and the in-order sum
+// of per-step partials (reduce.cu). Every helper sums in one fixed order, so
+// two runs of a kernel that uses them give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,6 +38,17 @@ class DeviceGuard {
     int saved_ = -1;
     int status_ = 0;
 };
+
+// one cp.async of kBytes (16 or 4) from global to shared memory; the caller commits and waits
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    if constexpr (kBytes == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+    }
+}
 
 // the sum of kW floats at p (kW = 4: one 16-byte load; kW = 1: one float)
 template <int kW>

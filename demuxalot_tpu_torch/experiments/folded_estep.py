@@ -13,26 +13,31 @@ equals the mainline E-step (``ops.likelihood_kernel``); a padding call
 [N, D], in the mainline's barcode CSR, so one call's row is one 128 B read
 at 32 donors.
 
-- :func:`folded_logits` (``csrc/folded.cu``): one warp per barcode, one
-  log per (call, column) as the TPU kernel takes, summed in call order.
-  ``use_log=False`` is the TPU file's ``nolog`` ablation: it sums the
-  arguments. The TPU kernel's ``transposed_log`` only orients its tiles, so
-  the port has no such knob. Its ``precision=DEFAULT`` ablation rounds U to
+- :func:`folded_logits` (``csrc/folded.cu``): the mainline E-step's
+  register tiles (``csrc/estep_tiles.cuh``, shared with ``group_estep``),
+  one warp per barcode, each lane the 4 × 4 and 2 × 2 tiles of donor pairs
+  of the operands' ``schedule``, and one log of the product of 8 arguments
+  in call order where the TPU kernel takes a log per (call, column); a
+  barcode's last product holds fewer real arguments (U ≥ 1e-4, so a
+  product of 8 stays a normal float). ``use_log=False`` is the TPU file's
+  ``nolog`` ablation: it sums the arguments. The TPU kernel's
+  ``transposed_log`` only orients its tiles, so the port has no such knob. Its ``precision=DEFAULT`` ablation rounds U to
   one bf16 word on both dots; the mixing values (0, ½, 1) are exact in
   bf16, so that is ``split_estep.split_logits(..., 1, 1)``.
 
 The wrapper launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors; anything else raises. ``.launches`` counts launches. The
 three variant modules share :class:`VariantOperands` and the checks here;
-:func:`variant_operands` checks the barcode CSR and the pairs once on a
-card (:class:`CheckedOperands`, which ``split_estep`` requires);
+:func:`variant_operands` builds the tile schedule and checks it, the
+barcode CSR and the pairs once on a card (:class:`CheckedOperands`, which
+the folded and split kernels require);
 ``python -m demuxalot_tpu_torch.experiments.folded_estep [--device cpu]``
 runs the A/B of :mod:`.estep_variants` for this kernel alone.
 """
 from __future__ import annotations
 
 import sys
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +55,7 @@ class VariantOperands(NamedTuple):
     pairs: torch.Tensor  # i32 [2, PG] each column's donor pair, (i, i) for a singlet (kernels)
     row_ptr: torch.Tensor  # i64 [B + 1] barcode CSR over the calls
     cb: torch.Tensor  # i32 [N] barcode of every call (plain)
+    schedule: Optional[torch.Tensor] = None  # i32 [passes, 32, 24] the pairs' tile schedule (folded kernel)
 
     @property
     def n_barcodes(self) -> int:
@@ -92,10 +98,16 @@ def check_on_card(row_ptr: torch.Tensor, n_calls: int, pairs: torch.Tensor, n_do
 
 
 def variant_operands(estep: EStepOperands) -> CheckedOperands:
-    """The mainline's operands as the variants read them, checked once (the pairs are found on the host)."""
-    pairs = torch.from_numpy(column_pairs(estep.mixing.cpu().numpy())).to(estep.mixing.device)
-    check_on_card(estep.row_ptr, estep.cb.shape[0], pairs, estep.mixing.shape[0])
-    return CheckedOperands(estep.penalties, estep.mixing, pairs, estep.row_ptr, estep.cb)
+    """The mainline's operands as the variants read them, checked once (the pairs and their tile schedule are
+    found on the host)."""
+    from .group_estep import group_schedule
+
+    pairs = column_pairs(estep.mixing.cpu().numpy())
+    device = estep.mixing.device
+    schedule = torch.from_numpy(group_schedule(pairs, estep.mixing.shape[0])).to(device)
+    pairs = torch.from_numpy(pairs).to(device)
+    check_on_card(estep.row_ptr, estep.cb.shape[0], pairs, estep.mixing.shape[0], schedule)
+    return CheckedOperands(estep.penalties, estep.mixing, pairs, estep.row_ptr, estep.cb, schedule)
 
 
 def fold_calls(genotype_prob: torch.Tensor, calls) -> torch.Tensor:
@@ -172,21 +184,20 @@ def folded_logits(u: torch.Tensor, operands: VariantOperands, *, use_log: bool =
     check_variant("folded_logits", u, operands)
     if u.device.type == "cpu":
         return folded_logits_plain(u, operands, use_log=use_log)
+    if not isinstance(operands, CheckedOperands):
+        raise ValueError("folded_logits: operands must come from variant_operands")
     o = operands
     n_pg = o.penalties.shape[0]
     logits = torch.empty((o.n_barcodes, n_pg), dtype=torch.float32, device=u.device)
     if o.n_barcodes > 0:
-        with torch.cuda.device(u.device):
-            status = _cuda.library().demux_folded_logits(
-                u.data_ptr(), u.shape[0], u.shape[1], o.row_ptr.data_ptr(), o.n_barcodes, o.pairs.data_ptr(),
-                o.penalties.data_ptr(), n_pg, logits.data_ptr(), int(use_log),
-                torch.cuda.current_stream(u.device).cuda_stream)
-        _cuda.check_launch("folded_logits", status)
+        _folded(u, u.data_ptr(), u.shape[0], u.shape[1], o.row_ptr.data_ptr(), o.n_barcodes, o.schedule.data_ptr(),
+                o.schedule.shape[0], o.penalties.data_ptr(), n_pg, logits.data_ptr(), int(use_log))
         folded_logits.launches += 1
     return logits
 
 
 folded_logits.launches = 0
+_folded = _cuda.Entry("demux_folded_logits")
 _check_variant = _cuda.Entry("demux_variant_check")
 
 

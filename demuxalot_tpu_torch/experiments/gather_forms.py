@@ -27,8 +27,9 @@ version for CPU tensors; anything else raises. ``.launches`` counts
 launches. :func:`probe_forms` runs A–E2 on the inputs ``main`` draws, in
 its order, from ``np.random.default_rng(0)``; :func:`microbench` times the
 library gather ``index_select(table, 0, idx).sum()``,
-``kernel_gather.gather_sum`` (the table in L2) and
-:func:`cluster_gather_sum` (the table on chip) at the harness's shape.
+``kernel_gather.gather_sum`` (its table on chip, a slice in each block's
+shared memory: ``path``) and :func:`cluster_gather_sum` (the table in a
+cluster's distributed shared memory) at the harness's shape.
 ``python -m demuxalot_tpu_torch.experiments.gather_forms [--device cpu]``
 prints both as JSON.
 """
@@ -227,6 +228,8 @@ def microbench(device="cuda", repeats: int = 10, n_idx: int = NIDX) -> dict:
         if abs(total - exact) > SUM_RTOL * abs(exact):
             raise RuntimeError(f"{name}: {total} vs float64 {exact}")
         result[name] = {"sum": total, "rel_err": abs(total - exact) / abs(exact), "ms": []}
+        if name == "gather_sum":
+            result[name]["path"] = gather_sum.last_path
     for name in list(runs) + list(runs)[::-1]:
         result[name]["ms"].append(time_ms(runs[name], device, repeats))
     bound = GatherRoofline(n_idx=int(idx.shape[0]), n_rows_touched=int(torch.unique(idx).numel()), width=WB,

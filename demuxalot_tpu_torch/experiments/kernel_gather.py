@@ -9,7 +9,18 @@ runs there. Kernels: ``csrc/gather.cu``.
 - :func:`gather_sum` (``_bench_kernel``, ``:63``): ``Σ_i Σ_w
   table[idx[i], w]`` as an f32 scalar, per-step partials over contiguous
   steps of ``step`` indices (the TPU kernel's ``TC``), then the partials in
-  step order.
+  step order. Where the TPU kernel holds the whole table in VMEM, the
+  card's kernel takes one of two paths by :func:`gather_plan`: on chip,
+  the table cut into S slices of whole rows, each in one block's shared
+  memory, where that costs fewer index passes than a row has floats
+  (S < W); otherwise its rows through L2. Either way each index is tested
+  against the table inside the kernel (a trap past it), and the call is
+  two launches: the sum and the in-order sum of its partials. The partials
+  and the result are the wrapper's own buffers, one pair per (indices,
+  step, index passes S or 1, card): the returned tensor is overwritten by
+  the next call with the same key (clone it to keep it), and a CUDA graph
+  can capture the call. ``.last_path`` says which path ran (``"chip"``,
+  ``"l2"``, or ``"plain"`` on the CPU).
 
 Each launches its kernel for CUDA tensors and runs its plain version for
 CPU tensors; anything else raises. ``.launches`` counts launches.
@@ -20,8 +31,11 @@ result as JSON.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +51,13 @@ N_IDX = STEP * N_STEPS
 # (131,072 variants x 32 donors, 16.8 MB, inside L2); the PMBC shape's
 # (800,000 x 32, 102.4 MB, past L2)
 RATE_TABLES = ((N_ROWS, WIDTH), (131_072, 32), (800_000, 32))
+# the on-chip gather-sum's block (csrc/gather.cu): warps, steps summed per batch, indices a warp reads at once,
+# and the shared memory beside its slice (each warp's f32 sum per step of a batch, each warp's queue of 16-bit
+# row offsets)
+CHIP_WARPS, CHIP_BATCH, CHIP_CHUNK = 32, 32, 256
+CHIP_EXTRA_BYTES = 4 * CHIP_BATCH * CHIP_WARPS + 2 * CHIP_WARPS * CHIP_CHUNK
+H100_SMS = 132
+H100_SHARED_OPTIN = 232_448  # the shared memory one H100 block may opt in to (227 KB)
 # 1M gathered rows summed in f32 land within 2.1e-7 of float64 (H100);
 # one row of N dropped or added moves the sum by about 1/N, 9.5e-7 at N = 2^20
 SUM_RTOL = 5e-7
@@ -80,29 +101,112 @@ def gather_sum_plain(table: torch.Tensor, idx: torch.Tensor, step: int = STEP) -
     return torch.stack([rows[lo: lo + step].sum() for lo in range(0, rows.shape[0], step)]).sum()
 
 
+class GatherPlan(NamedTuple):
+    """How :func:`gather_sum`'s kernel runs on a table (:func:`gather_plan`)."""
+
+    path: str  # "chip": each slice of the table in a block's shared memory; "l2": rows read through L2
+    n_slices: int  # S: slices of whole rows, each within one block's shared memory
+    rows_per_slice: int  # rows of every slice but the last, which may be short
+    replicas: int  # R: blocks per slice on chip (S x R fill the SMs); 1 on L2
+    n_steps: int
+    shared_bytes: int  # one block's shared memory on chip; 0 on L2
+
+    @property
+    def n_partials(self) -> int:
+        """Partials the kernel writes: one per (step, slice) on chip, one per step on L2."""
+        return self.n_steps * (self.n_slices if self.path == "chip" else 1)
+
+    @property
+    def index_passes(self) -> int:
+        """Times the kernel reads each index: once per slice on chip, once on L2."""
+        return self.n_slices if self.path == "chip" else 1
+
+
+def slice_rows(width: int, shared_per_block: int) -> int:
+    """The most rows of ``width`` floats one block's slice holds beside the kernel's sums and queues."""
+    return (shared_per_block - CHIP_EXTRA_BYTES) // 16 * 16 // (4 * width)
+
+
+@functools.lru_cache(maxsize=64)
+def gather_plan(n_rows: int, width: int, step: int, n_idx: int, shared_per_block: int,
+                n_sms: int = H100_SMS) -> GatherPlan:
+    """The slices, blocks and path of a gather-sum of ``n_idx`` indices in steps of ``step`` over a table
+    [n_rows, width], on a card whose blocks may hold ``shared_per_block`` bytes of shared memory.
+
+    The rule is a count of bytes per index: on chip, S index passes of 4
+    bytes each; through L2, one row of 4·W bytes. So the table goes on chip
+    when S < W. Its slices are balanced, ⌈n_rows / S⌉ rows each, the last
+    short where S does not divide the rows.
+    """
+    n_steps = -(-n_idx // step)
+    rows_fit = slice_rows(width, shared_per_block)
+    if rows_fit < 1:
+        return GatherPlan("l2", 0, 0, 1, n_steps, 0)
+    n_slices = -(-n_rows // rows_fit)
+    rows = -(-n_rows // n_slices)
+    if n_slices >= width:
+        return GatherPlan("l2", n_slices, rows, 1, n_steps, 0)
+    replicas = max(1, min(n_sms // n_slices, n_steps))
+    shared = -(-rows * width // 4) * 16 + CHIP_EXTRA_BYTES
+    return GatherPlan("chip", n_slices, rows, replicas, n_steps, shared)
+
+
+_LIMITS = {}  # card index: (shared memory a block may opt in to, SM count)
+_BUFFERS = {}  # (n_idx, step, index passes, card index): gather_sum's (partial, total)
+
+
+def _card_limits(index: int) -> tuple:
+    if index not in _LIMITS:
+        out = (ctypes.c_int32 * 2)()
+        _cuda.check_launch("demux_card_limits", _cuda.library().demux_card_limits(out, index))
+        _LIMITS[index] = (out[0], out[1])
+    return _LIMITS[index]
+
+
+def plan_for(table: torch.Tensor, idx: torch.Tensor, step: int = STEP) -> GatherPlan:
+    """The plan :func:`gather_sum` runs on these CUDA tensors, with their card's shared memory and SMs."""
+    return gather_plan(*table.shape, step, idx.shape[0], *_card_limits(table.get_device()))
+
+
+def _gather_buffers(n_idx: int, step: int, plan: GatherPlan, device: torch.device) -> tuple:
+    """(partial, total) for one (n_idx, step, index passes, card), made once; the oldest pair goes past 8."""
+    key = (n_idx, step, plan.index_passes, device.index)
+    buffers = _BUFFERS.get(key)
+    if buffers is None:
+        if len(_BUFFERS) >= 8:
+            del _BUFFERS[next(iter(_BUFFERS))]
+        buffers = _BUFFERS[key] = (torch.empty(plan.n_partials, dtype=torch.float32, device=device),
+                                   torch.empty((), dtype=torch.float32, device=device))
+    return buffers
+
+
 def gather_sum(table: torch.Tensor, idx: torch.Tensor, step: int = STEP) -> torch.Tensor:
-    """``Σ table[idx]`` as an f32 scalar tensor (0-dim); the CUDA kernel for CUDA tensors."""
+    """``Σ table[idx]`` as an f32 scalar tensor (0-dim); the CUDA kernel for CUDA tensors, into the wrapper's
+    own result buffer (see the module's docstring)."""
     _check_gather(table, idx)
     if step < 1 or idx.shape[0] < 1:
         raise ValueError("gather_sum needs step >= 1 and at least one index")
     device = table.device
     if device.type == "cpu":
+        gather_sum.last_path = "plain"
         return gather_sum_plain(table, idx, step)
     if device.type != "cuda":
         raise ValueError(f"gather_sum runs on cpu or cuda tensors, not {device}")
-    n_rows, width = table.shape
-    partial = torch.empty(-(-idx.shape[0] // step), dtype=torch.float32, device=device)
-    total = torch.empty((), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        status = _cuda.library().demux_gather_sum(
-            table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], step, partial.data_ptr(),
-            total.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    _cuda.check_launch("gather_sum", status)
+    (n_rows, width), n_idx = table.shape, idx.shape[0]
+    plan = plan_for(table, idx, step)
+    partial, total = _gather_buffers(n_idx, step, plan, device)
+    chip = plan.path == "chip"
+    _gather_sum(table, table.data_ptr(), n_rows, width, idx.data_ptr(), n_idx, step,
+                plan.rows_per_slice if chip else 0, plan.n_slices if chip else 0, plan.replicas, partial.data_ptr(),
+                total.data_ptr())
     gather_sum.launches += 1
+    gather_sum.last_path = plan.path
     return total
 
 
 gather_sum.launches = 0
+gather_sum.last_path = None
+_gather_sum = _cuda.Entry("demux_gather_sum")
 
 
 def time_ms(fn, device: torch.device, repeats: int = 10) -> float:
@@ -155,7 +259,8 @@ def run_rate(device="cuda", tables=RATE_TABLES, n_idx: int = N_IDX, seed: int = 
             fn = (lambda: gather_rows(table, idx)) if name == "gather_rows" else (lambda: gather_sum(table, idx))
             samples[name].append(time_ms(fn, device, repeats))
         result = {"table": [n_rows, width], "table_bytes": n_rows * width * 4, "n_idx": n_idx,
-                  "row_bytes": width * 4, "device": str(device), "sum": total, "float64_sum": exact}
+                  "row_bytes": width * 4, "device": str(device), "sum": total, "float64_sum": exact,
+                  "gather_sum_path": gather_sum.last_path}
         for name, ms in samples.items():
             mean = sum(ms) / len(ms)
             result[name] = {"ms": ms, "ms_mean": mean, "ns_per_row": mean * 1e6 / n_idx}

@@ -84,12 +84,14 @@ _SIGNATURES = {
     ),
     "demux_gather_sum": (
         _vp, _i64, _i32, _vp, _i64, _i64,  # table, n_rows, width, idx, n, step
-        _vp, _vp, _vp,  # partial, total, stream
+        _i32, _i32, _i32,  # rows_per_slice (0: through L2), n_slices, replicas
+        _vp, _vp, _i32, _vp,  # partial, total, device, stream
     ),
+    "demux_card_limits": (_vp, _i32),  # out (int32 [2]: shared memory a block may opt in to, SMs), device
     "demux_folded_logits": (
         _vp, _i64, _i32, _vp, _i64,  # u, n_calls, n_donors, row_ptr, n_barcodes
-        _vp, _vp, _i32, _vp,  # pairs, penalties, n_pg, logits
-        _i32, _vp,  # use_log, stream
+        _vp, _i32, _vp, _i32, _vp,  # schedule, n_passes, penalties, n_pg, logits
+        _i32, _i32, _vp,  # use_log, device, stream
     ),
     "demux_split_logits": (
         _vp, _i64, _i32, _vp, _i64,  # u, n_calls, n_donors, row_ptr, n_barcodes

@@ -168,7 +168,10 @@ class GatherRoofline(_Bound):
     distinct row; each input byte counts once, however often it is
     gathered) and the output, the gathered rows (4·N·W) or one f32.
     Operations: none for the gather, one add per gathered element for the
-    sum.
+    sum. The on-chip gather-sum reads each index once per slice of the
+    table (``kernel_gather.GatherPlan.index_passes``) and loads each slice
+    into every block that holds it: that is the layout's cost, reported
+    beside the bound (chip_smoke.py phase 9d), not counted in it.
     """
 
     n_idx: int

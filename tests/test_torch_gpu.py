@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, sim
+from demuxalot_tpu_torch.experiments.kernel_gather import H100_SHARED_OPTIN, slice_rows
 from demuxalot_tpu_torch.models import demux
 from demuxalot_tpu_torch.ops import likelihood_kernel
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
@@ -27,6 +28,10 @@ from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_
 from oracle import oracle_barcode_logits
 from torch_problems import (estep_args, estep_problem, in_order_addition, mstep_operands, mstep_problem, offset_view,
                             side_stream_and_replay, t, update_problem)
+
+
+# the most rows an on-chip gather-sum slice holds at width 64 on an H100
+FULL_SLICE = slice_rows(64, H100_SHARED_OPTIN)
 
 
 def _need_card():
@@ -644,18 +649,40 @@ def test_gpu_gather_rows_is_bit_equal(shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape, n_idx, step", [((8192, 64), 1 << 20, 4096), ((1000, 7), 10_001, 4096),
-                                                ((131_072, 32), 5000, 1)])
-def test_gpu_gather_sum_matches_float64(shape, n_idx, step):
+@pytest.mark.parametrize("shape, n_idx, step, path", [
+    ((8192, 64), 1 << 20, 4096, "chip"), ((8192, 32), 200_000, 8192, "chip"), ((1000, 7), 10_001, 4096, "chip"),
+    ((1000, 7), 5000, 1, "chip"), ((8192, 64), 50_001, 100, "chip"), ((8192, 64), 50_001, 1001, "chip"),
+    ((3 * FULL_SLICE, 64), 200_000, 4096, "chip"), ((3 * FULL_SLICE - 5, 64), 200_000, 4096, "chip"),
+    ((131_072, 32), 5000, 1, "l2"), ((131_072, 32), 100_003, 4096, "l2"), ((800_000, 32), 1 << 20, 4096, "l2"),
+    ((100, 1), 20_000, 4096, "l2")])
+def test_gpu_gather_sum_matches_float64(shape, n_idx, step, path):
+    """Both paths of the plan's rule: tables on chip (W = 7: 4-byte row reads; steps of 1, 100 and 1001: no
+    multiple of 32, 1001 none of 4, so 4-byte index loads; FULL_SLICE rows, the most a slice holds at W = 64 on
+    an H100, times 3, and 5 rows fewer: the last slice short) and through L2 (S >= W, and W = 1 whatever S)."""
     _need_card()
     from demuxalot_tpu_torch.experiments.kernel_gather import gather_sum, gather_sum_plain, rate_inputs
 
     table, idx = rate_inputs(*shape, n_idx=n_idx, seed=2)
-    got = gather_sum(table, idx, step)
+    launches = gather_sum.launches
+    got = gather_sum(table, idx, step).clone()  # the wrapper's own buffer: the next call writes it again
+    assert gather_sum.launches == launches + 1 and gather_sum.last_path == path
     exact = float(table.double()[idx.long()].sum())
     assert float(got) == pytest.approx(exact, rel=1e-5)
     assert float(gather_sum_plain(table, idx, step)) == pytest.approx(exact, rel=1e-5)
     assert torch.equal(got, gather_sum(table, idx, step))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8192, 64), (131_072, 32)])
+def test_gpu_gather_sum_on_a_side_stream_and_in_a_graph(shape):
+    """Its buffers made at the first call, the gather-sum runs on a side stream and in a CUDA graph's replay."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments.kernel_gather import gather_sum, rate_inputs
+
+    table, idx = rate_inputs(*shape, n_idx=100_000, seed=3)
+    want = gather_sum(table, idx).clone()
+    on_side, replayed = side_stream_and_replay(lambda: gather_sum(table, idx).clone())
+    assert torch.equal(on_side, want) and torch.equal(replayed, want)
 
 
 _BANDED_TRAP_SCRIPT = """
@@ -678,9 +705,13 @@ elif {kernel!r} == "mstep_banded":
     bad = operands.cb.clone()
     bad[len(bad) // 2] = 50  # band 1 of 150 barcodes holds 50: one past its last
     launch = lambda: IG.mstep_addition_banded(t(post, "cuda"), operands._replace(cb=bad), n_donors, 2.0)
-else:
-    table, idx = KG.rate_inputs(100, 8, 1000)
+elif {kernel!r} == "gather":
+    table, idx = KG.rate_inputs(100, 8, 1000)  # on chip
     idx[500] = 100
+    launch = lambda: KG.gather_sum(table, idx)
+else:
+    table, idx = KG.rate_inputs(131_072, 32, 10_000)  # through L2
+    idx[5000] = -1
     launch = lambda: KG.gather_sum(table, idx)
 try:
     launch()
@@ -692,9 +723,10 @@ except Exception as error:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["estep_banded", "mstep_banded", "gather"])
+@pytest.mark.parametrize("kernel", ["estep_banded", "mstep_banded", "gather", "gather_l2"])
 def test_gpu_banded_out_of_range_index_traps(kernel):
-    """A band-local id past its band (or an index past the table) traps in checks.cu, in a child process."""
+    """A band-local id past its band traps in checks.cu; an index past the table (or negative) traps inside
+    the gather-sum on either path. In a child process."""
     _need_card()
     tests = Path(__file__).resolve().parent
     script = _BANDED_TRAP_SCRIPT.format(paths=[str(tests.parent), str(tests)], kernel=kernel)
@@ -765,6 +797,27 @@ def test_gpu_folded_matches_plain(n_donors, use_log):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("use_log", [True, False])
+@pytest.mark.parametrize("n_donors", [7, 64])
+@pytest.mark.parametrize("calls", [1, 7, 8, 9, 31, 33, 1200])
+def test_gpu_folded_at_the_fold_edges(calls, n_donors, use_log):
+    """Every barcode with ``calls`` calls: a last product of 8 short by 7, 1 or none, a 32-call tile short or
+    one call past it, 38 tiles; 64 donors walk the calls in several schedule passes."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import folded_estep as FE
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_operands
+    from demuxalot_tpu_torch.ops.packing import csr_row_pointers
+
+    gprob, vid, _, q, _, _, _ = estep_problem(seed=calls, n_donors=n_donors, n_barcodes=40, n_calls=40 * calls)
+    cb = np.repeat(np.arange(40, dtype=np.int32), calls)
+    estep = estep_operands(n_donors, 0.25, t(csr_row_pointers(cb, 40), "cuda"), t(cb, "cuda"), t(vid, "cuda"),
+                           t(q, "cuda"))
+    gprob = t(gprob, "cuda")
+    u, ops = FE.fold_calls(gprob, estep), FE.variant_operands(estep)
+    _held_to_plain(FE.folded_logits, FE.folded_logits_plain, u, ops, use_log=use_log, argmax=use_log)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sc_words", [0, 1, 2])
 @pytest.mark.parametrize("exp_words", [0, 1, 2, 3])
 @pytest.mark.parametrize("n_donors", [2, 7, 32, 48, 64])
@@ -813,7 +866,8 @@ def test_gpu_group_without_log_matches_plain(n_words):
 
 @pytest.mark.gpu
 def test_gpu_variant_kernels_refuse_unchecked_operands():
-    """Split and group launch only on operands their constructors checked; a replaced CSR drops the check."""
+    """Folded, split and group launch only on operands their constructors checked; a replaced CSR drops the
+    check."""
     _need_card()
     from demuxalot_tpu_torch.experiments import folded_estep as FE
     from demuxalot_tpu_torch.experiments import group_estep as GE
@@ -824,6 +878,8 @@ def test_gpu_variant_kernels_refuse_unchecked_operands():
     for unchecked in (FE.VariantOperands(*ops), ops._replace(row_ptr=ops.row_ptr.clone())):
         with pytest.raises(ValueError, match="variant_operands"):
             SE.split_logits(u, unchecked, 2, 2)
+        with pytest.raises(ValueError, match="variant_operands"):
+            FE.folded_logits(u, unchecked)
     calls = GE.group_layout(estep, 4)
     with pytest.raises(ValueError, match="group_layout"):
         GE.group_logits(FE.fold_calls(gprob, calls), calls._replace(built=None), 2)

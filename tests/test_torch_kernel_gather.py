@@ -7,7 +7,10 @@
 wrapper runs its plain PyTorch version: ``gather_rows`` is held bit-equal
 to ``_take_kernel``, ``gather_sum`` to ``_bench_kernel`` over 4 steps at
 1e-6 relative and to a float64 sum. The CUDA kernels against these plain
-versions are in tests/test_torch_gpu.py.
+versions are in tests/test_torch_gpu.py. ``gather_plan``, the host's plan
+of the on-chip gather-sum, is held here to covering every row with one
+slice and every (step, slice) partial with one block, and to the path its
+rule picks at the rate runner's tables and the microbench's [8192, 32].
 """
 import json
 import sys
@@ -100,3 +103,65 @@ def test_rate_runner_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             KG.run_rate()
+
+
+H100_SHARED_OPTIN = KG.H100_SHARED_OPTIN
+FULL = KG.slice_rows(64, H100_SHARED_OPTIN)  # the most rows a slice holds at width 64 (828)
+# (n_rows, width, step, n_idx): the rate runner's tables, the microbench's (gather_forms: 4,194,304 indices on
+# [8192, 32] in steps of 8,192), width 7, single-index steps, a step no multiple of 32, a table of exactly 3
+# slices of the most rows a block holds at width 64 (FULL) and one 5 rows short of it
+PLANS = [*((r, w, KG.STEP, KG.N_IDX) for r, w in KG.RATE_TABLES), (8192, 32, 8192, 4_194_304), (1000, 7, 4096, 100_003),
+         (1000, 7, 1, 5000), (8192, 64, 100, 10_001), (3 * FULL, 64, 4096, 50_000), (3 * FULL - 5, 64, 4096, 50_000)]
+PATHS = {(8192, 64): "chip", (131_072, 32): "l2", (800_000, 32): "l2", (8192, 32): "chip", (1000, 7): "chip",
+         (3 * FULL, 64): "chip", (3 * FULL - 5, 64): "chip"}
+
+
+def _block_partials(plan: KG.GatherPlan, block: int) -> list:
+    """The partials block ``block`` of the on-chip kernel writes (csrc/gather.cu's indexing): slice ``block // R``
+    of steps r, r + R, ... (r = ``block % R``), each at ``step * S + slice``."""
+    s, r = divmod(block, plan.replicas)
+    return [t * plan.n_slices + s for t in range(r, plan.n_steps, plan.replicas)]
+
+
+@pytest.mark.parametrize("n_rows, width, step, n_idx", PLANS)
+def test_gather_plan_covers_rows_and_partials_once(n_rows, width, step, n_idx):
+    """Every row in exactly one slice, each slice within a block's shared memory, every (step, slice) partial
+    written by exactly one block, and the path the rule (S < W) picks."""
+    plan = KG.gather_plan(n_rows, width, step, n_idx, H100_SHARED_OPTIN)
+    assert plan.path == PATHS[n_rows, width]
+    assert (plan.path == "chip") == (plan.n_slices < width)
+    assert plan.n_steps == -(-n_idx // step)
+    rows = np.zeros(n_rows, np.int64)
+    for s in range(plan.n_slices):
+        lo, hi = s * plan.rows_per_slice, min((s + 1) * plan.rows_per_slice, n_rows)
+        assert hi > lo, "no slice is empty"
+        rows[lo:hi] += 1
+    assert (rows == 1).all()
+    assert plan.rows_per_slice * width * 4 + KG.CHIP_EXTRA_BYTES <= H100_SHARED_OPTIN
+    if plan.path == "l2":
+        assert plan.index_passes == 1 and plan.n_partials == plan.n_steps and plan.shared_bytes == 0
+        return
+    assert plan.index_passes == plan.n_slices and plan.shared_bytes <= H100_SHARED_OPTIN
+    assert plan.n_slices * plan.replicas <= 132 or plan.replicas == 1
+    written = np.concatenate([_block_partials(plan, b) for b in range(plan.n_slices * plan.replicas)])
+    np.testing.assert_array_equal(np.sort(written), np.arange(plan.n_partials))
+
+
+def test_gather_plan_slices_whole_tables_evenly():
+    """A table of exactly S full slices fills each; one 5 rows short keeps S, its slices ⌈rows / S⌉ and the last
+    short."""
+    exact = KG.gather_plan(3 * FULL, 64, 4096, 50_000, H100_SHARED_OPTIN)
+    short = KG.gather_plan(3 * FULL - 5, 64, 4096, 50_000, H100_SHARED_OPTIN)
+    assert (exact.n_slices, exact.rows_per_slice) == (3, FULL)
+    assert (short.n_slices, short.rows_per_slice) == (3, FULL - 1)
+    assert 0 < 3 * FULL - 5 - 2 * short.rows_per_slice < short.rows_per_slice
+    assert KG.gather_plan(3 * FULL + 1, 64, 4096, 50_000, H100_SHARED_OPTIN).n_slices == 4
+    # one row past what a block holds beside the kernel's sums and queues: no slice fits, so through L2
+    wide = (H100_SHARED_OPTIN - KG.CHIP_EXTRA_BYTES) // 4 + 4
+    assert KG.gather_plan(10, wide, 4096, 50_000, H100_SHARED_OPTIN).path == "l2"
+
+
+def test_gather_sum_records_the_plain_path_on_the_cpu():
+    table, idx = KG.rate_inputs(64, 8, 500, device="cpu")
+    KG.gather_sum(table, idx, 100)
+    assert KG.gather_sum.last_path == "plain"

@@ -71,10 +71,11 @@ def refuse(*args, **kwargs):
 torch.cuda._lazy_init = refuse
 torch.cuda.init = refuse
 from demuxalot_tpu_torch.ops import _cuda
-from demuxalot_tpu_torch.experiments import gather_forms, gather_operand
+from demuxalot_tpu_torch.experiments import folded_estep, gather_forms, gather_operand, kernel_gather
 assert not torch.cuda.is_initialized()
 assert _cuda._library is None and _cuda._build is None
 assert gather_forms._take_along_axis._fn is None and gather_operand._tiny._fn is None
+assert folded_estep._folded._fn is None and kernel_gather._gather_sum._fn is None
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=300)
@@ -118,7 +119,13 @@ def _stand_in(monkeypatch, status: int = 0) -> _Library:
 @pytest.mark.parametrize("index", [0, 3])
 @pytest.mark.parametrize("name, args", [("demux_tiny", (0x7F12_3456_7000, 1024, 0x7E00_0000_0040)),
                                         ("demux_take_along_axis", (0x7F12_3456_7000, 8192, 128, 0x7F12_0000_1230,
-                                                                   4096, 128, 1, 0x7E00_0000_0040))])
+                                                                   4096, 128, 1, 0x7E00_0000_0040)),
+                                        ("demux_gather_sum", (0x7F12_3456_7000, 8192, 64, 0x7F12_0000_1230,
+                                                              1 << 20, 4096, 820, 10, 13, 0x7E00_0000_0040,
+                                                              0x7E00_0000_2840)),
+                                        ("demux_folded_logits", (0x7F12_3456_7000, 4_194_304, 32, 0x7F12_0000_1230,
+                                                                 65_536, 0x7F11_0000_0000, 2, 0x7F10_0000_0000,
+                                                                 528, 0x7E00_0000_0040, 1))])
 def test_entry_passes_its_arguments_then_the_device_and_the_stream(monkeypatch, name, args, index):
     lib = _stand_in(monkeypatch)
     entry = _cuda.Entry(name)

@@ -11,6 +11,10 @@
   product of arguments (one log per group, or per 4 calls past G = 8) with
   U kept to its words before the expansion, written here in torch: held to
   the plain version's sum of logs at the logits bar with the same argmax.
+- ``folded_estep.variant_operands``' schedule, which the folded kernel
+  walks, and that kernel's arithmetic, the log of each product of 8
+  arguments from a barcode's first call on (its last product padded with
+  arguments of 1), against the plain version's log per call.
 """
 import numpy as np
 import pytest
@@ -22,6 +26,8 @@ from demuxalot_tpu_torch.experiments import folded_estep as FE
 from demuxalot_tpu_torch.experiments import group_estep as GE
 from demuxalot_tpu_torch.experiments import split_estep as SE
 from demuxalot_tpu_torch.ops import likelihood as L
+from demuxalot_tpu_torch.ops.likelihood_kernel import estep_operands
+from demuxalot_tpu_torch.ops.packing import csr_row_pointers
 from torch_problems import t
 
 TOL = dict(rtol=1e-4, atol=5e-3)  # the JAX tests' oracle tolerance, the variants' logits bar
@@ -118,5 +124,71 @@ def test_group_log_of_products_meets_the_sum_of_logs(workload, group, n_words):
     assert float(u.min()) >= 1e-4  # fold_calls' floor: a product of 8 arguments stays a normal float
     ours = _log_of_products(u, calls, n_words)
     plain = GE.group_logits_plain(u, calls, n_words)
+    torch.testing.assert_close(ours, plain, **TOL)
+    assert torch.equal(ours.argmax(1), plain.argmax(1))
+
+
+def _even_barcodes(n_donors: int, calls_per_barcode: int, n_barcodes: int = 30, seed: int = 0):
+    """(genotype_prob, EStepOperands) at doublet prior 0.25 on the CPU: every barcode with ``calls_per_barcode``
+    calls, genotype probabilities in (0, 1), q below 0.5 and some calls at q = 1."""
+    rng = np.random.RandomState(seed)
+    n_variants = 80
+    gprob = rng.rand(n_variants, n_donors).astype(np.float32)
+    cb = np.repeat(np.arange(n_barcodes, dtype=np.int32), calls_per_barcode)
+    vid = rng.randint(0, n_variants, len(cb)).astype(np.int32)
+    q = (rng.rand(len(cb)) * 0.5).astype(np.float32)
+    q[::11] = 1.0
+    estep = estep_operands(n_donors, 0.25, t(csr_row_pointers(cb, n_barcodes)), t(cb), t(vid), t(q))
+    return t(gprob), estep
+
+
+@pytest.mark.parametrize("n_donors", [2, 7, 32, 64])
+def test_folded_schedule_covers_every_column_once(n_donors):
+    """The operands' schedule holds every column of their pairs in exactly one slot, its own donor pair's."""
+    _, estep = _even_barcodes(n_donors, 3)
+    ops = FE.variant_operands(estep)
+    assert isinstance(ops, FE.CheckedOperands)
+    table, pairs = ops.schedule.numpy(), ops.pairs.numpy()
+    assert table.dtype == np.int32 and table.shape[1:] == (32, 24)
+    columns = table[..., 4:]
+    assert sorted(columns[columns >= 0].tolist()) == list(range(pairs.shape[1]))
+    for entry in table.reshape(-1, 24):
+        p, q, r, s = entry[:4]
+        slots = [(4 * p + a, 4 * q + b) for a in range(4) for b in range(4)] + \
+                [(2 * r + a, 2 * s + b) for a in range(2) for b in range(2)]
+        for (i, j), g in zip(slots, entry[4:]):
+            if g >= 0:
+                assert (pairs[0, g], pairs[1, g]) == (i, j)
+    assert type(ops._replace(row_ptr=ops.row_ptr)) is FE.VariantOperands  # a replaced field drops the check
+
+
+def _folded_log_of_products(u: torch.Tensor, ops: FE.VariantOperands) -> torch.Tensor:
+    """The folded kernel's sums: U halved, each argument its column's two halves added, each barcode's calls in
+    products of 8 from its first call on (the last padded with arguments of 1), one log2 each, summed in call
+    order, scaled by ln 2."""
+    half = 0.5 * u
+    args = half[:, ops.pairs[0].long()] + half[:, ops.pairs[1].long()]
+    n_pg = args.shape[1]
+    sums = torch.zeros((ops.n_barcodes, n_pg))
+    for b, (lo, hi) in enumerate(zip(ops.row_ptr[:-1].tolist(), ops.row_ptr[1:].tolist())):
+        rows = torch.cat([args[lo:hi], torch.ones((-(hi - lo) % 8, n_pg))])
+        total = torch.zeros(n_pg)
+        for c0 in range(0, rows.shape[0], 8):
+            prod = rows[c0]
+            for c in range(c0 + 1, c0 + 8):
+                prod = prod * rows[c]
+            total = total + torch.log2(prod)
+        sums[b] = total * np.float32(np.log(2.0))
+    return ops.penalties + sums
+
+
+@pytest.mark.parametrize("calls_per_barcode", [1, 7, 8, 9, 33])
+def test_folded_log_of_products_meets_the_sum_of_logs(calls_per_barcode):
+    """One log per 8 calls, a barcode's last product short, against the plain version's log per call."""
+    gprob, estep = _even_barcodes(7, calls_per_barcode, seed=calls_per_barcode)
+    u, ops = FE.fold_calls(gprob, estep), FE.variant_operands(estep)
+    assert float(u.min()) >= 1e-4  # fold_calls' floor: a product of 8 arguments stays a normal float
+    ours = _folded_log_of_products(u, ops)
+    plain = FE.folded_logits_plain(u, ops)
     torch.testing.assert_close(ours, plain, **TOL)
     assert torch.equal(ours.argmax(1), plain.argmax(1))
