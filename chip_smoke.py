@@ -83,9 +83,11 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    phase 6's CLI run;
 9. the in-kernel-gather experiments (``demuxalot_tpu_torch.experiments``).
    (a) The banded E-step (1 and 12 bands over 400 variants, 60 over 40,
-   some empty; donors 2, 7, 32, 64; padding calls), the banded M-step (2
-   and 40 bands, p = 1 and 2, variants with no calls, a band too large for
-   shared memory), the row gather and the gather-sum against their plain
+   some empty; donors 2, 7, 32, 64; padding calls at the ends of band
+   segments at 1, 12 and 60 bands, bit-equal), the banded M-step (2 and 40
+   bands, p = 1 and 2, variants with no calls, q = 1 calls inserted
+   mid-band bit-equal, two 35,000-row bands), the row gather and the
+   gather-sum against their plain
    versions (the gather bit for bit, the sum against float64: on chip and
    through L2, W = 7, steps of 1 and 1001, a table of exactly 3 slices and
    one with its last slice short), two runs bit-equal, and an index out of
@@ -196,10 +198,16 @@ tree with the one under ``DIR`` (an unpacked older commit): phases 1-2,
 then each tree's E-step and softmax, M-step and EM iteration at the bench
 shape, as its EM loop runs them, its take_along_axis at form D2 and tiny
 at [8, 128] and gather_sum at [8192, 64] (1,048,576 indices), eagerly
-(100 calls) and in a CUDA graph's replay, and its split E-step at (2,2)
+(100 calls) and in a CUDA graph's replay, its split E-step at (2,2)
 and (0,0), group E-step at G 4 with 2 words and folded E-step at phase
-10b's shape, in its own process, in turns (parent, this tree, this tree,
-parent).
+10b's shape, and its banded E-step and M-step at phase 9b's shape, in its
+own process, in turns (parent, this tree, this tree, parent). Then
+whether each output is bit-equal to the parent's on the same inputs: the
+bench-shape E-step's logits and posteriors, the M-step addition and the
+EM loop's M-step, the banded logits and additions (with a digest of the
+banded inputs, which the mainline kernels make); and the E-step's and
+M-step's registers in both trees' libraries (``cuobjdump
+--dump-resource-usage``), with whether the mainline's are unchanged.
 """
 from __future__ import annotations
 
@@ -342,6 +350,18 @@ def phase_build() -> None:
         injected_warpgroup_arrives=result.log.count("C7519"))
     say("build", folded_and_gather_sum={name: k for name, k in kernels.items()
                                         if name.startswith(("folded", "gather_sum"))})
+    # the E-step's and M-step's instantiations, main path and banded: the banded E-step at the main path's 4
+    # blocks of 4 warps per SM, so at most 128 registers; its shared memory at 32 donors (528 columns): each
+    # warp's ring of two 32-call tiles, its row of logits and its window of 32 segments (an SM's 228 KB hold a
+    # block's bytes and 1 KB the card keeps per block)
+    steps = ({name: k["registers"] for name, k in kernels.items() if name.startswith(("estep", "mstep"))}
+             or _library_registers(result.path))  # a library built earlier has no ptxas log
+    banded_estep = {name: r for name, r in steps.items() if name.startswith("estep") and name.endswith(",1>")}
+    require(len(banded_estep) == 4 and max(banded_estep.values()) <= 128,
+            f"the banded E-step must fit 128 registers (4 blocks per SM): {banded_estep}")
+    shared = 4 * (2 * 32 * 32 + 528 + 32 * 5) * 4
+    blocks = min(65_536 // (128 * 128), 233_472 // (shared + 1024))
+    say("build", step_registers=steps, banded_estep_blocks_per_sm=blocks, banded_estep_block_shared_bytes=shared)
     cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
     require(cuobjdump.is_file(), f"{cuobjdump} reads the kernels' SASS")
     sass = subprocess.run([str(cuobjdump), "-sass", str(result.path)], capture_output=True, text=True).stdout
@@ -353,22 +373,18 @@ def phase_build() -> None:
 
 
 def _ptxas_kernels(log: str) -> dict:
-    """{kernel<template arguments>: {registers, spill_stores, spill_loads}} of the variants' and the gather-sum's
-    kernels, from ptxas' report: split.cu's (exp_words, sc_words, MMA steps), the register-tile kernels of
-    group.cu and folded.cu (words, mode, fold, chunked, vec; folded's are the ragged ones) and gather.cu's
-    gather-sums (the L2 path's floats per load; the on-chip path's floats per row read, 16-byte index loads)."""
+    """{kernel<template arguments>: {registers, spill_stores, spill_loads}} of the variants', the gather-sum's and
+    the E-step's and M-step's kernels, from ptxas' report: split.cu's (exp_words, sc_words, MMA steps), the
+    register-tile kernels of group.cu and folded.cu (words, mode, fold, chunked, vec; folded's are the ragged
+    ones), gather.cu's gather-sums (the L2 path's floats per load; the on-chip path's floats per row read,
+    16-byte index loads), likelihood.cu's (fast_log, chunk, banded), mstep.cu's (power, depth, update) and
+    banded.cu's (power, depth)."""
     import re
 
     found, name, spills = {}, None, (0, 0)
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '\S*?((?:split_f32|split|tiles|gather_sum_chip|gather_sum)_kernel)"
-                          r"I(\S*?)EEv", line)
-        if entry is not None:
-            kind, args = entry.group(1), re.findall(r"L[ib](\d+)E", entry.group(2) + "E")
-            if kind == "tiles_kernel":
-                kind = "folded_kernel" if args[5] == "1" else "group_kernel"
-                args = args[:5]
-            name, spills = f"{kind}<{','.join(args)}>", (0, 0)
+        if "Compiling entry function" in line:
+            name, spills = _kernel_name(line), (0, 0)
             continue
         spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spilled is not None and name is not None:
@@ -377,6 +393,41 @@ def _ptxas_kernels(log: str) -> dict:
         if used is not None and name is not None:
             found[name] = {"registers": int(used.group(1)), "spill_stores": spills[0], "spill_loads": spills[1]}
             name = None
+    return found
+
+
+def _kernel_name(text: str):
+    """kernel<template arguments> of the first mangled kernel name in ``text`` that ``_ptxas_kernels`` reports,
+    or None."""
+    import re
+
+    entry = re.search(r"((?:split_f32|split|tiles|gather_sum_chip|gather_sum|estep|mstep_banded|mstep)_kernel)"
+                      r"I(\S*?)EEv", text)
+    if entry is None:
+        return None
+    kind, args = entry.group(1), re.findall(r"L[ib](\d+)E", entry.group(2) + "E")
+    if kind == "tiles_kernel":
+        kind = "folded_kernel" if args[5] == "1" else "group_kernel"
+        args = args[:5]
+    return f"{kind}<{','.join(args)}>"
+
+
+def _library_registers(library: Path) -> dict:
+    """{kernel<template arguments>: registers} of the E-step's and M-step's kernels in a built library, from
+    ``cuobjdump --dump-resource-usage`` (a library built earlier has no ptxas log)."""
+    import re
+
+    from demuxalot_tpu_torch.ops import _cuda
+
+    cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
+    usage = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(library)], capture_output=True,
+                           text=True).stdout
+    found = {}
+    for mangled, registers in re.findall(r"Function (\S+?):\s*\n\s*REG:(\d+)", usage):
+        name = _kernel_name(mangled)
+        if name is not None and name.startswith(("estep", "mstep")):
+            found[name] = int(registers)
+    require(bool(found), f"no E-step or M-step kernel in cuobjdump's resource usage of {library}: {usage[:1500]}")
     return found
 
 
@@ -419,7 +470,7 @@ def _estep_hot_loops(sass: str) -> dict:
 
     found = {}
     for function in re.split(r"\n\s+Function : ", sass)[1:]:
-        args = re.search(r"estep_kernelILb(\d)ELi(\d+)E", function.splitlines()[0])
+        args = re.search(r"estep_kernelILb(\d)ELi(\d+)ELb(\d)E", function.splitlines()[0])
         if args is None:
             continue
         lines = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", function)
@@ -437,7 +488,7 @@ def _estep_hot_loops(sass: str) -> dict:
             if best is None or min(kinds["FADD"], kinds["FMUL"]) > min(best["FADD"], best["FMUL"]):
                 best = kinds
         if best is not None:
-            found[f"fast_log={bool(int(args.group(1)))} chunk={args.group(2)}"] = {
+            found[f"fast_log={bool(int(args.group(1)))} chunk={args.group(2)} banded={bool(int(args.group(3)))}"] = {
                 "instructions": sum(best.values()), **{k: best[k] for k in ("FADD", "FMUL", "FFMA", "LDS", "MUFU")}}
     return found
 
@@ -1626,6 +1677,8 @@ def phase_gather_kernels() -> None:
             empty = float((ptr[:, 1:] == ptr[:, :-1]).float().mean())
             say("experiments", kernel="estep_logits_banded", n_donors=n_donors, n_bands=n_bands, max_abs_err=err,
                 empty_band_barcode_share=empty, runs="bit-equal")
+    # padding calls after each barcode's real calls: once banded they end their band segments, inside the
+    # barcode's stream of bands
     p = _estep_inputs(32, DOUBLET_PRIOR, seed=7)
     pad = 1234
     rng = np.random.RandomState(8)
@@ -1634,9 +1687,11 @@ def phase_gather_kernels() -> None:
     q = np.concatenate([p["q"], np.ones(pad, np.float32)])
     order = np.argsort(cb, kind="stable")  # padding after each barcode's real calls
     padded = dict(p, cb=cb[order], vid=vid[order], q=q[order])
-    base, with_pad = (IG.estep_logits_banded(*banded_estep(x, 12)) for x in (p, padded))
-    require(torch.equal(base, with_pad), "padding calls must leave the banded E-step logits bit-equal")
-    say("experiments", kernel="estep_logits_banded", padding_noop="bit-equal", pad_calls=pad)
+    for n_bands in (1, 12, 60):
+        base, with_pad = (IG.estep_logits_banded(*banded_estep(x, n_bands)) for x in (p, padded))
+        require(torch.equal(base, with_pad), f"padding calls must leave the banded E-step logits bit-equal "
+                                             f"(K={n_bands})")
+    say("experiments", kernel="estep_logits_banded", padding_noop="bit-equal", pad_calls=pad, n_bands=[1, 12, 60])
 
     for n_donors in (7, 32):
         for n_bands in (2, 40):
@@ -1657,20 +1712,26 @@ def phase_gather_kernels() -> None:
                 err = compare(what, got, IG.mstep_addition_banded_plain(*args), **ADDITION_TOL)
                 require(not bool(got[1::2].any()), f"{what}: variants with no calls add 0")
                 require(torch.equal(got, IG.mstep_addition_banded(*args)), f"{what}: two runs bit-equal")
+                # q = 1 calls inserted at random places of the calls, so mid-band once banded: exactly 0
+                at = np.sort(rng.randint(0, n_calls + 1, 1500))
+                mid = IG.banded_mstep_operands(
+                    t(np.insert(vid, at, rng.randint(0, n_variants, len(at)).astype(np.int32))),
+                    t(np.insert(cb, at, rng.randint(0, n_barcodes, len(at)).astype(np.int32))),
+                    t(np.insert(q, at, np.ones(len(at), np.float32))), n_variants, n_barcodes, n_bands)
+                require(torch.equal(got, IG.mstep_addition_banded(t(post), mid, n_donors, power)),
+                        f"{what}: q = 1 calls mid-band leave the additions bit-equal")
                 say("experiments", kernel="mstep_addition_banded", n_donors=n_donors, n_bands=n_bands, power=power,
-                    band_rows=operands.band_rows, max_abs_err=err, runs="bit-equal")
-    # two bands of 35,000 barcodes x 32 donors (4.5 MB each) cannot sit in shared memory
+                    max_abs_err=err, runs="bit-equal", padding_mid_band="bit-equal")
+    # two bands of 35,000 barcodes x 32 donors (4.5 MB each, past a block's shared memory): nothing is staged
     rng = np.random.RandomState(3)
     vid = np.sort(rng.randint(0, 100, 5000)).astype(np.int32)
-    too_big = IG.banded_mstep_operands(t(vid), t(rng.randint(0, 70_000, 5000).astype(np.int32)),
-                                       t(np.zeros(5000, np.float32)), 100, 70_000, 2)
-    try:
-        IG.mstep_addition_banded(torch.rand(70_000, 32, device=cuda), too_big, 32, 2.0)
-        raised = None
-    except ValueError as error:
-        raised = str(error)
-    require(raised is not None and "shared memory" in raised, "a band past shared memory raises")
-    say("experiments", kernel="mstep_addition_banded", band_past_shared_memory=raised)
+    cb = rng.randint(0, 70_000, 5000).astype(np.int32)
+    q = (rng.rand(5000) * 0.7).astype(np.float32)
+    post = torch.rand(70_000, 32, device=cuda)
+    tall = IG.banded_mstep_operands(t(vid), t(cb), t(q), 100, 70_000, 2)
+    err = compare("banded mstep, two 35,000-row bands", IG.mstep_addition_banded(post, tall, 32, 2.0),
+                  IG.mstep_addition_banded_plain(post, tall, 32, 2.0), **ADDITION_TOL)
+    say("experiments", kernel="mstep_addition_banded", bands_of_35000_rows_max_abs_err=err)
 
     # the gather-sum on both paths of its plan: on chip ([8192, 64]; W = 7 with 4-byte row reads; steps of 1 and
     # 1001, 4-byte index loads; 3 slices of the most rows a slice holds at W = 64 on an H100, and 5 rows fewer,
@@ -2417,7 +2478,15 @@ def steps_ms() -> dict:
         m_step = lambda: L.probs_from_betas(  # noqa: E731
             run.prior_betas_dev + mstep_addition(state.probs, run.likelihood.mstep, run.n_genotypes, 2.0),
             run.variant2snp, run.n_snps, 0.01, max_per_snp=run.max_per_snp)
+    # the outputs' bits (digests) on the same inputs: the bench-shape E-step, its posteriors, the M-step
+    logits_probs = estep_logits(gprob, lik.estep, softmax=True) if fused else (estep_logits(gprob, lik.estep),)
+    m_out = m_step()
+    bits = {"estep_logits": _digest(estep_logits(gprob, lik.estep)), "estep_probs": _digest(logits_probs[-1]),
+            "mstep_addition": _digest(mstep_addition(state.probs, run.likelihood.mstep, run.n_genotypes, 2.0)),
+            "m_step": _digest(*(m_out if isinstance(m_out, tuple) else (m_out,)))}
+    banded = _banded_steps(cuda)
     return {"package": str(Path(inspect.getfile(estep_logits)).parents[2]), "fused": fused,
+            "bits": {**bits, **banded.pop("bits")}, **banded,
             "estep_softmax_ms": [_time_ms(step) for _ in range(3)],
             "estep_ms": [_time_ms(lambda: estep_logits(gprob, lik.estep)) for _ in range(3)],
             "mstep_addition_ms": [_time_ms(lambda: mstep_addition(state.probs, run.likelihood.mstep,
@@ -2425,6 +2494,31 @@ def steps_ms() -> dict:
             "m_step_ms": [_time_ms(m_step) for _ in range(3)],
             "em_iteration_ms": [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)],
             **_launch_bound_ms(cuda), **_variant_steps_ms(cuda)}
+
+
+def _digest(*tensors: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for tensor in tensors:
+        digest.update(tensor.detach().contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def _banded_steps(cuda) -> dict:
+    """The banded E-step and M-step at phase 9b's shape (``bench_workload``: the JAX harness's, 12 and 82 bands) of
+    the package on sys.path: three samples each, and their outputs' bits with those of the workload's inputs
+    (made by the mainline kernels, so equal where the mainline's outputs are)."""
+    from demuxalot_tpu_torch.experiments import inkernel_gather as IG
+
+    w = IG.bench_workload(device=cuda)
+    estep = lambda: IG.estep_logits_banded(w.genotype_prob, w.estep_banded)  # noqa: E731
+    mstep = lambda: IG.mstep_addition_banded(w.posterior, w.mstep_banded, w.n_genotypes, w.power)  # noqa: E731
+    return {"banded_estep_ms": [_time_ms(estep) for _ in range(3)],
+            "banded_mstep_ms": [_time_ms(mstep) for _ in range(3)],
+            "bits": {"banded_inputs": _digest(w.genotype_prob, w.posterior), "banded_logits": _digest(estep()),
+                     "banded_addition": _digest(mstep())}}
 
 
 def _variant_steps_ms(cuda) -> dict:
@@ -2483,7 +2577,21 @@ def compare_with_parent(parent: Path, card: str) -> None:
     say("parent", card=card, **{key: {w: mean(key, w) for w in samples} for key in (
         "estep_softmax_ms", "estep_ms", "mstep_addition_ms", "m_step_ms", "em_iteration_ms", "take_along_axis_ms",
         "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms", "split_22_ms", "split_00_ms", "group_G4_ms",
-        "folded_ms", "gather_sum_ms", "gather_sum_graph_ms")})
+        "folded_ms", "gather_sum_ms", "gather_sum_graph_ms", "banded_estep_ms", "banded_mstep_ms")})
+    # bit for bit: each output of this tree against the parent's on the same inputs, every run alike
+    bits = {key: "bit-equal" if len({r["bits"][key] for r in samples["parent"] + samples["this"]}) == 1
+            else "differs" for key in samples["this"][0]["bits"]}
+    # the E-step's and M-step's registers in each tree's library (the parent's built by its first child)
+    from demuxalot_tpu_torch.ops import _cuda
+
+    built = sorted((parent / "demuxalot_tpu_torch" / "_build").glob("libdemux_kernels_*.so"))
+    require(len(built) == 1, f"{parent}: one kernel library must have been built, found {built}")
+    theirs, ours = _library_registers(built[0]), _library_registers(_cuda.build().path)
+    mainline = sorted(name for name in theirs if not (name.startswith("mstep_banded") or name.endswith(",1>")
+                                                      and name.startswith("estep")))
+    say("parent", card=card, bits=bits, registers={name: {"parent": theirs.get(name), "this": ours.get(name)}
+                                                   for name in sorted(set(theirs) | set(ours))},
+        mainline_registers_equal=all(theirs[name] == ours.get(name) for name in mainline))
 
 
 def main() -> int:
@@ -2612,7 +2720,8 @@ def main() -> int:
             "library_ms": None, "library_ms_reason": "no single PyTorch call computes it",
             "layout_bytes": e["layout_bytes"][name], "mainline_ms": ab["ms"][mainline]["mean"],
             "past_l2_ms": ab_past["ms"][step]["mean"], "past_l2_mainline_ms": ab_past["ms"][mainline]["mean"],
-            "n_bands": ab["estep_bands" if step == "estep_banded" else "mstep_bands"]})
+            "n_bands": ab["estep_bands" if step == "estep_banded" else "mstep_bands"],
+            **({"slots": ab["estep_slots"]} if step == "estep_banded" else {})})
     tpu_table, *other_tables = e["gathers"]
     # the gather-sum's graph-replay time, path and plan beside its eager time, at every table
     sum_keys = ("path", "graph_ms", "library_graph_ms", "graph_share_of_bound", "graph_ns_per_row", "graph_input_mb",

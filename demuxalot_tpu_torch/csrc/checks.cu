@@ -2,8 +2,9 @@
 //
 // Entry points run these small kernels on the same stream just before their
 // main kernel, so an out-of-range index or a malformed CSR traps before
-// anything reads through it; the M-step's operands and the split and group
-// E-steps' are checked once instead, when they are built. They are separate
+// anything reads through it; the M-step's operands, the split, group and
+// folded E-steps' and the banded E-step's and M-step's are checked once
+// instead, when they are built. They are separate
 // kernels because a __trap inside the hot kernels cost the E-step 3-11% of
 // its time on the H100 wherever it sat (the branch keeps the compiler from
 // batching the loads around it); here they cost one read of each index
@@ -73,8 +74,8 @@ unsigned int blocks_for(int64_t n) {
 
 }  // namespace
 
-// Host launchers used by likelihood.cu, mstep.cu, banded.cu, gather.cu and folded.cu, and by
-// demux_variant_check below; each returns cudaGetLastError().
+// Host launchers used by likelihood.cu, mstep.cu and gather.cu, and by demux_variant_check and
+// demux_banded_check below; each returns cudaGetLastError().
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream) {
     if (n > 0) check_index_kernel<<<blocks_for(n), kThreads, 0, stream>>>(idx, n, limit);
     return (int)cudaGetLastError();
@@ -118,6 +119,28 @@ extern "C" int demux_variant_check(const int64_t* row_ptr, int64_t n_barcodes, i
     int status;
     if ((status = demux_check_csr(row_ptr, n_barcodes, n_calls, s)) != 0) return status;
     if ((status = demux_check_index(pairs, 2 * (int64_t)n_pg, n_donors, s)) != 0) return status;
+    if (schedule == nullptr) return 0;
+    return demux_check_schedule(schedule, (int64_t)n_passes * demux::kWarpSize * entry, entry, (n_donors + 3) / 4,
+                                n_pg, s);
+}
+
+// The banded E-step's and M-step's operands, checked once when they are built (experiments/inkernel_gather.py:
+// banded_estep_operands, banded_mstep_operands): band_edges non-decreasing in [0, n_rows] (the rows of the table
+// the band-local ids index: G's variants or the posterior's barcodes), the band-major band_ptr [n_bands,
+// n_groups + 1] non-decreasing in [0, n_calls], every band-local idx in [0, its band's height), and the E-step's
+// tile schedule (null for the M-step) as demux_check_schedule takes it.
+extern "C" int demux_banded_check(const int64_t* band_edges, int n_bands, int64_t n_rows, const int64_t* band_ptr,
+                                  int64_t n_groups, int64_t n_calls, const int32_t* idx, const int32_t* schedule,
+                                  int n_passes, int entry, int n_donors, int n_pg, int device, void* stream) {
+    if (n_bands <= 0 || n_groups < 0 || n_calls < 0 || n_passes < 0 || entry <= 4) return (int)cudaErrorInvalidValue;
+    const demux::DeviceGuard guard(device);
+    if (guard.status() != 0) return guard.status();
+    cudaStream_t s = (cudaStream_t)stream;
+    int status;
+    if ((status = demux_check_csr(band_edges, n_bands, n_rows, s)) != 0) return status;
+    if ((status = demux_check_csr(band_ptr, (int64_t)n_bands * (n_groups + 1) - 1, n_calls, s)) != 0) return status;
+    if ((status = demux_check_banded_index(idx, band_ptr, band_edges, n_bands, n_groups, INT64_MAX, n_calls, s)) != 0)
+        return status;
     if (schedule == nullptr) return 0;
     return demux_check_schedule(schedule, (int64_t)n_passes * demux::kWarpSize * entry, entry, (n_donors + 3) / 4,
                                 n_pg, s);

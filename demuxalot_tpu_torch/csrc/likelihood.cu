@@ -59,30 +59,44 @@
 // _likelihood_kernel_ig (:78), the TPU's in-kernel-gather E-step: the
 // variants are cut into K bands (edges[k], edges[k+1]), each call carries a
 // band-local variant id, and the calls lie band-major, a barcode CSR per
-// band (band_ptr [K, n_barcodes + 1]). A barcode's warp walks its calls
-// band by band and reads each row from its band's slice of G,
-// G[edges[k] + vid]; the running sums carry over from band to band, so
-// the logits are summed in band order, then in call order. Each band's
-// calls end in a log (a ragged group is padded as above), so a call's
-// log argument never multiplies with another band's. The TPU kept one band
-// of G in VMEM beside a super-tile of output rows; here a block's 227 KB
-// could not hold a band beside more than a few dozen barcodes' 528 running
-// sums, so the band stays in L2 (as G does on the main path) and the sums
-// stay in registers. What bounds it is the main path's bound, plus one
-// ragged log group and one exposed gather per (barcode, band) that has
-// calls. Only the logits are written (no prior, no softmax). It runs 3
-// blocks per SM (up to 168 registers) where the main path runs 4: capped at
-// 128 registers, the band loop's state spilled in ptxas for some
-// instantiations on the H100 (PERF.md).
+// band (band_ptr [K, n_barcodes + 1]). Its logits are summed in band order,
+// then in call order, and each band's calls of a barcode (a segment) end in
+// a log: a call's log argument never multiplies with another band's, so
+// padding calls (q = 1) at the end of a segment change no bit. The TPU kept
+// one band of G in VMEM beside a super-tile of output rows; here a block's
+// 227 KB could not hold a band beside more than a few dozen barcodes' 528
+// running sums, so the band stays in L2 (as G does on the main path) and
+// the sums stay in registers. The design keeps the main path's ring whole:
+// - One stream of slots per barcode. Its K segments lie end to end, each
+//   from a multiple of 8 slots and padded to the next with pad slots (U' =
+//   0.5, an argument of exactly 1); an empty segment takes no slot. The
+//   32-slot tiles of the ring run over this stream as the main path's run
+//   over one CSR range, so tile t + 1's calls and rows are in flight while
+//   tile t is folded and computed, across band boundaries too. The groups
+//   of 8, their products, their logs and the order of the sums are the
+//   per-segment walk's, so the logits keep its bits.
+// - Finding a slot's call. A window of up to 32 of the barcode's segments
+//   sits in the warp's shared memory (lane k reads band k's bounds, a warp
+//   scan of the padded lengths gives each segment's first slot); each lane
+//   finds its slot's segment by a binary search over the window's first
+//   slots, adds band_edges[segment] to the band-local id, and marks a pad
+//   slot with q = -1 (real q lie in [0, 1]). The window moves on as the
+//   slots pass its end, so K may exceed 32.
+// What bounds it is the main path's bound, plus the pad slots (1.6 slots a
+// call at 12 bands and 64 calls a barcode; PERF.md). Only the
+// logits are written (no prior, no softmax). It runs at the main path's 4
+// blocks per SM and 128 registers. The band CSR, the band-local ids and the
+// schedule are bounds-checked once, when the operands are built
+// (demux_banded_check, checks.cu), so a launch checks nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream);
 int demux_check_csr(const int64_t* row_ptr, int64_t n_rows, int64_t n_entries, cudaStream_t stream);
 int demux_check_schedule(const int32_t* schedule, int64_t n_entries, int entry, int n_blocks, int n_pg,
                          cudaStream_t stream);
-int demux_check_banded_index(const int32_t* idx, const int64_t* band_ptr, const int64_t* edges, int n_bands,
-                             int64_t n_rows, int64_t cap, int64_t n_entries, cudaStream_t stream);
 
 namespace {
 
@@ -95,6 +109,7 @@ constexpr int kQuadSlots = 16;        // 4 x 4 donors
 constexpr int kSlots = kQuadSlots + 4;  // + 2 x 2 donors
 constexpr int kEntry = 4 + kSlots;    // per (pass, lane): quad p, q, duo r, s, then one column per slot
 constexpr int kMaxWarpsPerBlock = 4;
+constexpr int kWindowFloats = kWarp * 5;  // kBanded: 32 segments of (first call i64, calls, first slot, edge)
 constexpr float kLn2 = 0.693147180559945309f;
 
 template <int kBytes>
@@ -212,7 +227,7 @@ __device__ void epilogue(float* row, int n_pg, const float* prior, float* logits
 // kBanded: row_ptr is the band-major [n_bands, n_barcodes + 1] CSR, vid is
 // band-local and band k's rows start at G[band_edges[k]].
 template <bool kFastLog, int kChunk, bool kBanded>
-__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, kBanded ? 3 : 4) estep_kernel(
+__global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
     const float* __restrict__ genotype_prob,  // [n_variants, n_donors]
     int n_donors, int stride,                 // stride: n_donors rounded up to 4
     const int64_t* __restrict__ band_edges,   // [n_bands + 1] (kBanded)
@@ -233,26 +248,87 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, kBanded ? 3 : 4) es
     const int lane = threadIdx.x & (kWarp - 1);
     const int warp = threadIdx.x / kWarp;
     const int tile_floats = kTileCalls * stride;
-    float* ring = smem + (size_t)warp * (2 * tile_floats + row_floats);
+    float* ring = smem + (size_t)warp * (2 * tile_floats + row_floats + (kBanded ? kWindowFloats : 0));
     float* row = ring + 2 * tile_floats;  // the barcode's staged logits
     const int row_chunks = n_donors / kChunk;
     const int row_quads = stride / 4;
     const Walk copy(row_chunks, lane);
     const Walk fold(row_quads, lane);
     const int64_t n_warps = (int64_t)gridDim.x * (blockDim.x / kWarp);
-    const int segments = kBanded ? n_bands : 1;  // a barcode's call ranges: one, or one per band
 
-    // one tile's calls into lane registers (band-local ids made global by
-    // adding their band's first row), then their G rows into `buf`
-    auto load_calls = [&](int64_t t, int n, int& v, float& qq, int base) {
-        v = lane < n ? vid[t + lane] + base : 0;
-        qq = lane < n ? q[t + lane] : 1.f;
+    // kBanded: the window, after the row: segment k0 + k of the barcode's stream in entry k, its first call,
+    // its calls, its first slot and its band's first row of G; win_end is the slot after its last segment
+    int64_t* win_lo = reinterpret_cast<int64_t*>(row + row_floats);
+    int* win_n = reinterpret_cast<int*>(win_lo + kWarp);
+    int* win_start = win_n + kWarp;
+    int* win_edge = win_start + kWarp;
+    int win_k0 = 0, win_end = 0;
+    // bands k0 .. k0 + 31 of barcode b into the window, their first slots from `base`; returns the slot after
+    // the window's last segment
+    auto open_window = [&](int64_t b, int k0, int base) {
+        const int k = k0 + lane;
+        int64_t first = 0;
+        int n = 0, edge = 0;
+        if (k < n_bands) {
+            const int64_t* ptr = row_ptr + (int64_t)k * (n_barcodes + 1) + b;
+            first = ptr[0];
+            n = (int)(ptr[1] - first);
+            edge = (int)band_edges[k];
+        }
+        const int len = (n + kLogFold - 1) & ~(kLogFold - 1);  // whole log groups
+        int end = len;  // the inclusive scan of the padded lengths
+#pragma unroll
+        for (int o = 1; o < kWarp; o <<= 1) {
+            const int x = __shfl_up_sync(kFull, end, o);
+            if (lane >= o) end += x;
+        }
+        __syncwarp();  // every lane is done with the last window
+        win_lo[lane] = first;
+        win_n[lane] = n;
+        win_start[lane] = base + end - len;
+        win_edge[lane] = edge;
+        __syncwarp();
+        return base + __shfl_sync(kFull, end, kWarp - 1);
     };
+
+    // one tile's calls into lane registers: lanes [0, n) from call (main path) or slot (kBanded) t; a pad
+    // slot has v = -1 and q = -1 (real q lie in [0, 1])
+    auto load_calls = [&](int64_t b, int64_t t, int n, int& v, float& qq) {
+        if constexpr (!kBanded) {
+            v = lane < n ? vid[t + lane] : 0;
+            qq = lane < n ? q[t + lane] : 1.f;
+        } else {
+            const int s = (int)t + lane;
+            v = -1;
+            qq = -1.f;
+            bool pending = lane < n;
+            for (;;) {
+                int j = 0;  // the window's last segment that starts at or before slot s
+#pragma unroll
+                for (int step = kWarp / 2; step > 0; step >>= 1) {
+                    if (win_start[j + step] <= s) j += step;
+                }
+                if (pending && s < win_end) {
+                    const int at = s - win_start[j];
+                    if (at < win_n[j]) {
+                        const int64_t c = win_lo[j] + at;
+                        v = vid[c] + win_edge[j];  // band-local id made global
+                        qq = q[c];
+                    }
+                    pending = false;
+                }
+                if (!__any_sync(kFull, pending) || win_k0 + kWarp >= n_bands) break;
+                win_k0 += kWarp;  // the tile runs past the window: the next 32 bands
+                win_end = open_window(b, win_k0, win_end);
+            }
+        }
+    };
+    // the G rows of a tile's calls into `buf` (pad slots copy nothing)
     auto gather = [&](int n, int v, float* buf) {
         for (int r0 = 0; r0 < n; r0 += copy.step) {
             const int r = r0 + copy.sub;
             const int vr = __shfl_sync(kFull, v, r & (kWarp - 1));
-            if (copy.active && r < n) {
+            if (copy.active && r < n && (!kBanded || vr >= 0)) {
                 const float* src = genotype_prob + (int64_t)vr * n_donors;
                 float* dst = buf + r * stride;
                 for (int k = copy.first; k < row_chunks; k += kWarp) {
@@ -264,8 +340,20 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, kBanded ? 3 : 4) es
     };
 
     for (int64_t b = (int64_t)blockIdx.x * (blockDim.x / kWarp) + warp; b < n_barcodes; b += n_warps) {
-        int64_t lo = kBanded ? 0 : row_ptr[b];  // the banded kernel reads one range per band
-        int64_t hi = kBanded ? 0 : row_ptr[b + 1];
+        // the main path's calls [lo, hi); the banded stream's slots [0, hi)
+        int64_t lo, hi;
+        if constexpr (kBanded) {
+            lo = 0;
+            win_k0 = 0;
+            hi = win_end = open_window(b, 0, 0);
+            for (int k0 = kWarp; k0 < n_bands; k0 += kWarp) {  // past 32 bands, the stream's length first
+                win_k0 = k0;
+                hi = win_end = open_window(b, k0, win_end);
+            }
+        } else {
+            lo = row_ptr[b];
+            hi = row_ptr[b + 1];
+        }
         for (int pass = 0; pass < n_passes; ++pass) {
             const int32_t* entry = schedule + ((int64_t)pass * kWarp + lane) * kEntry;
             const int off_a = 4 * entry[0], off_b = 4 * entry[1];
@@ -276,98 +364,102 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, kBanded ? 3 : 4) es
                 prod[s] = 1.f;
                 sum[s] = 0.f;
             }
-            for (int segment = 0; segment < segments; ++segment) {
-                if constexpr (kBanded) {
-                    lo = row_ptr[segment * (n_barcodes + 1) + b];
-                    hi = row_ptr[segment * (n_barcodes + 1) + b + 1];
+            if constexpr (kBanded) {
+                if (win_k0 != 0) {  // the stream from its first window again
+                    win_k0 = 0;
+                    win_end = open_window(b, 0, 0);
                 }
-                __syncwarp();  // every lane is done with the ring and the row
-                int v_cur = 0;
-                float q_cur = 1.f;
-                int cur = 0;
-                if (lo < hi) {
-                    const int n0 = (int)(hi - lo < kTileCalls ? hi - lo : kTileCalls);
-                    load_calls(lo, n0, v_cur, q_cur, kBanded ? (int)band_edges[segment] : 0);
-                    gather(n0, v_cur, ring);
+            }
+            __syncwarp();  // every lane is done with the ring and the row
+            int v_cur = 0;
+            float q_cur = 1.f;
+            int cur = 0;
+            if (lo < hi) {
+                const int n0 = (int)(hi - lo < kTileCalls ? hi - lo : kTileCalls);
+                load_calls(b, lo, n0, v_cur, q_cur);
+                gather(n0, v_cur, ring);
+            }
+            for (int64_t t0 = lo; t0 < hi; t0 += kTileCalls) {
+                const int nt = (int)(hi - t0 < kTileCalls ? hi - t0 : kTileCalls);
+                float* buf = ring + cur * tile_floats;
+                asm volatile("cp.async.wait_all;\n" ::: "memory");
+                __syncwarp();  // this tile's rows landed; the other slot is free
+                float q_next = 1.f;
+                const int64_t t1 = t0 + kTileCalls;
+                if (t1 < hi) {
+                    const int n1 = (int)(hi - t1 < kTileCalls ? hi - t1 : kTileCalls);
+                    int v_next;
+                    load_calls(b, t1, n1, v_next, q_next);
+                    gather(n1, v_next, ring + (cur ^ 1) * tile_floats);
                 }
-                for (int64_t t0 = lo; t0 < hi; t0 += kTileCalls) {
-                    const int nt = (int)(hi - t0 < kTileCalls ? hi - t0 : kTileCalls);
-                    float* buf = ring + cur * tile_floats;
-                    asm volatile("cp.async.wait_all;\n" ::: "memory");
-                    __syncwarp();  // this tile's rows landed; the other slot is free
-                    float q_next = 1.f;
-                    const int64_t t1 = t0 + kTileCalls;
-                    if (t1 < hi) {
-                        const int n1 = (int)(hi - t1 < kTileCalls ? hi - t1 : kTileCalls);
-                        int v_next;
-                        load_calls(t1, n1, v_next, q_next, kBanded ? (int)band_edges[segment] : 0);
-                        gather(n1, v_next, ring + (cur ^ 1) * tile_floats);
+                // fold G rows into U' in place; rows [nt, rows), pad slots and
+                // donors past n_donors become 0.5, an argument of exactly 1
+                // (a banded tile is whole log groups: rows == nt)
+                const int rows = (nt + kLogFold - 1) & ~(kLogFold - 1);
+                // kFoldRounds rounds at a time, all loads before all stores, so
+                // their shared-memory latencies overlap
+                for (int r0 = 0; r0 < rows; r0 += kFoldRounds * fold.step) {
+                    int r[kFoldRounds];
+                    float w[kFoldRounds], floor_q[kFoldRounds];
+                    bool pad[kFoldRounds];
+#pragma unroll
+                    for (int u = 0; u < kFoldRounds; ++u) {
+                        r[u] = r0 + u * fold.step + fold.sub;
+                        const float qr = __shfl_sync(kFull, q_cur, r[u] & (kWarp - 1));
+                        w[u] = 1.f - qr;
+                        floor_q[u] = fmaxf(qr, 1e-4f);
+                        pad[u] = qr < 0.f;
                     }
-                    // fold G rows into U' in place; rows [nt, rows) and donors
-                    // past n_donors become 0.5, an argument of exactly 1
-                    const int rows = (nt + kLogFold - 1) & ~(kLogFold - 1);
-                    // kFoldRounds rounds at a time, all loads before all stores, so
-                    // their shared-memory latencies overlap
-                    for (int r0 = 0; r0 < rows; r0 += kFoldRounds * fold.step) {
-                        int r[kFoldRounds];
-                        float w[kFoldRounds], floor_q[kFoldRounds];
+                    for (int k = fold.first; k < row_quads; k += kWarp) {
+                        float4 g[kFoldRounds];
 #pragma unroll
                         for (int u = 0; u < kFoldRounds; ++u) {
-                            r[u] = r0 + u * fold.step + fold.sub;
-                            const float qr = __shfl_sync(kFull, q_cur, r[u] & (kWarp - 1));
-                            w[u] = 1.f - qr;
-                            floor_q[u] = fmaxf(qr, 1e-4f);
+                            if (fold.active && r[u] < rows) g[u] = reinterpret_cast<const float4*>(buf + r[u] * stride)[k];
                         }
-                        for (int k = fold.first; k < row_quads; k += kWarp) {
-                            float4 g[kFoldRounds];
+                        const int d = 4 * k;
 #pragma unroll
-                            for (int u = 0; u < kFoldRounds; ++u) {
-                                if (fold.active && r[u] < rows) g[u] = reinterpret_cast<const float4*>(buf + r[u] * stride)[k];
-                            }
-                            const int d = 4 * k;
-#pragma unroll
-                            for (int u = 0; u < kFoldRounds; ++u) {
-                                if (!fold.active || r[u] >= rows) continue;
-                                const bool real = r[u] < nt;  // with kChunk 4, n_donors is a multiple of 4
-                                float4 v = g[u];
-                                v.x = real && (kChunk == 4 || d < n_donors) ? 0.5f * (v.x * w[u] + floor_q[u]) : 0.5f;
-                                v.y = real && (kChunk == 4 || d + 1 < n_donors) ? 0.5f * (v.y * w[u] + floor_q[u]) : 0.5f;
-                                v.z = real && (kChunk == 4 || d + 2 < n_donors) ? 0.5f * (v.z * w[u] + floor_q[u]) : 0.5f;
-                                v.w = real && (kChunk == 4 || d + 3 < n_donors) ? 0.5f * (v.w * w[u] + floor_q[u]) : 0.5f;
-                                reinterpret_cast<float4*>(buf + r[u] * stride)[k] = v;
-                            }
+                        for (int u = 0; u < kFoldRounds; ++u) {
+                            if (!fold.active || r[u] >= rows) continue;
+                            // with kChunk 4, n_donors is a multiple of 4
+                            const bool real = kBanded ? !pad[u] : r[u] < nt;
+                            float4 v = g[u];
+                            v.x = real && (kChunk == 4 || d < n_donors) ? 0.5f * (v.x * w[u] + floor_q[u]) : 0.5f;
+                            v.y = real && (kChunk == 4 || d + 1 < n_donors) ? 0.5f * (v.y * w[u] + floor_q[u]) : 0.5f;
+                            v.z = real && (kChunk == 4 || d + 2 < n_donors) ? 0.5f * (v.z * w[u] + floor_q[u]) : 0.5f;
+                            v.w = real && (kChunk == 4 || d + 3 < n_donors) ? 0.5f * (v.w * w[u] + floor_q[u]) : 0.5f;
+                            reinterpret_cast<float4*>(buf + r[u] * stride)[k] = v;
                         }
                     }
-                    __syncwarp();
-                    for (int r = 0; r < rows; r += kLogFold) {
-#pragma unroll
-                        for (int c = 0; c < kLogFold; ++c) {
-                            const float* u = buf + (r + c) * stride;
-                            const float4 a = *reinterpret_cast<const float4*>(u + off_a);
-                            const float4 e = *reinterpret_cast<const float4*>(u + off_b);
-                            const float2 x = *reinterpret_cast<const float2*>(u + off_c);
-                            const float2 y = *reinterpret_cast<const float2*>(u + off_d);
-                            const float av[4] = {a.x, a.y, a.z, a.w};
-                            const float ev[4] = {e.x, e.y, e.z, e.w};
-#pragma unroll
-                            for (int i = 0; i < 4; ++i) {
-#pragma unroll
-                                for (int j = 0; j < 4; ++j) prod[4 * i + j] *= av[i] + ev[j];
-                            }
-                            prod[kQuadSlots + 0] *= x.x + y.x;
-                            prod[kQuadSlots + 1] *= x.x + y.y;
-                            prod[kQuadSlots + 2] *= x.y + y.x;
-                            prod[kQuadSlots + 3] *= x.y + y.y;
-                        }
-#pragma unroll
-                        for (int s = 0; s < kSlots; ++s) {
-                            sum[s] += log_of<kFastLog>(prod[s]);
-                            prod[s] = 1.f;
-                        }
-                    }
-                    q_cur = q_next;
-                    cur ^= 1;
                 }
+                __syncwarp();
+                for (int r = 0; r < rows; r += kLogFold) {
+#pragma unroll
+                    for (int c = 0; c < kLogFold; ++c) {
+                        const float* u = buf + (r + c) * stride;
+                        const float4 a = *reinterpret_cast<const float4*>(u + off_a);
+                        const float4 e = *reinterpret_cast<const float4*>(u + off_b);
+                        const float2 x = *reinterpret_cast<const float2*>(u + off_c);
+                        const float2 y = *reinterpret_cast<const float2*>(u + off_d);
+                        const float av[4] = {a.x, a.y, a.z, a.w};
+                        const float ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                            for (int j = 0; j < 4; ++j) prod[4 * i + j] *= av[i] + ev[j];
+                        }
+                        prod[kQuadSlots + 0] *= x.x + y.x;
+                        prod[kQuadSlots + 1] *= x.x + y.y;
+                        prod[kQuadSlots + 2] *= x.y + y.x;
+                        prod[kQuadSlots + 3] *= x.y + y.y;
+                    }
+#pragma unroll
+                    for (int s = 0; s < kSlots; ++s) {
+                        sum[s] += log_of<kFastLog>(prod[s]);
+                        prod[s] = 1.f;
+                    }
+                }
+                q_cur = q_next;
+                cur ^= 1;
             }
             // every group ended in a log, so prod is 1 and pen + (sum + log 1) is pen + sum
 #pragma unroll
@@ -400,7 +492,8 @@ int launch_estep(const float* genotype_prob, int n_donors, const int64_t* band_e
     using Kernel = decltype(&estep_kernel<false, 4, kBanded>);
     const int stride = 4 * ((n_donors + 3) / 4);
     const int row_floats = (n_pg + 3) & ~3;
-    const size_t warp_bytes = ((size_t)2 * kTileCalls * stride + row_floats) * sizeof(float);
+    const size_t warp_floats = (size_t)2 * kTileCalls * stride + row_floats + (kBanded ? kWindowFloats : 0);
+    const size_t warp_bytes = warp_floats * sizeof(float);
     int device, optin, n_sms, status;
     if ((status = cudaGetDevice(&device)) != 0) return status;
     if ((status = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != 0) return status;
@@ -452,28 +545,20 @@ extern "C" int demux_estep_logits(
 
 // The banded E-step: band_edges [n_bands + 1] cut the variants, band_ptr
 // [n_bands, n_barcodes + 1] is each band's barcode CSR over the band-major
-// calls, vid is band-local. Logits only.
+// calls, vid is band-local; all three and the schedule were checked by
+// demux_banded_check when the operands were built. Logits only.
 extern "C" int demux_estep_logits_banded(
     const float* genotype_prob, int64_t n_variants, int n_donors,
     const int64_t* band_edges, int n_bands, const int64_t* band_ptr,
-    int64_t n_calls, const int32_t* vid, const float* q, int64_t n_barcodes,
+    const int32_t* vid, const float* q, int64_t n_barcodes,
     const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
-    float* logits, int fast_log, void* stream)
+    float* logits, int fast_log, int device, void* stream)
 {
     // global variant ids are ints inside the kernel
     if (n_barcodes <= 0 || n_pg <= 0 || n_donors <= 0 || n_passes <= 0 || n_bands <= 0 || n_variants > INT32_MAX)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    int status;
-    // edges non-decreasing in [0, n_variants]; the flattened band CSR non-decreasing in [0, n_calls]
-    if ((status = demux_check_csr(band_edges, n_bands, n_variants, s)) != 0) return status;
-    if ((status = demux_check_csr(band_ptr, (int64_t)n_bands * (n_barcodes + 1) - 1, n_calls, s)) != 0)
-        return status;
-    if ((status = demux_check_banded_index(vid, band_ptr, band_edges, n_bands, n_barcodes, INT64_MAX, n_calls, s)) != 0)
-        return status;
-    if ((status = demux_check_schedule(schedule, (int64_t)n_passes * kWarp * kEntry, kEntry, (n_donors + 3) / 4,
-                                       n_pg, s)) != 0)
-        return status;
+    const demux::DeviceGuard guard(device);
+    if (guard.status() != 0) return guard.status();
     return launch_estep<true>(genotype_prob, n_donors, band_edges, n_bands, band_ptr, vid, q, n_barcodes, penalties,
-                              schedule, n_passes, n_pg, nullptr, logits, nullptr, fast_log, s);
+                              schedule, n_passes, n_pg, nullptr, logits, nullptr, fast_log, (cudaStream_t)stream);
 }

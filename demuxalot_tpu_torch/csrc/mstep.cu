@@ -23,14 +23,10 @@
 // once). The first version walked the calls one by one, two dependent
 // broadcast loads (q, cb) and then the row read. Here
 // - lanes run over donors, so each row read is one coalesced segment;
-// - a warp loads its calls' cb and q in tiles of 32 (lane l reads call
-//   c0 + l, turns cb into the 32-bit row offset cb * n_pg and q into the
-//   factor 1 - q, or 0 for q >= 1) and stages them in shared memory, where
-//   one broadcast 16-byte load hands out two calls (handed out by shuffles,
-//   with 64-bit row offsets, a call took about twice the instructions);
-// - kDepth row reads (ld.global.nc) are issued back to back before the first
-//   is added, so up to kDepth round trips overlap in each warp; a tile's
-//   rest goes in groups of 4, 2 and 1: no per-call predicate or bounds test;
+// - a warp loads its calls' cb and q in tiles of 32 and stages them in
+//   shared memory as (row offset cb * n_pg, factor) pairs, then issues
+//   kDepth row reads back to back before the first is added
+//   (mstep_tiles.cuh, shared with the banded M-step in banded.cu);
 // - one warp owns a unit: one variant (mstep_addition) or one SNP run of at
 //   most kMaxRun variants (mstep_update), summed variant by variant.
 // More donors than lanes loop in blocks of 32 (idle lanes read a real column
@@ -52,24 +48,14 @@
 // Bounds checks: demux_mstep_check runs checks.cu's kernels over var_ptr and
 // cb once, when the operands are built (ops/mstep_kernel.py:mstep_operands);
 // the launches read indices that are already checked, and carry no trap.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "common.cuh"
+#include "mstep_tiles.cuh"
 
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream);
 int demux_check_csr(const int64_t* row_ptr, int64_t n_rows, int64_t n_entries, cudaStream_t stream);
 
 namespace {
 
-using demux::kFullMask;
-using demux::kWarpSize;
-
-constexpr int kWarpsPerBlock = 8;
-constexpr int kTile = 32;   // calls per index tile: one per lane
 constexpr int kMaxRun = 6;  // ops/packing.py:MAX_WINDOWED_RUN
-enum PowerKind { kPowerAny = 0, kPowerOne = 1, kPowerTwo = 2, kPowerHalf = 3 };
 
 struct Calls {
     const float* posterior;  // [n_barcodes, n_pg]
@@ -90,22 +76,6 @@ struct Epilogue {
     float* genotype_prob;  // [n_variants, n_donors]
 };
 
-// A call's factor, computed once per call by the lane that loads it: 1 - q,
-// or 0 for q >= 1 (padding). A zero factor makes the term +0 at p = 1, 2 and
-// 0.5 for any finite posterior, so the sum takes no select; at any other p
-// (powf(0, p) need not be 0) the term keeps one.
-__device__ __forceinline__ float call_factor(float q) { return q >= 1.f ? 0.f : __fsub_rn(1.f, q); }
-
-// (post * f)^p; torch's pow takes sqrt at p = 0.5
-template <int kPower>
-__device__ __forceinline__ float call_term(float post, float f, float power) {
-    const float w = __fmul_rn(post, f);
-    if constexpr (kPower == kPowerTwo) return __fmul_rn(w, w);
-    else if constexpr (kPower == kPowerOne) return w;
-    else if constexpr (kPower == kPowerHalf) return __fsqrt_rn(w);
-    else return f == 0.f ? 0.f : powf(w, power);  // f == 0 exactly when q >= 1
-}
-
 // asynchronous 4-byte copy from global to shared memory (read dst after
 // cp.async.wait_all)
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -117,45 +87,8 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 __device__ __forceinline__ float clamp_min(float x, float lo) { return isnan(x) ? x : fmaxf(x, lo); }
 __device__ __forceinline__ float clamp(float x, float lo, float hi) { return isnan(x) ? x : fminf(fmaxf(x, lo), hi); }
 
-// A tile's calls as the warp reads them: (row offset cb * n_pg, factor bits),
-// two calls per 16 bytes, so one broadcast shared-memory load hands out two
-// calls (where shuffles took two instructions per call)
-struct Stage {
-    uint4 pair[kTile / 2];
-    __device__ __forceinline__ void call(int k, uint32_t& offset, float& f) const {
-        const uint4 p = pair[k / 2];
-        offset = k % 2 ? p.z : p.x;
-        f = __uint_as_float(k % 2 ? p.w : p.y);
-    }
-};
-
-// kN calls of the staged tile from slot k0 (even when kN > 1): all kN row
-// reads are issued before the first is added, and the sum stays in call order
-template <int kPower, int kN>
-__device__ __forceinline__ float add_calls(float acc, const float* column, const Stage& stage, int k0, float power) {
-    float x[kN], f[kN];
-    if constexpr (kN == 1) {
-        uint32_t offset;
-        stage.call(k0, offset, f[0]);
-        x[0] = __ldg(column + offset);
-    } else {
-#pragma unroll
-        for (int k = 0; k < kN; k += 2) {
-            const uint4 p = stage.pair[(k0 + k) / 2];
-            x[k] = __ldg(column + p.x);
-            x[k + 1] = __ldg(column + p.z);
-            f[k] = __uint_as_float(p.y);
-            f[k + 1] = __uint_as_float(p.w);
-        }
-    }
-#pragma unroll
-    for (int k = 0; k < kN; ++k) acc = __fadd_rn(acc, call_term<kPower>(x[k], f[k], power));
-    return acc;
-}
-
 // addition[v, lane's donor] of the calls [lo, hi), in order: tiles of kTile
-// calls staged in shared memory, groups of kDepth row reads in flight, the
-// tile's rest in groups of 4, 2 and 1
+// calls staged in shared memory, summed by add_tile
 template <int kPower, int kDepth>
 __device__ __forceinline__ float variant_sum(const Calls& a, const float* column, Stage& stage, int lane, int64_t lo,
                                              int64_t hi) {
@@ -168,25 +101,8 @@ __device__ __forceinline__ float variant_sum(const Calls& a, const float* column
             offset = (uint32_t)__ldg(a.cb + c0 + lane) * (uint32_t)a.n_pg;
             f = call_factor(__ldg(a.q + c0 + lane));
         }
-        __syncwarp();  // the previous tile is read
-        uint32_t* slot = reinterpret_cast<uint32_t*>(&stage.pair[lane / 2]) + 2 * (lane % 2);
-        slot[0] = offset;
-        slot[1] = __float_as_uint(f);
-        __syncwarp();
-        int k0 = 0;
-        for (; k0 + kDepth <= n; k0 += kDepth) acc = add_calls<kPower, kDepth>(acc, column, stage, k0, a.power);
-        if constexpr (kDepth > 4) {
-            for (; k0 + 4 <= n; k0 += 4) acc = add_calls<kPower, 4>(acc, column, stage, k0, a.power);
-        }
-        if constexpr (kDepth > 2) {
-            if (k0 + 2 <= n) {
-                acc = add_calls<kPower, 2>(acc, column, stage, k0, a.power);
-                k0 += 2;
-            }
-        }
-        if constexpr (kDepth > 1) {
-            if (k0 < n) acc = add_calls<kPower, 1>(acc, column, stage, k0, a.power);
-        }
+        stage_tile(stage, lane, offset, f);
+        acc = add_tile<kPower, kDepth>(acc, column, stage, n, a.power);
     }
     return acc;
 }
@@ -201,7 +117,6 @@ struct RunRows {
 // one warp per unit: variant `unit` (addition only) or SNP run `unit` (kUpdate)
 template <int kPower, int kDepth, bool kUpdate>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarpSize) mstep_kernel(Calls a, Epilogue ep) {
-    static_assert(kTile % kDepth == 0 && (kDepth == 1 || kDepth % 2 == 0), "groups divide the tile, in pairs");
     const int64_t unit = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarpSize;
     if (unit >= a.n_units) return;  // a whole warp
     const int lane = threadIdx.x % kWarpSize;

@@ -17,21 +17,28 @@ banding: band-local ids and a band-sized table.
       u            = G[edges[k] + vid_c]·(1 − q_c) + max(q_c, 1e-4)
 
   summed in band order, then in call order. Kernel: ``csrc/likelihood.cu``
-  (its banded instantiation), one warp per barcode as on the main path,
-  each row read from its band's slice of G.
+  (its banded instantiation), one warp per barcode as on the main path, its
+  ring of 32-slot tiles running over one stream per barcode: the barcode's
+  band segments end to end, each padded to whole groups of 8 calls
+  (:func:`slot_plan` mirrors it), each row read from its band's slice of G.
 - :func:`mstep_addition_banded` (``_mstep_kernel_ig``, ``:252``). The
-  barcodes are cut into K ≥ 2 bands; the table is
-  ``posterior[:, :D] ** p`` stacked band by band (:func:`banded_table`),
-  calls carry band-local barcodes and lie band-major, a variant CSR per band
-  (:class:`BandedMStepOperands`); ``q2 = (1 − q)^p`` (0 for q ≥ 1). Per
+  barcodes are cut into K ≥ 2 bands; calls carry band-local barcodes and
+  lie band-major, a variant CSR per band (:class:`BandedMStepOperands`). Per
   variant v and donor d::
 
-      addition[v, d] = Σ_k Σ_{calls c of v in band k} table[k·band_rows + cb_c, d]·q2_c
+      addition[v, d] = Σ_k Σ_{calls c of v in band k} (post[edges[k] + cb_c, d]·(1 − q_c))^p
 
-  Kernel: ``csrc/banded.cu``, a block's band of the table in shared memory.
+  Kernel: ``csrc/banded.cu``, one warp per variant walking its band
+  segments in order through the mainline M-step's call tiles, the rows read
+  from L2. The plain version keeps the TPU kernel's form: a table of
+  ``posterior[:, :D] ** p`` stacked band by band (:func:`banded_table`)
+  times ``q2 = (1 − q)^p`` (0 for q ≥ 1).
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors; anything else raises. ``.launches`` counts
+The operand builders check the band CSR, the band-local ids (and the
+E-step's schedule) once on a card (``csrc/checks.cu``); the launches check
+nothing, and refuse operands the builders did not make.
+Each wrapper launches its kernel (through ``ops._cuda.Entry``) for CUDA
+tensors and runs its plain version for CPU tensors; anything else raises. ``.launches`` counts
 launches. :func:`bench_workload` and :func:`run_ab` time the banded kernels
 beside the mainline ones at the JAX harness's shape; ``python -m
 demuxalot_tpu_torch.experiments.inkernel_gather [--device cpu]`` prints the
@@ -59,13 +66,14 @@ BENCH = dict(n_barcodes=65_536, n_donors=32, n_snps=65_536, calls_per_barcode=64
 DOUBLET_PRIOR = 0.35
 ESTEP_BANDS = 12
 POWER = 2.0  # the engine's default contribution_power
-# the M-step's band of power-table rows per block: with the sums of the
-# block's variants beside it, it has to fit a block's 227 KB of shared memory
+# the M-step's barcode bands are sized as the TPU harness sized its VMEM
+# blocks: power-table rows of at most 100 KB a band (82 bands at the bench
+# shape); the card's kernel stages nothing, so this only sets K
 MSTEP_BAND_BYTES = 100 * 1024
 # the bars the banded results meet against the mainline's (chip_smoke.py's)
 LOGITS_TOL = dict(rtol=1e-4, atol=5e-3)
 ADDITION_TOL = dict(rtol=1e-4, atol=1e-5)
-CUDA_ERROR_INVALID_VALUE = 1
+LOG_FOLD = 8  # the E-step's calls per log: a band segment takes whole groups of slots
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +119,7 @@ class BandedEStepOperands(NamedTuple):
     cb: torch.Tensor  # i32 [N] barcode of every call (plain)
     vid: torch.Tensor  # i32 [N] band-local variant
     q: torch.Tensor  # f32 [N]
+    n_variants: int = 0  # rows of G the ids were checked against
 
     @property
     def n_bands(self) -> int:
@@ -121,21 +130,65 @@ class BandedEStepOperands(NamedTuple):
         return self.band_ptr.shape[1] - 1
 
 
+class CheckedBandedEStepOperands(BandedEStepOperands):
+    """Operands :func:`banded_estep_operands` built and checked; ``_replace`` returns unchecked ones."""
+
+    __slots__ = ()
+
+    def _replace(self, **fields) -> BandedEStepOperands:
+        return BandedEStepOperands(*self)._replace(**fields)
+
+
 def banded_estep_operands(n_donors: int, doublet_prior: float, cb: torch.Tensor, vid: torch.Tensor,
-                          q: torch.Tensor, n_barcodes: int, n_variants: int, n_bands: int) -> BandedEStepOperands:
-    """The banded layout of the calls (cb, vid, q) on their device; a barcode's calls keep their order in a band."""
+                          q: torch.Tensor, n_barcodes: int, n_variants: int,
+                          n_bands: int) -> CheckedBandedEStepOperands:
+    """The banded layout of the calls (cb, vid, q) on their device; a barcode's calls keep their order in a band.
+
+    On a card the edges, the band CSR, the band-local ids and the schedule
+    are checked once here (``csrc/checks.cu``'s kernels trap on a bad one).
+    """
     device = cb.device
     edges = torch.from_numpy(band_edges(n_variants, n_bands)).to(device)
     band = band_of(vid, edges)
     order, band_ptr = _band_major(band, cb, n_bands, n_barcodes)
     col_i, col_j = L.pseudogenotype_pairs(n_donors, doublet_prior)
-    return BandedEStepOperands(
+    operands = CheckedBandedEStepOperands(
         penalties=torch.from_numpy(L.doublet_penalties(n_donors, doublet_prior)).to(device),
         schedule=torch.from_numpy(estep_schedule(n_donors, doublet_prior).copy()).to(device),
         mixing=torch.from_numpy(L.mixing_from_pairs(col_i, col_j, n_donors)).to(device),
         band_edges=edges, band_ptr=band_ptr, cb=cb[order].contiguous(),
         vid=(vid[order].long() - edges[band[order]]).to(torch.int32), q=q[order].contiguous(),
+        n_variants=n_variants,
     )
+    if device.type == "cuda":
+        o = operands
+        _check_banded(edges, edges.data_ptr(), n_bands, n_variants, band_ptr.data_ptr(), n_barcodes,
+                      o.vid.shape[0], o.vid.data_ptr(), o.schedule.data_ptr(), o.schedule.shape[0], ENTRY, n_donors,
+                      o.penalties.shape[0])
+    return operands
+
+
+def slot_plan(band_ptr: torch.Tensor) -> tuple:
+    """The banded E-step kernel's stream of slots per barcode (``csrc/likelihood.cu``, kBanded), on the host.
+
+    Barcode b's K segments (its calls of band k, ``band_ptr[k, b] ..
+    band_ptr[k, b + 1]``) lie end to end in band order, each from a
+    multiple of ``LOG_FOLD`` slots and padded to the next; an empty segment
+    takes no slot. Returns (``call_slot`` i64 [N], each call's slot in its
+    barcode's stream; ``seg_start`` i64 [K, B], each segment's first slot;
+    ``stream_len`` i64 [B]) for the band-major calls of ``band_ptr``.
+    """
+    n_bands, n_barcodes = band_ptr.shape[0], band_ptr.shape[1] - 1
+    counts = band_ptr[:, 1:] - band_ptr[:, :-1]
+    padded = (counts + LOG_FOLD - 1) // LOG_FOLD * LOG_FOLD
+    ends = torch.cumsum(padded, 0)
+    seg_start = ends - padded
+    segment = torch.repeat_interleave(torch.arange(n_bands * n_barcodes, device=band_ptr.device),
+                                      counts.reshape(-1))
+    first = band_ptr[:, :-1].reshape(-1)
+    call = torch.arange(segment.shape[0], device=band_ptr.device) + band_ptr[0, 0]
+    call_slot = seg_start.reshape(-1)[segment] + call - first[segment]
+    return call_slot, seg_start, ends[-1]
 
 
 class BandedMStepOperands(NamedTuple):
@@ -146,7 +199,8 @@ class BandedMStepOperands(NamedTuple):
     vid: torch.Tensor  # i32 [N] variant of every call (plain)
     cb: torch.Tensor  # i32 [N] band-local barcode
     q: torch.Tensor  # f32 [N]
-    band_rows: int  # rows of one band of the power table (:func:`band_rows`)
+    band_rows: int  # rows of one band of the power table (:func:`band_rows`, plain)
+    n_barcodes: int = 0  # posterior rows the barcodes were checked against
 
     @property
     def n_bands(self) -> int:
@@ -157,19 +211,37 @@ class BandedMStepOperands(NamedTuple):
         return self.band_ptr.shape[1] - 1
 
 
+class CheckedBandedMStepOperands(BandedMStepOperands):
+    """Operands :func:`banded_mstep_operands` built and checked; ``_replace`` returns unchecked ones."""
+
+    __slots__ = ()
+
+    def _replace(self, **fields) -> BandedMStepOperands:
+        return BandedMStepOperands(*self)._replace(**fields)
+
+
 def banded_mstep_operands(vid: torch.Tensor, cb: torch.Tensor, q: torch.Tensor, n_variants: int,
-                          n_barcodes: int, n_bands: int) -> BandedMStepOperands:
+                          n_barcodes: int, n_bands: int) -> CheckedBandedMStepOperands:
     """The barcode-banded layout of the calls (vid, cb, q) on their device; a variant's calls keep their order
-    in a band (the JAX layout builder with the axes swapped, ``demuxalot_tpu/ops/pallas_mstep.py:476-485``)."""
+    in a band (the JAX layout builder with the axes swapped, ``demuxalot_tpu/ops/pallas_mstep.py:476-485``).
+
+    On a card the edges, the band CSR and the band-local barcodes are checked
+    once here (``csrc/checks.cu``'s kernels trap on a bad one).
+    """
     edges_np = band_edges(n_barcodes, n_bands)
     edges = torch.from_numpy(edges_np).to(cb.device)
     band = band_of(cb, edges)
     order, band_ptr = _band_major(band, vid, n_bands, n_variants)
-    return BandedMStepOperands(
+    operands = CheckedBandedMStepOperands(
         band_edges=edges, band_ptr=band_ptr, vid=vid[order].contiguous(),
         cb=(cb[order].long() - edges[band[order]]).to(torch.int32), q=q[order].contiguous(),
-        band_rows=band_rows(edges_np),
+        band_rows=band_rows(edges_np), n_barcodes=n_barcodes,
     )
+    if cb.device.type == "cuda":
+        o = operands
+        _check_banded(edges, edges.data_ptr(), n_bands, n_barcodes, band_ptr.data_ptr(), n_variants, o.cb.shape[0],
+                      o.cb.data_ptr(), None, 0, ENTRY, 1, 1)
+    return operands
 
 
 def band_rows(band_edges_: np.ndarray) -> int:
@@ -180,8 +252,8 @@ def band_rows(band_edges_: np.ndarray) -> int:
 def banded_table(rows: torch.Tensor, band_edges_: torch.Tensor, height: int) -> torch.Tensor:
     """[K·height, D]: band k's rows of ``rows`` [R, D] at [k·height, k·height + edges[k+1] − edges[k]), padding 0.
 
-    The port of ``inkernel_gather_kernels.py:57``; ``height`` is at least the
-    tallest band (:func:`band_rows`). No host sync.
+    The port of ``inkernel_gather_kernels.py:57`` (the plain M-step's table);
+    ``height`` is at least the tallest band (:func:`band_rows`). No host sync.
     """
     n_bands = band_edges_.shape[0] - 1
     band = torch.repeat_interleave(torch.arange(n_bands, device=rows.device), band_edges_.diff(),
@@ -243,15 +315,17 @@ def estep_logits_banded(genotype_prob: torch.Tensor, operands: BandedEStepOperan
         return estep_logits_banded_plain(genotype_prob, operands)
     if device.type != "cuda":
         raise ValueError(f"estep_logits_banded runs on cpu or cuda tensors, not {device}")
+    if not isinstance(o, CheckedBandedEStepOperands):
+        raise ValueError("estep_logits_banded: operands must come from banded_estep_operands")
+    if n_variants != o.n_variants:
+        raise ValueError(f"estep_logits_banded: genotype_prob has {n_variants} rows, the operands were checked "
+                         f"against {o.n_variants} variants")
     logits = torch.empty((o.n_barcodes, n_pg), dtype=torch.float32, device=device)
     if o.n_barcodes > 0:
-        with torch.cuda.device(device):
-            status = _cuda.library().demux_estep_logits_banded(
-                genotype_prob.data_ptr(), n_variants, n_donors, o.band_edges.data_ptr(), o.n_bands,
-                o.band_ptr.data_ptr(), o.vid.shape[0], o.vid.data_ptr(), o.q.data_ptr(), o.n_barcodes,
-                o.penalties.data_ptr(), o.schedule.data_ptr(), o.schedule.shape[0], n_pg, logits.data_ptr(),
-                int(likelihood_kernel.FAST_LOG), torch.cuda.current_stream(device).cuda_stream)
-        _cuda.check_launch("estep_logits_banded", status)
+        _estep_banded(genotype_prob, genotype_prob.data_ptr(), n_variants, n_donors, o.band_edges.data_ptr(),
+                      o.n_bands, o.band_ptr.data_ptr(), o.vid.data_ptr(), o.q.data_ptr(), o.n_barcodes,
+                      o.penalties.data_ptr(), o.schedule.data_ptr(), o.schedule.shape[0], n_pg, logits.data_ptr(),
+                      int(likelihood_kernel.FAST_LOG))
         estep_logits_banded.launches += 1
     return logits
 
@@ -273,7 +347,7 @@ def _check_banded_mstep(n_bands: int, power: float) -> None:
 
 
 def _power_fold(posterior: torch.Tensor, operands: BandedMStepOperands, n_genotypes: int, power: float):
-    """(table, q2): the banded posterior^p table and (1 − q)^p, exactly 0 for q ≥ 1."""
+    """(table, q2) of the plain version: the banded posterior^p table and (1 − q)^p, exactly 0 for q ≥ 1."""
     table = banded_table(posterior[:, :n_genotypes] ** power, operands.band_edges, operands.band_rows)
     q2 = torch.where(operands.q >= 1.0, 0.0, (1.0 - operands.q) ** power)
     return table, q2
@@ -296,8 +370,10 @@ def mstep_addition_banded(posterior: torch.Tensor, operands: BandedMStepOperands
                           power: float) -> torch.Tensor:
     """Beta addition f32 [V, D] from posterior f32 [B, PG]; the CUDA kernel for CUDA tensors.
 
-    Raises for fewer than 2 bands, a power ≤ 0, and, on a card, a band of
-    the power table that does not fit a block's shared memory.
+    Raises for fewer than 2 bands and a power ≤ 0 (the JAX launcher's
+    refusals), and on a card for operands :func:`banded_mstep_operands` did
+    not build or a posterior of another row count than they were checked
+    against.
     """
     device = posterior.device
     o = operands
@@ -317,24 +393,26 @@ def mstep_addition_banded(posterior: torch.Tensor, operands: BandedMStepOperands
         return mstep_addition_banded_plain(posterior, operands, n_genotypes, power)
     if device.type != "cuda":
         raise ValueError(f"mstep_addition_banded runs on cpu or cuda tensors, not {device}")
-    with torch.cuda.device(device):
-        table, q2 = _power_fold(posterior, o, n_genotypes, power)
-        addition = torch.empty((o.n_variants, n_genotypes), dtype=torch.float32, device=device)
-        if o.n_variants == 0:
-            return addition
-        status = _cuda.library().demux_mstep_addition_banded(
-            table.data_ptr(), o.n_bands, o.band_rows, n_genotypes, o.band_edges.data_ptr(), n_barcodes,
-            o.band_ptr.data_ptr(), o.cb.shape[0], o.cb.data_ptr(), q2.data_ptr(), o.n_variants,
-            addition.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    if status == CUDA_ERROR_INVALID_VALUE:  # the launcher's refusal of a band past a block's shared memory
-        raise ValueError(f"a band of {o.band_rows} barcode rows x {n_genotypes} donors, with one variant's sums "
-                         f"beside it, does not fit a block's shared memory: use more bands")
-    _cuda.check_launch("mstep_addition_banded", status)
-    mstep_addition_banded.launches += 1
+    if not isinstance(o, CheckedBandedMStepOperands):
+        raise ValueError("mstep_addition_banded: operands must come from banded_mstep_operands")
+    if n_barcodes != o.n_barcodes:
+        raise ValueError(f"mstep_addition_banded: posterior has {n_barcodes} rows, the operands were checked "
+                         f"against {o.n_barcodes} barcodes")
+    if posterior.numel() >= 2 ** 32:
+        raise ValueError("mstep_addition_banded: the kernel addresses posterior rows with 32-bit offsets")
+    addition = torch.empty((o.n_variants, n_genotypes), dtype=torch.float32, device=device)
+    if o.n_variants > 0:
+        _mstep_banded(posterior, posterior.data_ptr(), n_pg, n_genotypes, o.band_edges.data_ptr(), o.n_bands,
+                      o.band_ptr.data_ptr(), o.cb.data_ptr(), o.q.data_ptr(), o.n_variants, float(power),
+                      addition.data_ptr())
+        mstep_addition_banded.launches += 1
     return addition
 
 
 mstep_addition_banded.launches = 0
+_estep_banded = _cuda.Entry("demux_estep_logits_banded")
+_mstep_banded = _cuda.Entry("demux_mstep_addition_banded")
+_check_banded = _cuda.Entry("demux_banded_check")
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +504,7 @@ def run_ab(workload: Workload, repeats: int = 10) -> dict:
         "n_donors": w.n_genotypes, "n_calls": int(w.estep.q.shape[0]), "n_pg": int(w.estep.penalties.shape[0]),
         "estep_bands": w.estep_banded.n_bands, "mstep_bands": w.mstep_banded.n_bands,
         "mstep_band_rows": w.mstep_banded.band_rows,
+        "estep_slots": int(slot_plan(w.estep_banded.band_ptr.cpu())[2].sum()),
         "genotype_table_bytes": w.genotype_prob.numel() * 4,
         "logits_max_abs_err": float((banded - mainline).abs().max()),
         "addition_max_abs_err": float((addition_banded - addition).abs().max()),

@@ -68,15 +68,21 @@ _SIGNATURES = {
     "demux_estep_logits_banded": (
         _vp, _i64, _i32,  # genotype_prob, n_variants, n_donors
         _vp, _i32, _vp,  # band_edges, n_bands, band_ptr
-        _i64, _vp, _vp, _i64,  # n_calls, vid (band-local), q, n_barcodes
+        _vp, _vp, _i64,  # vid (band-local), q, n_barcodes
         _vp, _vp, _i32, _i32,  # penalties, schedule, n_passes, n_pg
-        _vp, _i32, _vp,  # logits, fast_log, stream
+        _vp, _i32, _i32, _vp,  # logits, fast_log, device, stream
     ),
     "demux_mstep_addition_banded": (
-        _vp, _i32, _i32, _i32,  # table, n_bands, band_rows, n_donors
-        _vp, _i64,  # band_edges, n_barcodes
-        _vp, _i64, _vp, _vp, _i64,  # band_ptr, n_calls, cb (band-local), q2, n_variants
-        _vp, _vp,  # addition, stream
+        _vp, _i32, _i32,  # posterior, n_pg, n_donors
+        _vp, _i32, _vp,  # band_edges, n_bands, band_ptr
+        _vp, _vp, _i64,  # cb (band-local), q, n_variants
+        _f32, _vp, _i32, _vp,  # power, addition, device, stream
+    ),
+    "demux_banded_check": (
+        _vp, _i32, _i64,  # band_edges, n_bands, n_rows
+        _vp, _i64, _i64, _vp,  # band_ptr, n_groups, n_calls, idx (band-local)
+        _vp, _i32, _i32, _i32, _i32,  # schedule (or null), n_passes, entry, n_donors, n_pg
+        _i32, _vp,  # device, stream
     ),
     "demux_gather_rows": (
         _vp, _i64, _i32, _vp, _i64,  # table, n_rows, width, idx, n

@@ -586,12 +586,18 @@ def test_gpu_estep_banded_matches_plain(n_donors, n_bands):
 
 
 @pytest.mark.gpu
-def test_gpu_estep_banded_padding_is_bit_exact():
+@pytest.mark.parametrize("n_bands", [1, 12, 300])
+def test_gpu_estep_banded_padding_is_bit_exact(n_bands):
+    """999 padding calls after each barcode's real calls lie, once banded, at the ends of their band segments,
+    inside the barcode's stream of bands: they leave every logit's bits."""
     _need_card()
     from demuxalot_tpu_torch.experiments.inkernel_gather import estep_logits_banded
 
-    assert torch.equal(estep_logits_banded(*_banded_estep_args(32, 12)),
-                       estep_logits_banded(*_banded_estep_args(32, 12, pad=999)))
+    base = _banded_estep_args(32, n_bands)
+    padded = _banded_estep_args(32, n_bands, pad=999)
+    ptr, ptr_padded = base[1].band_ptr, padded[1].band_ptr
+    assert n_bands == 1 or bool((ptr_padded[:-1, -1] > ptr[:-1, -1]).any()), "padding before later bands' calls"
+    assert torch.equal(estep_logits_banded(*base), estep_logits_banded(*padded))
 
 
 @pytest.mark.gpu
@@ -621,17 +627,125 @@ def test_gpu_mstep_banded_matches_plain(n_donors, n_bands, power):
 
 
 @pytest.mark.gpu
-def test_gpu_mstep_banded_band_past_shared_memory_raises():
-    """Two bands of 35,000 barcodes x 32 donors (4.5 MB each) cannot sit in a block's shared memory."""
+def test_gpu_mstep_banded_past_shared_memory_matches_plain():
+    """Two bands of 35,000 barcodes x 32 donors (4.5 MB each, past a block's shared memory): the kernel stages no
+    band, so it runs them, held to its plain version."""
     _need_card()
-    from demuxalot_tpu_torch.experiments.inkernel_gather import banded_mstep_operands, mstep_addition_banded
+    from demuxalot_tpu_torch.experiments.inkernel_gather import (
+        banded_mstep_operands, mstep_addition_banded, mstep_addition_banded_plain,
+    )
 
     post, vid, cb, q, n_variants, _ = mstep_problem(n_donors=32, n_barcodes=70_000)
     operands = banded_mstep_operands(t(vid, "cuda"), t(cb, "cuda"), t(q, "cuda"), n_variants, 70_000, 2)
+    args = (t(post, "cuda"), operands, 32, 2.0)
     launches = mstep_addition_banded.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        mstep_addition_banded(t(post, "cuda"), operands, 32, 2.0)
-    assert mstep_addition_banded.launches == launches
+    got = mstep_addition_banded(*args)
+    assert mstep_addition_banded.launches == launches + 1
+    want = mstep_addition_banded_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, mstep_addition_banded(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bands", [2, 40])
+def test_gpu_mstep_banded_padding_mid_band_is_bit_exact(n_bands):
+    """q = 1 calls inserted at random places of the calls, so mid-band once banded, add exactly 0."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments.inkernel_gather import banded_mstep_operands, mstep_addition_banded
+
+    post, vid, cb, q, n_variants, n_donors = mstep_problem(n_donors=7)
+    rng = np.random.RandomState(21)
+    at = np.sort(rng.randint(0, len(vid) + 1, 1500))
+    vid_p = np.insert(vid, at, rng.randint(0, n_variants, len(at)).astype(np.int32))
+    cb_p = np.insert(cb, at, rng.randint(0, post.shape[0], len(at)).astype(np.int32))
+    q_p = np.insert(q, at, np.ones(len(at), np.float32))
+    runs = []
+    for v, c, w in ((vid, cb, q), (vid_p, cb_p, q_p)):
+        operands = banded_mstep_operands(t(v, "cuda"), t(c, "cuda"), t(w, "cuda"), n_variants, post.shape[0], n_bands)
+        runs.append(mstep_addition_banded(t(post, "cuda"), operands, n_donors, 2.0))
+    assert torch.equal(*runs)
+
+
+@pytest.mark.gpu
+def test_gpu_banded_calls_in_one_band_or_none():
+    """A barcode (E-step) and a variant (M-step) whose calls all lie in one band, and ones with none."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import inkernel_gather as IG
+
+    gprob, vid, cb, q, n_barcodes, n_donors, prior = estep_problem(n_donors=7, n_barcodes=60, n_calls=3000)
+    n_variants = gprob.shape[0]  # 200 in 8 bands of 25
+    vid = vid.copy()
+    vid[cb == 3] = 50 + vid[cb == 3] % 25  # barcode 3: band 2 only
+    vid[cb == 4] = 199  # barcode 4: one variant of the last band
+    keep = (cb != 5) & (cb != 6)  # barcodes 5 and 6: no calls
+    operands = IG.banded_estep_operands(n_donors, prior, t(cb[keep], "cuda"), t(vid[keep], "cuda"),
+                                        t(q[keep], "cuda"), n_barcodes, n_variants, 8)
+    ptr = operands.band_ptr.diff(dim=1)
+    assert int((ptr[:, 3] > 0).sum()) == 1 and int((ptr[:, 4] > 0).sum()) == 1 and not ptr[:, 5:7].any()
+    got = IG.estep_logits_banded(t(gprob, "cuda"), operands)
+    want = IG.estep_logits_banded_plain(t(gprob, "cuda"), operands)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=5e-3)
+    assert torch.equal(got[5], operands.penalties) and torch.equal(got[6], operands.penalties)
+
+    post, vid, cb, q, n_variants, n_donors = mstep_problem(n_donors=7)
+    cb = cb.copy()
+    cb[vid == 10] = 60 + cb[vid == 10] % 30  # variant 10: barcode band 2 (60 .. 90) only
+    cb[vid == 11] = 149  # variant 11: one barcode of the last band
+    keep = vid != 12  # variant 12: no calls
+    operands = IG.banded_mstep_operands(t(vid[keep], "cuda"), t(cb[keep], "cuda"), t(q[keep], "cuda"), n_variants,
+                                        post.shape[0], 5)
+    ptr = operands.band_ptr.diff(dim=1)
+    assert int((ptr[:, 10] > 0).sum()) == 1 and int((ptr[:, 11] > 0).sum()) == 1 and not ptr[:, 12].any()
+    args = (t(post, "cuda"), operands, n_donors, 2.0)
+    got = IG.mstep_addition_banded(*args)
+    want = IG.mstep_addition_banded_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    assert not got[12].any()
+
+
+def _captured_nodes(fn) -> list:
+    """The node types (CUgraphNodeType, 0 a kernel) of ``fn()`` captured in a CUDA graph, read by libcuda."""
+    import ctypes
+
+    fn()  # the library is loaded and each kernel's attributes set before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_size_t(0)
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    assert libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["estep", "mstep"])
+def test_gpu_banded_entries_launch_one_kernel(entry):
+    """Each banded entry is one launch and runs no check kernel: its call captures as one kernel node."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import inkernel_gather as IG
+
+    if entry == "estep":
+        args, wrapper = _banded_estep_args(32, 12), IG.estep_logits_banded
+    else:
+        post, vid, cb, q, n_variants, n_donors = mstep_problem(n_donors=7)
+        operands = IG.banded_mstep_operands(t(vid, "cuda"), t(cb, "cuda"), t(q, "cuda"), n_variants, post.shape[0],
+                                            40)
+        args, wrapper = (t(post, "cuda"), operands, n_donors, 2.0), IG.mstep_addition_banded
+    launches = wrapper.launches
+    assert _captured_nodes(lambda: wrapper(*args)) == [0]
+    assert wrapper.launches == launches + 2
 
 
 @pytest.mark.gpu
@@ -694,17 +808,15 @@ from demuxalot_tpu_torch.experiments import kernel_gather as KG
 from torch_problems import estep_problem, mstep_problem, t
 if {kernel!r} == "estep_banded":
     gprob, vid, cb, q, n_barcodes, n_donors, prior = estep_problem(n_donors=4)
-    operands = IG.banded_estep_operands(n_donors, prior, t(cb, "cuda"), t(vid, "cuda"), t(q, "cuda"), n_barcodes,
-                                        gprob.shape[0], 4)
-    bad = operands.vid.clone()
-    bad[len(bad) // 2] = 50  # band 2 of 200 variants holds 50: one past its last
-    launch = lambda: IG.estep_logits_banded(t(gprob, "cuda"), operands._replace(vid=bad))
+    vid[len(vid) // 2] = gprob.shape[0]  # one past the last variant: past its band's last row
+    # the operands' constructor checks the band-local ids once, so no banded kernel ever reads through them
+    launch = lambda: IG.banded_estep_operands(n_donors, prior, t(cb, "cuda"), t(vid, "cuda"), t(q, "cuda"),
+                                              n_barcodes, gprob.shape[0], 4)
 elif {kernel!r} == "mstep_banded":
     post, vid, cb, q, n_variants, n_donors = mstep_problem()
-    operands = IG.banded_mstep_operands(t(vid, "cuda"), t(cb, "cuda"), t(q, "cuda"), n_variants, post.shape[0], 3)
-    bad = operands.cb.clone()
-    bad[len(bad) // 2] = 50  # band 1 of 150 barcodes holds 50: one past its last
-    launch = lambda: IG.mstep_addition_banded(t(post, "cuda"), operands._replace(cb=bad), n_donors, 2.0)
+    cb[len(cb) // 2] = post.shape[0]  # one past the last barcode: past its band's last row
+    launch = lambda: IG.banded_mstep_operands(t(vid, "cuda"), t(cb, "cuda"), t(q, "cuda"), n_variants,
+                                              post.shape[0], 3)
 elif {kernel!r} == "gather":
     table, idx = KG.rate_inputs(100, 8, 1000)  # on chip
     idx[500] = 100
@@ -725,8 +837,8 @@ except Exception as error:
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["estep_banded", "mstep_banded", "gather", "gather_l2"])
 def test_gpu_banded_out_of_range_index_traps(kernel):
-    """A band-local id past its band traps in checks.cu; an index past the table (or negative) traps inside
-    the gather-sum on either path. In a child process."""
+    """A band-local id past its band traps in checks.cu when the banded operands are built; an index past the
+    table (or negative) traps inside the gather-sum on either path. In a child process."""
     _need_card()
     tests = Path(__file__).resolve().parent
     script = _BANDED_TRAP_SCRIPT.format(paths=[str(tests.parent), str(tests)], kernel=kernel)

@@ -133,6 +133,66 @@ def test_bands_match_the_jax_layouts(problem):
         assert (np.diff(mine.vid[lo:hi].numpy()) >= 0).all()
 
 
+@pytest.mark.parametrize("n_bands", [1, 3, 7, 250])
+def test_slot_plan_puts_every_call_in_one_slot(problem, n_bands):
+    """The banded E-step's stream (``slot_plan``): each call in one slot of its barcode's stream, each segment
+    from a multiple of 8 slots in band order, whole groups of 8, and no slot for an empty segment."""
+    ops = _banded_estep(problem, n_bands)
+    call_slot, seg_start, stream_len = IG.slot_plan(ops.band_ptr)
+    counts = ops.band_ptr.diff(dim=1)
+    assert call_slot.shape == (N_CALLS,) and seg_start.shape == (n_bands, N_BARCODES)
+    assert bool((seg_start % IG.LOG_FOLD == 0).all()) and bool((stream_len % IG.LOG_FOLD == 0).all())
+    keys = ops.cb.long() * int(stream_len.max()) + call_slot
+    assert torch.unique(keys).numel() == N_CALLS  # one call a slot
+    assert bool((call_slot < stream_len[ops.cb.long()]).all()) and bool((call_slot >= 0).all())
+    padded = (counts + 7) // 8 * 8
+    np.testing.assert_array_equal(seg_start[1:].numpy(), (seg_start[:-1] + padded[:-1]).numpy())  # band order
+    np.testing.assert_array_equal(stream_len.numpy(), padded.sum(0).numpy())  # an empty segment takes no slot
+    for k in range(n_bands):  # a segment's calls take its first slots, in order
+        lo, hi = ops.band_ptr[k, 0].item(), ops.band_ptr[k, -1].item()
+        b = ops.cb[lo:hi].long()
+        offset = call_slot[lo:hi] - seg_start[k, b]
+        np.testing.assert_array_equal(offset.numpy(), (torch.arange(lo, hi) - ops.band_ptr[k, b]).numpy())
+
+
+@pytest.mark.parametrize("n_bands", [1, 12, 250])
+def test_slot_plan_of_the_real_calls_ignores_padding(problem, n_bands):
+    """Padding calls after each barcode's real calls end their band segments: the real calls keep their
+    segment, their place in it and so their group of 8, and a segment's first slot moves by whole groups."""
+    p = problem
+    pad = 700
+    rng = np.random.RandomState(11)
+    vid = np.concatenate([p["vid"], rng.randint(0, N_VARIANTS, pad).astype(np.int32)])
+    cb = np.concatenate([p["cb"], rng.randint(0, N_BARCODES, pad).astype(np.int32)])
+    q = np.concatenate([p["q"], np.ones(pad, np.float32)])
+    order = np.argsort(cb, kind="stable")
+    plain, padded = _banded_estep(p, n_bands), _banded_estep(dict(p, vid=vid[order], cb=cb[order], q=q[order]),
+                                                             n_bands)
+    slots, starts, _ = IG.slot_plan(plain.band_ptr)
+    slots_p, starts_p, _ = IG.slot_plan(padded.band_ptr)
+    real = padded.q < 1
+    np.testing.assert_array_equal(padded.vid[real].numpy(), plain.vid.numpy())  # the real calls, in order
+    np.testing.assert_array_equal(padded.cb[real].numpy(), plain.cb.numpy())
+    first = lambda o: torch.cat([o.band_ptr[:, 0], o.band_ptr[-1:, -1]])  # noqa: E731  each band's first call
+    band = IG.band_of(torch.arange(N_CALLS), first(plain))  # band-major: a call's band from its index
+    band_p = IG.band_of(torch.arange(N_CALLS + pad), first(padded))[real]
+    np.testing.assert_array_equal(band_p.numpy(), band.numpy())
+    b = plain.cb.long()
+    offset = slots - starts[band, b]
+    offset_p = slots_p[real] - starts_p[band, b]
+    np.testing.assert_array_equal(offset_p.numpy(), offset.numpy())  # the same place, so the same group of 8
+    assert bool(((starts_p - starts) % IG.LOG_FOLD == 0).all())
+
+
+@pytest.mark.parametrize("n_bands", [0, -1])
+def test_operand_builders_refuse_malformed_bands(problem, n_bands):
+    p = problem
+    with pytest.raises(ValueError, match="n_bands"):
+        _banded_estep(p, n_bands)
+    with pytest.raises(ValueError, match="n_bands"):
+        IG.banded_mstep_operands(t(p["vid"]), t(p["cb"]), t(p["q"]), N_VARIANTS, N_BARCODES, n_bands)
+
+
 def test_banded_table_places_each_band(problem):
     rows = torch.arange(13 * 3, dtype=torch.float32).reshape(13, 3) + 1
     edges = torch.from_numpy(IG.band_edges(13, 4))  # heights 3, 3, 3, 4
@@ -202,7 +262,8 @@ def test_wrappers_take_only_cpu_or_cuda_tensors(problem):
     estep = _banded_estep(p)
     meta = lambda x: x.to("meta")  # noqa: E731
     with pytest.raises(ValueError, match="cpu or cuda"):
-        IG.estep_logits_banded(meta(t(p["gprob"])), IG.BandedEStepOperands(*(meta(x) for x in estep)))
+        IG.estep_logits_banded(meta(t(p["gprob"])), IG.BandedEStepOperands(
+            *(meta(x) if isinstance(x, torch.Tensor) else x for x in estep)))
     mstep = IG.banded_mstep_operands(t(p["vid"]), t(p["cb"]), t(p["q"]), N_VARIANTS, N_BARCODES, 3)
     with pytest.raises(ValueError, match="cpu or cuda"):
         IG.mstep_addition_banded(meta(t(p["post"])), mstep._replace(**{

@@ -71,11 +71,13 @@ def refuse(*args, **kwargs):
 torch.cuda._lazy_init = refuse
 torch.cuda.init = refuse
 from demuxalot_tpu_torch.ops import _cuda
-from demuxalot_tpu_torch.experiments import folded_estep, gather_forms, gather_operand, kernel_gather
+from demuxalot_tpu_torch.experiments import folded_estep, gather_forms, gather_operand, inkernel_gather, kernel_gather
 assert not torch.cuda.is_initialized()
 assert _cuda._library is None and _cuda._build is None
 assert gather_forms._take_along_axis._fn is None and gather_operand._tiny._fn is None
 assert folded_estep._folded._fn is None and kernel_gather._gather_sum._fn is None
+assert inkernel_gather._estep_banded._fn is None and inkernel_gather._mstep_banded._fn is None
+assert inkernel_gather._check_banded._fn is None
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=300)
@@ -125,7 +127,19 @@ def _stand_in(monkeypatch, status: int = 0) -> _Library:
                                                               0x7E00_0000_2840)),
                                         ("demux_folded_logits", (0x7F12_3456_7000, 4_194_304, 32, 0x7F12_0000_1230,
                                                                  65_536, 0x7F11_0000_0000, 2, 0x7F10_0000_0000,
-                                                                 528, 0x7E00_0000_0040, 1))])
+                                                                 528, 0x7E00_0000_0040, 1)),
+                                        ("demux_estep_logits_banded", (0x7F12_3456_7000, 131_072, 32, 0x7F12_0000_1230,
+                                                                       12, 0x7F11_0000_0000, 0x7F10_0000_0000,
+                                                                       0x7F0F_0000_0000, 65_536, 0x7F0E_0000_0000,
+                                                                       0x7F0D_0000_0000, 1, 528, 0x7E00_0000_0040,
+                                                                       1)),
+                                        ("demux_mstep_addition_banded", (0x7F12_3456_7000, 528, 32, 0x7F12_0000_1230,
+                                                                         82, 0x7F11_0000_0000, 0x7F10_0000_0000,
+                                                                         0x7F0F_0000_0000, 131_072, 2.0,
+                                                                         0x7E00_0000_0040)),
+                                        ("demux_banded_check", (0x7F12_0000_1230, 82, 65_536, 0x7F11_0000_0000,
+                                                                131_072, 4_194_304, 0x7F10_0000_0000, None, 0, 24,
+                                                                1, 1))])
 def test_entry_passes_its_arguments_then_the_device_and_the_stream(monkeypatch, name, args, index):
     lib = _stand_in(monkeypatch)
     entry = _cuda.Entry(name)
