@@ -131,9 +131,15 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    shapes and with the table and indices one float off a 16-byte boundary,
    eagerly, on a side stream and in a CUDA graph's replay, bit for bit, and
    an index out of range on each axis trapping in a child process; the cluster
-   gather-sum with a ragged last step, every index in CTA 0's slice, a
-   width of 7 and 1M indices on the harness's table, against float64 at
-   1e-6, and a 16 MiB table that must raise; tiny at [8, 128], [3, 5],
+   gather-sum's first launches in a child process under a timeout (a hang
+   fails the smoke), its plan on the card against ``cluster_plan``'s
+   mirror, the clusters placed and SMs used, then a ragged last step, every
+   index in CTA 0's slice, a width of 7 with steps of 1, 1M indices on the
+   harness's table, indices one int past a 16-byte boundary, a short last
+   stage with a plain tail and a width of 33, against float64 at 1e-6,
+   eagerly, on a side stream and in a graph's replay, bit for bit, an
+   index past the table and a negative one trapping in child processes,
+   and a 16 MiB table that must raise; tiny at [8, 128], [3, 5],
    [1,000,003] and one float off a boundary, eagerly, on a side stream and
    in a graph's replay, bit for bit; two runs bit-equal. (b) The stream rates at the
    harness's shape (570.4 MB; widths and rows of 512, 2,048, 8,192 and
@@ -148,7 +154,10 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    calls' times (one ``torch.sum`` over the corners, the streams' scalar,
    with ``torch.sum`` over the streamed bytes beside it; ``torch.gather``,
    ``index_select``, ``torch.mul``). The launch-bound kernels,
-   take_along_axis at forms C-E2 and tiny at [8, 128], and their library
+   take_along_axis at forms C-E2 and tiny at [8, 128], the cluster
+   gather-sum at the microbench's shape (with ``index_select(...).sum()``,
+   and beside its bound the layout's L2 bytes of indices and slices and the
+   floor of its shared-memory reads at the card's highest SM clock), and their library
    calls (``torch.gather`` on int64 indices, ``torch.mul(x, 2.0)``) each
    take three times, each the mean of two samples in turns with the
    library call's (kernel, library, library, kernel): ``ms``, CUDA events
@@ -187,7 +196,7 @@ setting with its bound in ``by_pair`` and ``by_group``; the streams'
 ``ms`` at step 512 with every step in ``by_step``, take_along_axis's at
 form D2 with every form in ``by_form``,
 the tiny kernel's with the gather-operand stages in ``stages_ms``;
-take_along_axis and tiny carry ``graph_ms``, ``host_us`` and the library
+take_along_axis, the cluster gather-sum and tiny carry ``graph_ms``, ``host_us`` and the library
 call's ``library_graph_ms`` and ``library_host_us``, with the bytes their
 graph's input copies hold in ``graph_input_mb``);
 the line before it is nvidia-smi's name and power limit; the last line is
@@ -197,7 +206,8 @@ the line before it is nvidia-smi's name and power limit; the last line is
 tree with the one under ``DIR`` (an unpacked older commit): phases 1-2,
 then each tree's E-step and softmax, M-step and EM iteration at the bench
 shape, as its EM loop runs them, its take_along_axis at form D2 and tiny
-at [8, 128] and gather_sum at [8192, 64] (1,048,576 indices), eagerly
+at [8, 128], gather_sum at [8192, 64] (1,048,576 indices) and
+cluster_gather_sum at [8192, 32] (4,194,304), eagerly
 (100 calls) and in a CUDA graph's replay, its split E-step at (2,2)
 and (0,0), group E-step at G 4 with 2 words and folded E-step at phase
 10b's shape, and its banded E-step and M-step at phase 9b's shape, in its
@@ -205,7 +215,7 @@ own process, in turns (parent, this tree, this tree, parent). Then
 whether each output is bit-equal to the parent's on the same inputs: the
 bench-shape E-step's logits and posteriors, the M-step addition and the
 EM loop's M-step, the banded logits and additions (with a digest of the
-banded inputs, which the mainline kernels make); and the E-step's and
+banded inputs, which the mainline kernels make), gather_sum's sum; and the E-step's and
 M-step's registers in both trees' libraries (``cuobjdump
 --dump-resource-usage``), with whether the mainline's are unchanged.
 """
@@ -349,7 +359,7 @@ def phase_build() -> None:
                                     if name.startswith(("split", "group"))},
         injected_warpgroup_arrives=result.log.count("C7519"))
     say("build", folded_and_gather_sum={name: k for name, k in kernels.items()
-                                        if name.startswith(("folded", "gather_sum"))})
+                                        if name.startswith(("folded", "gather_sum", "cluster_gather_sum"))})
     # the E-step's and M-step's instantiations, main path and banded: the banded E-step at the main path's 4
     # blocks of 4 warps per SM, so at most 128 registers; its shared memory at 32 donors (528 columns): each
     # warp's ring of two 32-call tiles, its row of logits and its window of 32 segments (an SM's 228 KB hold a
@@ -377,8 +387,8 @@ def _ptxas_kernels(log: str) -> dict:
     the E-step's and M-step's kernels, from ptxas' report: split.cu's (exp_words, sc_words, MMA steps), the
     register-tile kernels of group.cu and folded.cu (words, mode, fold, chunked, vec; folded's are the ragged
     ones), gather.cu's gather-sums (the L2 path's floats per load; the on-chip path's floats per row read,
-    16-byte index loads), likelihood.cu's (fast_log, chunk, banded), mstep.cu's (power, depth, update) and
-    banded.cu's (power, depth)."""
+    16-byte index loads), forms.cu's cluster gather-sum (floats per row read), likelihood.cu's (fast_log, chunk,
+    banded), mstep.cu's (power, depth, update) and banded.cu's (power, depth)."""
     import re
 
     found, name, spills = {}, None, (0, 0)
@@ -401,7 +411,8 @@ def _kernel_name(text: str):
     or None."""
     import re
 
-    entry = re.search(r"((?:split_f32|split|tiles|gather_sum_chip|gather_sum|estep|mstep_banded|mstep)_kernel)"
+    entry = re.search(r"((?:split_f32|split|tiles|cluster_gather_sum|gather_sum_chip|gather_sum|estep|mstep_banded|"
+                      r"mstep)_kernel)"
                       r"I(\S*?)EEv", text)
     if entry is None:
         return None
@@ -881,6 +892,13 @@ def _host_us(fn, calls: int = 200, windows: int = 5) -> float:
         samples.append((time.perf_counter() - t0) * 1e6 / calls)
     torch.cuda.synchronize()
     return float(np.median(samples))
+
+
+def _sm_clock_mhz() -> float:
+    """The card's highest SM clock in MHz, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
 
 
 def _in_turns(first, second, measure) -> tuple:
@@ -2135,11 +2153,47 @@ print("no trap")
 """
 
 
+# a child process: the cluster gather-sum's first launches, each against float64
+_CLUSTER_FIRST = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {repo!r})
+from demuxalot_tpu_torch.experiments import gather_forms as GF
+rng = np.random.RandomState(2)
+for shape, n_idx, step in (((8192, 32), 10_001, 8192), ((1000, 7), 999, 1), ((8192, 32), 1 << 22, 8192)):
+    table = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+    idx = torch.from_numpy(rng.randint(0, shape[0], n_idx).astype(np.int32)).cuda()
+    got, exact = float(GF.cluster_gather_sum(table, idx, step)), float(table.double()[idx.long()].sum())
+    assert abs(got - exact) <= GF.SUM_RTOL * abs(exact), (shape, n_idx, got, exact)
+print("ok", GF.card_plan(8192, 32, torch.cuda.current_device()))
+"""
+
+# a child process: the cluster gather-sum with one index past the table or negative must trap
+_CLUSTER_TRAP = """
+import sys
+import torch
+sys.path.insert(0, {repo!r})
+from demuxalot_tpu_torch.experiments import gather_forms as GF
+table = torch.rand(8192, 32, device="cuda")
+idx = torch.randint(0, 8192, (100_000,), dtype=torch.int32, device="cuda")
+idx[77_777] = 8192 if {case!r} == "past" else -1
+try:
+    GF.cluster_gather_sum(table, idx)
+    torch.cuda.synchronize()
+except Exception as error:
+    print(type(error).__name__, error)
+    sys.exit(3)
+print("no trap")
+"""
+
+
 def phase_last_kernels() -> None:
     """Phase 11a: the streams, take_along_axis, the cluster gather-sum and tiny against their plain versions."""
     from demuxalot_tpu_torch.experiments import dma_pattern as DP
     from demuxalot_tpu_torch.experiments import gather_forms as GF
     from demuxalot_tpu_torch.experiments import gather_operand as GO
+    from demuxalot_tpu_torch.experiments import kernel_gather as KG
     from torch_problems import offset_view, side_stream_and_replay
 
     cuda = torch.device("cuda")
@@ -2174,20 +2228,47 @@ def phase_last_kernels() -> None:
                 f"take_along_axis axis {axis} {shape} offset {offset}: side stream and graph replay bit-equal")
         say("last", kernel="take_along_axis", axis=axis, table=list(shape), idx=list(idx_shape), offset=offset,
             out="bit-equal", side_stream_and_graph="bit-equal")
-    # a ragged last step, every index in CTA 0's slice (rows < 1,024), a width of 7, the harness's table
-    for shape, n_idx, step, high in (((8192, 32), 10_001, 8192, 8192), ((8192, 32), 50_000, 8192, 1024),
-                                     ((1000, 7), 5000, 1, 1000), ((8192, 32), 1 << 20, 8192, 8192)):
+    # the cluster gather-sum: its first launches in a child process under a timeout (an mbarrier phase that slips
+    # hangs the kernel, and a hang must fail the smoke, not stall it), then its cases here: a ragged last step,
+    # every index in CTA 0's slice (rows < 1,024), a width of 7 with steps of 1, the harness's table, indices one
+    # int past a 16-byte boundary, a length whose last stage is short and whose tail is read by plain loads, a
+    # width of 33 with steps over several chunks; against float64, two runs, a side stream and a graph's replay
+    try:
+        first = subprocess.run([sys.executable, "-c", _CLUSTER_FIRST.format(repo=str(REPO))], capture_output=True,
+                               text=True, timeout=180)
+        first_out = first.stdout + first.stderr
+        require(first.returncode == 0, f"cluster_gather_sum's first launches failed: {first_out[-2000:]}")
+    except subprocess.TimeoutExpired as expired:
+        require(False, f"cluster_gather_sum's first launches did not end in 180 s (a hang): {expired.stdout}")
+    index = torch.cuda.current_device()
+    card = GF.card_plan(GF.RB, GF.WB, index)
+    mirror = GF.cluster_plan(GF.RB, GF.WB, GF.STEP, GF.NIDX, KG._card_limits(index)[0])
+    require((card["stages"], card["shared_bytes"]) == (mirror.stages, mirror.shared_bytes),
+            f"cluster_plan {mirror} mirrors the card's plan {card}")
+    sms = card["clusters"] * GF.CLUSTER_CTAS // card["ctas_per_sm"]
+    say("last", kernel="cluster_gather_sum", first_launches=first_out.strip().splitlines()[-1][:200],
+        card_plan=card, sms_used=sms)
+    for shape, n_idx, step, high, offset in (((8192, 32), 10_001, 8192, 8192, 0), ((8192, 32), 50_000, 8192, 1024, 0),
+                                             ((1000, 7), 5000, 1, 1000, 0), ((8192, 32), 1 << 20, 8192, 8192, 0),
+                                             ((8192, 32), 50_000, 8192, 8192, 1),
+                                             ((8192, 32), 3 * 8192 + 1002, 8192, 8192, 0),
+                                             ((4000, 33), 70_001, 3000, 4000, 3)):
         table = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
-        idx = torch.from_numpy(rng.randint(0, high, n_idx).astype(np.int32)).to(cuda)
+        idx = offset_view(torch.from_numpy(rng.randint(0, high, n_idx).astype(np.int32)).to(cuda), offset)
         got, want = float(GF.cluster_gather_sum(table, idx, step)), float(GF.cluster_gather_sum_plain(table, idx, step))
         exact = float(table.double()[idx.long()].sum())
         for name, value in (("kernel", got), ("plain", want)):
             require(abs(value - exact) <= GF.SUM_RTOL * abs(exact),
                     f"cluster_gather_sum {shape} n={n_idx} {name}: {value} vs float64 {exact}")
         require(float(GF.cluster_gather_sum(table, idx, step)) == got, f"cluster_gather_sum {shape}: runs bit-equal")
+        on_side, replayed = side_stream_and_replay(lambda: GF.cluster_gather_sum(table, idx, step).clone())
+        require(float(on_side) == got and float(replayed) == got,
+                f"cluster_gather_sum {shape} n={n_idx}: side stream and graph replay bit-equal")
+        plan = GF.card_plan(*shape, index)
         say("last", kernel="cluster_gather_sum", table=list(shape), n_idx=n_idx, step=step, index_below=high,
-            rel_err=abs(got - exact) / exact,
-            plain_rel_err=abs(want - exact) / exact, runs="bit-equal")
+            offset=offset, rel_err=abs(got - exact) / exact, plain_rel_err=abs(want - exact) / exact,
+            runs="bit-equal", side_stream_and_graph="bit-equal", stages=plan["stages"], clusters=plan["clusters"],
+            sms_used=plan["clusters"] * GF.CLUSTER_CTAS // plan["ctas_per_sm"])
     try:  # a 16 MiB table fits no cluster: it raises, and nothing falls back
         GF.cluster_gather_sum(torch.rand(131_072, 32, device=cuda), torch.zeros(8, dtype=torch.int32, device=cuda))
         raised = None
@@ -2207,6 +2288,7 @@ def phase_last_kernels() -> None:
     # in a child process, both at once
     trapped = _trapping_children(_TAKE_TRAP, (0, 1))
     say("last", kernel="take_along_axis", index_out_of_range={f"axis {axis}": v for axis, v in trapped.items()})
+    say("last", kernel="cluster_gather_sum", index_out_of_range=_trapping_children(_CLUSTER_TRAP, ("past", "negative")))
 
 
 def phase_last(card: str) -> dict:
@@ -2318,8 +2400,28 @@ def phase_last(card: str) -> dict:
     table, idx = GF.microbench_inputs(rng, cuda)
     got, want = float(GF.cluster_gather_sum(table, idx)), float(GF.cluster_gather_sum_plain(table, idx))
     require(abs(got - want) <= GF.SUM_RTOL * abs(bench["float64_sum"]), f"cluster_gather_sum {got} vs plain {want}")
-    entries["cluster_gather_sum"] = {"max_abs_err": abs(got - want),
-                                     "plain_ms": _time_ms(lambda: GF.cluster_gather_sum_plain(table, idx), repeats=3)}
+    # its device time (graph replay over copies of the inputs past L2) and the host's enqueue time beside the
+    # eager time, index_select(...).sum()'s beside each, in turns; the layout's own cost beside the bound: the
+    # indices and slices it reads from L2 and the floor of its shared-memory reads (128 B a clock on each SM used)
+    run, library = (lambda: GF.cluster_gather_sum(table, idx)), (lambda: torch.index_select(table, 0, idx).sum())
+    graphed = ((lambda t, i: GF.cluster_gather_sum(t, i)), (table, idx))
+    library_graphed = ((lambda t, i: torch.index_select(t, 0, i).sum()), (table, idx))
+    graph_ms, library_graph_ms = _in_turns(graphed, library_graphed, lambda c: _graph_ms(*c))
+    host_us, library_host_us = _in_turns(run, library, _host_us)
+    copies, nbytes = _rotation(*graphed)
+    plan = GF.card_plan(*table.shape, torch.cuda.current_device())
+    sms = plan["clusters"] * GF.CLUSTER_CTAS // plan["ctas_per_sm"]
+    layout = GF.cluster_layout(tuple(table.shape), idx.shape[0], GF.STEP, plan["clusters"])
+    clock_mhz = _sm_clock_mhz()
+    entries["cluster_gather_sum"] = {
+        "max_abs_err": abs(got - want),
+        "plain_ms": _time_ms(lambda: GF.cluster_gather_sum_plain(table, idx), repeats=3),
+        "graph_ms": graph_ms, "host_us": host_us, "library_graph_ms": library_graph_ms,
+        "library_host_us": library_host_us, "graph_input_mb": copies * nbytes / 1e6,
+        "graph_share_of_bound": bench["bound_ms"] / graph_ms, "clusters": plan["clusters"], "sms_used": sms,
+        "stages": plan["stages"], "shared_bytes_per_cta": plan["shared_bytes"], **layout,
+        "index_passes": 1, "sm_clock_mhz": clock_mhz,
+        "shared_floor_ms": layout["shared_read_bytes"] / 128 / sms / (clock_mhz * 1e6) * 1e3}
     del table, idx
     # tiny at its shape, beside x * 2 and torch.mul: eager, graph replay and host enqueue times
     x = torch.randn(GO.TINY_SHAPE, device=cuda)
@@ -2426,7 +2528,8 @@ def _last_entries(last: dict, launches) -> list:
         "share_of_bound": b["bound_ms"] / b["cluster_gather_sum"]["ms_mean"],
         "library_ms": b["library"]["ms_mean"], "ns_per_row": b["cluster_gather_sum"]["ns_per_row"],
         "gather_sum_ms": b["gather_sum"]["ms_mean"], "gather_sum_path": b["gather_sum"]["path"], "table": b["table"],
-        "n_idx": b["n_idx"]})
+        "n_idx": b["n_idx"],
+        **{k: v for k, v in e["cluster_gather_sum"].items() if k not in ("max_abs_err", "plain_ms")}})
     tiny, bound = e["tiny"], e["tiny"]["bound"]
     entries.append({
         "name": "tiny", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/tiny.cu",
@@ -2484,16 +2587,16 @@ def steps_ms() -> dict:
     bits = {"estep_logits": _digest(estep_logits(gprob, lik.estep)), "estep_probs": _digest(logits_probs[-1]),
             "mstep_addition": _digest(mstep_addition(state.probs, run.likelihood.mstep, run.n_genotypes, 2.0)),
             "m_step": _digest(*(m_out if isinstance(m_out, tuple) else (m_out,)))}
-    banded = _banded_steps(cuda)
+    banded, launch_bound = _banded_steps(cuda), _launch_bound_ms(cuda)
     return {"package": str(Path(inspect.getfile(estep_logits)).parents[2]), "fused": fused,
-            "bits": {**bits, **banded.pop("bits")}, **banded,
+            "bits": {**bits, **banded.pop("bits"), **launch_bound.pop("bits")}, **banded,
             "estep_softmax_ms": [_time_ms(step) for _ in range(3)],
             "estep_ms": [_time_ms(lambda: estep_logits(gprob, lik.estep)) for _ in range(3)],
             "mstep_addition_ms": [_time_ms(lambda: mstep_addition(state.probs, run.likelihood.mstep,
                                                                   run.n_genotypes, 2.0)) for _ in range(3)],
             "m_step_ms": [_time_ms(m_step) for _ in range(3)],
             "em_iteration_ms": [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)],
-            **_launch_bound_ms(cuda), **_variant_steps_ms(cuda)}
+            **launch_bound, **_variant_steps_ms(cuda)}
 
 
 def _digest(*tensors: torch.Tensor) -> str:
@@ -2540,9 +2643,10 @@ def _variant_steps_ms(cuda) -> dict:
 
 
 def _launch_bound_ms(cuda) -> dict:
-    """take_along_axis at form D2, tiny at [8, 128] and gather_sum at [8192, 64] x 1,048,576 indices of the
-    package on sys.path: eager (100 calls between events) and graph-replay ms per call (``_graph_ms``: copies of
-    the inputs past L2), three samples each."""
+    """take_along_axis at form D2, tiny at [8, 128], gather_sum at [8192, 64] x 1,048,576 indices and
+    cluster_gather_sum at the microbench's [8192, 32] x 4,194,304 of the package on sys.path: eager (100 calls
+    between events) and graph-replay ms per call (``_graph_ms``: copies of the inputs past L2), three samples each,
+    and the bits of gather_sum's sum. A tree whose cluster gather-sum a graph cannot capture has None there."""
     from demuxalot_tpu_torch.experiments import gather_forms as GF
     from demuxalot_tpu_torch.experiments import gather_operand as GO
     from demuxalot_tpu_torch.experiments import kernel_gather as KG
@@ -2552,13 +2656,26 @@ def _launch_bound_ms(cuda) -> dict:
     x = torch.randn(GO.TINY_SHAPE, device=cuda)
     take, tiny = (lambda: GF.take_along_axis(table, idx, axis)), (lambda: GO.tiny(x))
     gtable, gidx = KG.rate_inputs(KG.N_ROWS, KG.WIDTH, device=cuda)
-    return {"take_along_axis_ms": [_time_ms(take, repeats=100) for _ in range(3)],
-            "take_along_axis_graph_ms": [_graph_ms(lambda t, i: GF.take_along_axis(t, i, axis), (table, idx))
-                                         for _ in range(3)],
-            "tiny_ms": [_time_ms(tiny, repeats=100) for _ in range(3)],
-            "tiny_graph_ms": [_graph_ms(GO.tiny, (x,)) for _ in range(3)],
-            "gather_sum_ms": [_time_ms(lambda: KG.gather_sum(gtable, gidx), repeats=100) for _ in range(3)],
-            "gather_sum_graph_ms": [_graph_ms(lambda t, i: KG.gather_sum(t, i), (gtable, gidx)) for _ in range(3)]}
+    rng = np.random.default_rng(0)
+    GF.form_inputs(rng)
+    ctable, cidx = GF.microbench_inputs(rng, cuda)
+    result = {"take_along_axis_ms": [_time_ms(take, repeats=100) for _ in range(3)],
+              "take_along_axis_graph_ms": [_graph_ms(lambda t, i: GF.take_along_axis(t, i, axis), (table, idx))
+                                           for _ in range(3)],
+              "tiny_ms": [_time_ms(tiny, repeats=100) for _ in range(3)],
+              "tiny_graph_ms": [_graph_ms(GO.tiny, (x,)) for _ in range(3)],
+              "gather_sum_ms": [_time_ms(lambda: KG.gather_sum(gtable, gidx), repeats=100) for _ in range(3)],
+              "gather_sum_graph_ms": [_graph_ms(lambda t, i: KG.gather_sum(t, i), (gtable, gidx)) for _ in range(3)],
+              "cluster_gather_sum_ms": [_time_ms(lambda: GF.cluster_gather_sum(ctable, cidx), repeats=100)
+                                        for _ in range(3)],
+              "bits": {"gather_sum": _digest(KG.gather_sum(gtable, gidx))}}
+    try:
+        result["cluster_gather_sum_graph_ms"] = [_graph_ms(lambda t, i: GF.cluster_gather_sum(t, i), (ctable, cidx))
+                                                 for _ in range(3)]
+    except RuntimeError as error:
+        result["cluster_gather_sum_graph_ms"] = None
+        result["cluster_gather_sum_graph_error"] = str(error)[:300]
+    return result
 
 
 def compare_with_parent(parent: Path, card: str) -> None:
@@ -2573,11 +2690,15 @@ def compare_with_parent(parent: Path, card: str) -> None:
         require(Path(result["package"]).resolve() == root.resolve(), f"{root}: imported {result['package']}")
         samples[which].append(result)
         say("parent", tree=which, card=card, **result)
-    mean = lambda key, which: sum(sum(r[key]) / len(r[key]) for r in samples[which]) / 2  # noqa: E731
+    def mean(key: str, which: str):  # over both runs of a tree; None where a tree could not time it
+        runs = [sum(r[key]) / len(r[key]) for r in samples[which] if r.get(key)]
+        return sum(runs) / len(runs) if runs else None
+
     say("parent", card=card, **{key: {w: mean(key, w) for w in samples} for key in (
         "estep_softmax_ms", "estep_ms", "mstep_addition_ms", "m_step_ms", "em_iteration_ms", "take_along_axis_ms",
         "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms", "split_22_ms", "split_00_ms", "group_G4_ms",
-        "folded_ms", "gather_sum_ms", "gather_sum_graph_ms", "banded_estep_ms", "banded_mstep_ms")})
+        "folded_ms", "gather_sum_ms", "gather_sum_graph_ms", "cluster_gather_sum_ms", "cluster_gather_sum_graph_ms",
+        "banded_estep_ms", "banded_mstep_ms")})
     # bit for bit: each output of this tree against the parent's on the same inputs, every run alike
     bits = {key: "bit-equal" if len({r["bits"][key] for r in samples["parent"] + samples["this"]}) == 1
             else "differs" for key in samples["this"][0]["bits"]}

@@ -1,6 +1,6 @@
 // Helpers shared by the kernel sources: alignment, the device guard,
-// cp.async, vector loads, the fixed-order block sum, and the in-order sum
-// of per-step partials (reduce.cu). Every helper sums in one fixed order, so
+// cp.async, vector loads, a lane's running row sums, the fixed-order block
+// sum, and the in-order sum of per-step partials (reduce.cu). Every helper sums in one fixed order, so
 // two runs of a kernel that uses them give the same bits.
 #pragma once
 
@@ -60,6 +60,31 @@ __device__ __forceinline__ float load_sum(const float* p) {
         return *p;
     }
 }
+
+// A lane's running sums of the rows it reads: kQ floats a read, one sum per float
+template <int kQ>
+struct RowSums {
+    float v[kQ] = {};
+    __device__ __forceinline__ void add(const float* p) {
+        if constexpr (kQ == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(p);
+            v[0] += x.x;
+            v[1] += x.y;
+            v[2] += x.z;
+            v[3] += x.w;
+        } else {
+            v[0] += *p;
+        }
+    }
+    __device__ __forceinline__ float take() {  // the sum of the floats, in a fixed order, and a fresh start
+        float total = v[0];
+#pragma unroll
+        for (int i = 1; i < kQ; ++i) total += v[i];
+#pragma unroll
+        for (int i = 0; i < kQ; ++i) v[i] = 0.f;
+        return total;
+    }
+};
 
 // block-wide sum in a fixed order (a shuffle tree in each warp, then the
 // warps in order); thread 0 holds the result. warp_sums holds blockDim.x / 32

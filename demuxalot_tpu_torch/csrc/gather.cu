@@ -125,31 +125,6 @@ __device__ __forceinline__ void load_indices(const int32_t* __restrict__ p, int 
     }
 }
 
-// A lane's running sums of the rows it reads: kQ floats a read, one sum per float
-template <int kQ>
-struct RowSums {
-    float v[kQ] = {};
-    __device__ __forceinline__ void add(const float* p) {
-        if constexpr (kQ == 4) {
-            const float4 x = *reinterpret_cast<const float4*>(p);
-            v[0] += x.x;
-            v[1] += x.y;
-            v[2] += x.z;
-            v[3] += x.w;
-        } else {
-            v[0] += *p;
-        }
-    }
-    __device__ __forceinline__ float take() {  // the sum of the floats, in a fixed order, and a fresh start
-        float total = v[0];
-#pragma unroll
-        for (int i = 1; i < kQ; ++i) total += v[i];
-#pragma unroll
-        for (int i = 0; i < kQ; ++i) v[i] = 0.f;
-        return total;
-    }
-};
-
 // The on-chip path: block (s, r) = (blockIdx.x / replicas, blockIdx.x % replicas) holds rows
 // [s * rows_per_slice, min((s + 1) * rows_per_slice, n_rows)) and writes partial[t * n_slices + s] for its
 // steps t = r, r + replicas, ... kQ: floats per row read (4: W % 4 == 0 and the table 16-byte aligned, else 1);
@@ -222,7 +197,7 @@ __global__ void __launch_bounds__(kChipThreads, 1) gather_sum_chip_kernel(
             asm volatile("cp.async.wait_all;\n" ::: "memory");
             __syncthreads();
         }
-        RowSums<kQ> acc;
+        demux::RowSums<kQ> acc;
         while (next_j < nb) {
             int32_t k[kPerLane];
 #pragma unroll

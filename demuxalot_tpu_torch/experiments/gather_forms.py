@@ -14,10 +14,14 @@ on-chip memory (``ig_kernel``, ``:183-210``). Kernels: ``csrc/forms.cu``.
 - :func:`cluster_gather_sum` (``ig_kernel``): ``Σ_i Σ_w table[idx[i], w]``
   as an f32 scalar, per-step partials over steps of ``step`` indices (the
   TPU kernel's TCB), then the partials in a fixed order, from a table held
-  in the distributed shared memory of a thread-block cluster (8 CTAs ×
-  128 KB for the harness's 1 MiB table). A table the cluster cannot hold,
-  or a cluster the card cannot place, raises; it never falls back to
-  ``gather_sum``.
+  in the shared memory of a thread-block cluster (8 CTAs × 128 KB for the
+  harness's 1 MiB table). Each CTA sums only the rows it holds; the indices
+  reach all 8 by TMA bulk copies multicast into a ring in each
+  (:func:`cluster_plan` mirrors its shared memory, :func:`card_plan` asks
+  the card, :func:`cluster_layout` counts what the layout moves). A table
+  that does not fit beside the smallest ring, or a cluster the card cannot
+  place, raises; it never falls back to ``gather_sum``. The result is the
+  wrapper's own buffer, as ``gather_sum``'s.
 
 Form F, the one-hot matmul gather named in the JAX file's docstring
 (``:18``), has no code there, so there is nothing to port.
@@ -29,13 +33,15 @@ its order, from ``np.random.default_rng(0)``; :func:`microbench` times the
 library gather ``index_select(table, 0, idx).sum()``,
 ``kernel_gather.gather_sum`` (its table on chip, a slice in each block's
 shared memory: ``path``) and :func:`cluster_gather_sum` (the table in a
-cluster's distributed shared memory) at the harness's shape.
+cluster's shared memory) at the harness's shape.
 ``python -m demuxalot_tpu_torch.experiments.gather_forms [--device cpu]``
 prints both as JSON.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,7 +49,7 @@ import torch
 from ..ops import _cuda
 from ..ops.likelihood_kernel import _check
 from ..utils.profiling import GatherRoofline
-from .kernel_gather import gather_rows, time_ms
+from .kernel_gather import gather_rows, kept_buffers, time_ms
 
 # the microbench's shape (exp_gather_forms.py:165, 180): a [8192, 32] f32 table (1 MiB), 4,194,304
 # indices, 8,192 per step
@@ -51,6 +57,14 @@ RB, WB, NIDX = 8192, 32, 4_194_304
 STEP = RB
 # 4M gathered rows summed in f32 land within 1e-6 of float64
 SUM_RTOL = 1e-6
+# the cluster gather-sum (csrc/forms.cu): CTAs per cluster, consumer warps, indices a warp reads from a stage and a
+# stage holds, ring stages, and the shared memory beside the ring and the slice (the barriers, each consumer warp's
+# queue of 16-bit row offsets, the slice's alignment pad)
+CLUSTER_CTAS, CONSUMER_WARPS, CHUNK = 8, 24, 256
+STAGE = CONSUMER_WARPS * CHUNK
+STAGE_BYTES = 4 * STAGE
+MIN_STAGES, MAX_STAGES = 2, 8
+CLUSTER_FIXED_BYTES = 256 + 2 * CONSUMER_WARPS * CHUNK + 16
 # the forms' shapes (:62, 103, 128, 143)
 R, W, C = 1024, 128, 256
 R2, S, L, L2 = 8192, 256, 128, 512
@@ -122,14 +136,96 @@ def cluster_gather_sum_plain(table: torch.Tensor, idx: torch.Tensor, step: int =
     return torch.stack([rows[lo: lo + step].sum() for lo in range(0, rows.shape[0], step)]).sum()
 
 
+class ClusterPlan(NamedTuple):
+    """How :func:`cluster_gather_sum`'s kernel holds a table and its index ring (:func:`cluster_plan`)."""
+
+    rows_per_cta: int  # rows of each CTA's slice (the last CTAs' may be short or empty)
+    stages: int  # stages of the index ring in each CTA; under MIN_STAGES the table does not fit
+    stage_bytes: int
+    shared_bytes: int  # one CTA's shared memory: barriers, ring, queues, slice
+    n_steps: int
+    n_partials: int  # one per (step, CTA of a cluster)
+    scratch_floats: int  # the partials, then the warps' sums of the steps that span several chunks
+    index_passes: int  # times L2 serves each index: once per cluster
+
+    @property
+    def fits(self) -> bool:
+        return self.stages >= MIN_STAGES
+
+
+def cluster_plan(n_rows: int, width: int, step: int, n_idx: int, shared_per_block: int) -> ClusterPlan:
+    """The slices and index ring of a cluster gather-sum of ``n_idx`` indices in steps of ``step`` over a table
+    [n_rows, width], on a card whose blocks may hold ``shared_per_block`` bytes of shared memory.
+
+    Mirrors ``csrc/forms.cu``: each of the 8 CTAs holds ⌈n_rows / 8⌉ rows
+    beside its barriers, queues and as many ring stages as fit, at most
+    MAX_STAGES; fewer than MIN_STAGES and the kernel refuses the table.
+    """
+    rows = -(-n_rows // CLUSTER_CTAS)
+    spare = shared_per_block - CLUSTER_FIXED_BYTES - 4 * rows * width
+    stages = min(MAX_STAGES, max(0, spare // STAGE_BYTES))
+    n_steps = -(-n_idx // step)
+    return ClusterPlan(rows, stages, STAGE_BYTES, CLUSTER_FIXED_BYTES + stages * STAGE_BYTES + 4 * rows * width,
+                       n_steps, n_steps * CLUSTER_CTAS, _scratch_floats(n_idx, step), 1)
+
+
+def _scratch_floats(n_idx: int, step: int) -> int:
+    """The kernel's scratch: a partial per (step, CTA), then a warp sum per (chunk, CTA, consumer warp)."""
+    return -(-n_idx // step) * CLUSTER_CTAS + ((n_idx + 2) // CHUNK + 1) * CLUSTER_CTAS * CONSUMER_WARPS
+
+
+def cluster_layout(table_shape: tuple, n_idx: int, step: int, clusters: int, offset: int = 0) -> dict:
+    """What the kernel's layout moves beside the bound, for ``clusters`` clusters of 8 CTAs and an index tensor
+    ``offset`` ints past a 16-byte boundary (``csrc/forms.cu``'s stages, exactly).
+
+    ``index_l2_bytes``: the indices the bulk copies read from L2, once per
+    cluster (a stage at the edge of two clusters' spans is read by both);
+    ``table_l2_bytes``: each cluster's slices, the table once per cluster;
+    ``shared_read_bytes``: every CTA's reads of its cluster's indices and
+    each owner's reads of its rows, all from shared memory.
+    """
+    n_rows, width = table_shape
+    n_steps = -(-n_idx // step)
+    ph = offset % 4
+    d = min((4 - ph) % 4, n_idx)
+    e_end = d + (n_idx - d) // 4 * 4
+    index_bytes = 0
+    for cluster in range(min(clusters, n_steps)):
+        s_lo, s_hi = cluster * n_steps // min(clusters, n_steps), (cluster + 1) * n_steps // min(clusters, n_steps)
+        ia, ib = s_lo * step, min(s_hi * step, n_idx)
+        for g in range((ia + ph) // STAGE, (ib - 1 + ph) // STAGE + 1):
+            first = g * STAGE - ph
+            index_bytes += 4 * max(0, min(first + STAGE, e_end) - max(first, d))
+    return {"index_l2_bytes": index_bytes, "table_l2_bytes": min(clusters, n_steps) * 4 * n_rows * width,
+            "shared_read_bytes": 4 * n_idx * CLUSTER_CTAS + 4 * n_idx * width}
+
+
 _CLUSTER_ERRORS = {
-    -1: "the table does not fit the shared memory of a cluster of 8 CTAs",
+    -1: "the table does not fit beside the smallest index ring in the shared memory of a cluster of 8 CTAs",
     -2: "the card cannot place a cluster of 8 CTAs with the table's shared memory",
 }
+_CARD_PLANS = {}  # (n_rows, width, card index): the card's (stages, shared bytes, clusters, CTAs per SM)
+_CLUSTER_BUFFERS = {}  # (n_idx, step, card index): cluster_gather_sum's (scratch, total)
+
+
+def card_plan(n_rows: int, width: int, index: int) -> dict:
+    """The card's plan of a table [n_rows, width] (``demux_cluster_gather_plan``, asked once per table shape and
+    card): ring stages, shared bytes per CTA, the clusters it places at once and CTAs per SM. Raises where the
+    table does not fit or the card places no cluster."""
+    key = (n_rows, width, index)
+    if key not in _CARD_PLANS:
+        out = (ctypes.c_int32 * 4)()
+        status = _cuda.library().demux_cluster_gather_plan(n_rows, width, out, index)
+        if status in _CLUSTER_ERRORS:
+            raise RuntimeError(f"cluster_gather_sum on [{n_rows}, {width}]: {_CLUSTER_ERRORS[status]}")
+        _cuda.check_launch("demux_cluster_gather_plan", status)
+        _CARD_PLANS[key] = dict(zip(("stages", "shared_bytes", "clusters", "ctas_per_sm"), out))
+    return _CARD_PLANS[key]
 
 
 def cluster_gather_sum(table: torch.Tensor, idx: torch.Tensor, step: int = STEP) -> torch.Tensor:
-    """``Σ table[idx]`` as an f32 scalar tensor (0-dim) from a table held on chip; the CUDA kernel for CUDA tensors."""
+    """``Σ table[idx]`` as an f32 scalar tensor (0-dim) from a table held on chip; the CUDA kernel for CUDA tensors,
+    into the wrapper's own result buffer (one per indices, step and card: clone it to keep it past the next call)."""
     device = _device_of("cluster_gather_sum", table)
     _check("table", table, torch.float32, 2, device)
     _check("idx", idx, torch.int32, 1, device)
@@ -137,21 +233,17 @@ def cluster_gather_sum(table: torch.Tensor, idx: torch.Tensor, step: int = STEP)
         raise ValueError("cluster_gather_sum needs step >= 1 and at least one index")
     if device.type == "cpu":
         return cluster_gather_sum_plain(table, idx, step)
-    n_rows, width = table.shape
-    partial = torch.empty(-(-idx.shape[0] // step) * 8, dtype=torch.float32, device=device)
-    total = torch.empty((), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        status = _cuda.library().demux_cluster_gather_sum(
-            table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], step, partial.data_ptr(),
-            total.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    if status in _CLUSTER_ERRORS:
-        raise RuntimeError(f"cluster_gather_sum on [{n_rows}, {width}]: {_CLUSTER_ERRORS[status]}")
-    _cuda.check_launch("cluster_gather_sum", status)
+    (n_rows, width), n_idx = table.shape, idx.shape[0]
+    plan = card_plan(n_rows, width, table.get_device())
+    scratch, total = kept_buffers(_CLUSTER_BUFFERS, (n_idx, step, device.index), _scratch_floats(n_idx, step), device)
+    _cluster_gather_sum(table, table.data_ptr(), n_rows, width, idx.data_ptr(), n_idx, step, plan["stages"],
+                        plan["clusters"], scratch.data_ptr(), total.data_ptr())
     cluster_gather_sum.launches += 1
     return total
 
 
 cluster_gather_sum.launches = 0
+_cluster_gather_sum = _cuda.Entry("demux_cluster_gather_sum")
 
 
 def form_inputs(rng: np.random.Generator) -> dict:

@@ -168,15 +168,15 @@ def plan_for(table: torch.Tensor, idx: torch.Tensor, step: int = STEP) -> Gather
     return gather_plan(*table.shape, step, idx.shape[0], *_card_limits(table.get_device()))
 
 
-def _gather_buffers(n_idx: int, step: int, plan: GatherPlan, device: torch.device) -> tuple:
-    """(partial, total) for one (n_idx, step, index passes, card), made once; the oldest pair goes past 8."""
-    key = (n_idx, step, plan.index_passes, device.index)
-    buffers = _BUFFERS.get(key)
+def kept_buffers(cache: dict, key: tuple, floats: int, device: torch.device) -> tuple:
+    """(scratch f32 [floats], total f32 0-dim) kept in ``cache`` under ``key``, made once; the oldest pair goes
+    past 8."""
+    buffers = cache.get(key)
     if buffers is None:
-        if len(_BUFFERS) >= 8:
-            del _BUFFERS[next(iter(_BUFFERS))]
-        buffers = _BUFFERS[key] = (torch.empty(plan.n_partials, dtype=torch.float32, device=device),
-                                   torch.empty((), dtype=torch.float32, device=device))
+        if len(cache) >= 8:
+            del cache[next(iter(cache))]
+        buffers = cache[key] = (torch.empty(floats, dtype=torch.float32, device=device),
+                                torch.empty((), dtype=torch.float32, device=device))
     return buffers
 
 
@@ -194,7 +194,7 @@ def gather_sum(table: torch.Tensor, idx: torch.Tensor, step: int = STEP) -> torc
         raise ValueError(f"gather_sum runs on cpu or cuda tensors, not {device}")
     (n_rows, width), n_idx = table.shape, idx.shape[0]
     plan = plan_for(table, idx, step)
-    partial, total = _gather_buffers(n_idx, step, plan, device)
+    partial, total = kept_buffers(_BUFFERS, (n_idx, step, plan.index_passes, device.index), plan.n_partials, device)
     chip = plan.path == "chip"
     _gather_sum(table, table.data_ptr(), n_rows, width, idx.data_ptr(), n_idx, step,
                 plan.rows_per_slice if chip else 0, plan.n_slices if chip else 0, plan.replicas, partial.data_ptr(),

@@ -125,8 +125,10 @@ _SIGNATURES = {
     ),
     "demux_cluster_gather_sum": (
         _vp, _i64, _i32, _vp, _i64, _i64,  # table, n_rows, width, idx, n, step
-        _vp, _vp, _vp,  # partial, total, stream
+        _i32, _i32, _vp, _vp, _i32, _vp,  # stages, clusters, partial (and the warps' sums), total, device, stream
     ),
+    # out (int32 [4]: ring stages, shared memory per CTA, clusters the card places, CTAs per SM), device
+    "demux_cluster_gather_plan": (_i64, _i32, _vp, _i32),  # n_rows, width, out, device
     "demux_tiny": (_vp, _i64, _vp, _i32, _vp),  # x, n, out, device, stream
 }
 

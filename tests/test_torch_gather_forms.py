@@ -181,3 +181,63 @@ def test_entry_point_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GF.microbench()
+
+
+H100_SHARED_OPTIN = 232_448  # the shared memory one H100 block may opt in to (227 KB)
+
+
+def test_cluster_plan_fits_the_harness_table():
+    """The harness's 1 MiB table: 128 KB a CTA, and a ring of 3 stages of 6,144 indices beside it."""
+    plan = GF.cluster_plan(GF.RB, GF.WB, GF.STEP, GF.NIDX, H100_SHARED_OPTIN)
+    assert plan.fits and plan.stages >= GF.MIN_STAGES
+    assert plan.rows_per_cta == GF.RB // 8 and plan.stage_bytes == 4 * GF.STAGE
+    assert (plan.stages, plan.shared_bytes) == (3, 217_360)
+    assert plan.n_steps == GF.NIDX // GF.STEP and plan.n_partials == 8 * plan.n_steps
+    assert plan.index_passes == 1
+    # the partials, then a warp sum per (chunk, CTA, consumer warp)
+    assert plan.scratch_floats == plan.n_partials + (GF.NIDX // GF.CHUNK + 1) * 8 * GF.CONSUMER_WARPS
+
+
+@pytest.mark.parametrize("n_rows", [16_384, 131_072])
+def test_cluster_plan_refuses_2_and_16_mib_tables(n_rows):
+    """256 KB and 2 MiB a CTA leave no room for the smallest ring."""
+    plan = GF.cluster_plan(n_rows, 32, GF.STEP, 100, H100_SHARED_OPTIN)
+    assert not plan.fits and plan.stages == 0
+
+
+@pytest.mark.parametrize("width", [1, 7, 32, 33, 128])
+def test_cluster_plan_stays_within_the_opt_in_limit(width):
+    """Every table that fits takes at most the opt-in shared memory; the largest one at this width shrinks by the
+    smallest ring, queues and barriers only, and one row more does not fit."""
+    largest = 0
+    for n_rows in range(8, 8 * H100_SHARED_OPTIN // (4 * width) + 16, max(1, H100_SHARED_OPTIN // (64 * width))):
+        plan = GF.cluster_plan(n_rows, width, GF.STEP, 1000, H100_SHARED_OPTIN)
+        if plan.fits:
+            assert plan.shared_bytes <= H100_SHARED_OPTIN and GF.MIN_STAGES <= plan.stages <= GF.MAX_STAGES
+            largest = n_rows
+    spare = H100_SHARED_OPTIN - GF.CLUSTER_FIXED_BYTES - GF.MIN_STAGES * GF.STAGE_BYTES
+    rows = spare // (4 * width)
+    assert GF.cluster_plan(8 * rows, width, GF.STEP, 1000, H100_SHARED_OPTIN).stages == GF.MIN_STAGES
+    assert not GF.cluster_plan(8 * rows + 8, width, GF.STEP, 1000, H100_SHARED_OPTIN).fits
+    assert largest <= 8 * rows
+
+
+@pytest.mark.parametrize("step, n_idx", [(1, 5000), (7, 100), (8192, 10_001)])
+def test_cluster_plan_takes_any_step(step, n_idx):
+    """A step of 1 or 7 (no multiple of a stage or a chunk) is planned like the harness's."""
+    plan = GF.cluster_plan(1000, 7, step, n_idx, H100_SHARED_OPTIN)
+    assert plan.fits and plan.stages == GF.MAX_STAGES
+    assert plan.n_steps == -(-n_idx // step) and plan.n_partials == 8 * plan.n_steps
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("clusters", [1, 16, 600])
+def test_cluster_layout_reads_each_index_about_once_per_cluster(offset, clusters):
+    """The bulk copies read every index of the body once, plus at most one stage at each edge of a span."""
+    n_idx, step = 4 * GF.STAGE * 7 + 1003, 3001
+    layout = GF.cluster_layout((8192, 32), n_idx, step, clusters, offset)
+    spans = min(clusters, -(-n_idx // step))
+    body = (n_idx - (4 - offset) % 4) // 4 * 4  # the indices between the plain head and tail
+    assert 4 * body <= layout["index_l2_bytes"] <= 4 * body + 2 * spans * GF.STAGE_BYTES
+    assert layout["table_l2_bytes"] == spans * 8192 * 32 * 4
+    assert layout["shared_read_bytes"] == 4 * n_idx * (8 + 32)

@@ -242,6 +242,12 @@ if {kernel!r}.startswith("take"):
     idx = torch.randint(0, table.shape[axis], (64, 32), dtype=torch.int32, device="cuda")
     idx[40, 7] = table.shape[axis] if axis == 0 else -1  # one past the last row; a negative column
     launch = lambda: GF.take_along_axis(table, idx, axis)
+elif {kernel!r}.startswith("cluster"):
+    from demuxalot_tpu_torch.experiments import gather_forms as GF
+    table = torch.rand(8192, 32, device="cuda")
+    idx = torch.randint(0, 8192, (100_000,), dtype=torch.int32, device="cuda")
+    idx[77_777] = 8192 if {kernel!r} == "cluster_past" else -1  # one past the last row; a negative row
+    launch = lambda: GF.cluster_gather_sum(table, idx)
 elif {kernel!r} == "variants":
     from demuxalot_tpu_torch.experiments import folded_estep as FE
     gprob, operands = estep_args(estep_problem(n_donors=4), "cuda")
@@ -269,11 +275,12 @@ except Exception as error:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["estep", "mstep", "variants", "take_axis0", "take_axis1"])
+@pytest.mark.parametrize("kernel", ["estep", "mstep", "variants", "take_axis0", "take_axis1", "cluster_past",
+                                    "cluster_negative"])
 def test_gpu_out_of_range_index_traps(kernel):
     """An index past its table traps in checks.cu before the main kernel reads it: the E-step's at each
     launch, the M-step's and the split and group E-steps' when their operands are built. take_along_axis
-    tests each index inside its gather and traps there.
+    and the cluster gather-sum test each index inside the kernel and trap there.
 
     A trap ends the process's CUDA context, so the launch runs in a child process.
     """
@@ -1085,24 +1092,43 @@ def test_gpu_take_along_axis_on_a_side_stream_and_in_a_graph(axis, shape, out_ro
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape, n_idx, step, high", [((8192, 32), 1 << 20, 8192, 8192),
-                                                       ((8192, 32), 10_001, 8192, 1024),
-                                                       ((1000, 7), 5000, 1, 1000), ((5, 4), 999, 100, 5)])
-def test_gpu_cluster_gather_sum_matches_float64(shape, n_idx, step, high):
-    """The harness's table, every index in CTA 0's slice (high 1024), a width of 7, fewer rows than CTAs."""
+@pytest.mark.parametrize("shape, n_idx, step, high, offset", [((8192, 32), 1 << 20, 8192, 8192, 0),
+                                                               ((8192, 32), 10_001, 8192, 1024, 0),
+                                                               ((1000, 7), 5000, 1, 1000, 0),
+                                                               ((5, 4), 999, 100, 5, 0),
+                                                               ((8192, 32), 50_000, 8192, 8192, 1),
+                                                               ((8192, 32), 3 * 8192 + 1002, 8192, 8192, 0),
+                                                               ((4000, 33), 70_001, 3000, 4000, 3)])
+def test_gpu_cluster_gather_sum_matches_float64(shape, n_idx, step, high, offset):
+    """The harness's table, every index in CTA 0's slice (high 1024), a width of 7, fewer rows than CTAs, indices
+    one int past a 16-byte boundary, a tail shorter than a stage, a width of 33 with steps over several chunks."""
     _need_card()
     from demuxalot_tpu_torch.experiments.gather_forms import cluster_gather_sum, cluster_gather_sum_plain
 
     rng = np.random.RandomState(n_idx)
     table = t(rng.rand(*shape).astype(np.float32), "cuda")
-    idx = t(rng.randint(0, high, n_idx).astype(np.int32), "cuda")
+    idx = offset_view(t(rng.randint(0, high, n_idx).astype(np.int32), "cuda"), offset)
     launches = cluster_gather_sum.launches
-    got = cluster_gather_sum(table, idx, step)
+    got = cluster_gather_sum(table, idx, step).clone()  # the wrapper's own buffer: the next call writes it again
     assert cluster_gather_sum.launches == launches + 1
     exact = float(table.double()[idx.long()].sum())
     assert float(got) == pytest.approx(exact, rel=1e-6)
     assert float(cluster_gather_sum_plain(table, idx, step)) == pytest.approx(exact, rel=1e-6)
     assert torch.equal(got, cluster_gather_sum(table, idx, step))
+
+
+@pytest.mark.gpu
+def test_gpu_cluster_gather_sum_on_a_side_stream_and_in_a_graph():
+    """The kernel and its in-order sum go on whatever stream is current: bit-equal to the eager call."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments.gather_forms import cluster_gather_sum
+
+    rng = np.random.RandomState(5)
+    table = t(rng.rand(8192, 32).astype(np.float32), "cuda")
+    idx = t(rng.randint(0, 8192, 300_001).astype(np.int32), "cuda")
+    want = cluster_gather_sum(table, idx).clone()
+    on_side, replayed = side_stream_and_replay(lambda: cluster_gather_sum(table, idx).clone())
+    assert torch.equal(on_side, want) and torch.equal(replayed, want)
 
 
 @pytest.mark.gpu

@@ -77,7 +77,8 @@ assert _cuda._library is None and _cuda._build is None
 assert gather_forms._take_along_axis._fn is None and gather_operand._tiny._fn is None
 assert folded_estep._folded._fn is None and kernel_gather._gather_sum._fn is None
 assert inkernel_gather._estep_banded._fn is None and inkernel_gather._mstep_banded._fn is None
-assert inkernel_gather._check_banded._fn is None
+assert inkernel_gather._check_banded._fn is None and gather_forms._cluster_gather_sum._fn is None
+assert not gather_forms._CARD_PLANS
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=300)
@@ -139,7 +140,10 @@ def _stand_in(monkeypatch, status: int = 0) -> _Library:
                                                                          0x7E00_0000_0040)),
                                         ("demux_banded_check", (0x7F12_0000_1230, 82, 65_536, 0x7F11_0000_0000,
                                                                 131_072, 4_194_304, 0x7F10_0000_0000, None, 0, 24,
-                                                                1, 1))])
+                                                                1, 1)),
+                                        ("demux_cluster_gather_sum", (0x7F12_3456_7000, 8192, 32, 0x7F12_0000_1230,
+                                                                      4_194_304, 8192, 5, 16, 0x7E00_0000_0040,
+                                                                      0x7E00_0080_0040))])
 def test_entry_passes_its_arguments_then_the_device_and_the_stream(monkeypatch, name, args, index):
     lib = _stand_in(monkeypatch)
     entry = _cuda.Entry(name)
