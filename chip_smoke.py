@@ -13,7 +13,8 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    the BAM scanner and the host ops (``demuxalot_tpu_torch.native``);
    seconds of each and ptxas' registers/spills per kernel (no kernel may
    spill), the split and group kernels' registers by instantiation, the
-   folded and gather-sum kernels' registers and spills, the
+   folded and gather-sum kernels' registers and spills, the aggregate
+   E-step's 12 kernels' registers (``aggregate.cu``), the
    E-step's hot loop and split (2,2)'s instruction mix per term from
    cuobjdump's SASS (split's kernels must hold HGMMA and no HMMA);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
@@ -57,10 +58,22 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
 7. the aggregate-on-SNPs path and SNP discovery. (a) On phase 4's data,
    ``aggregate_on_snps = True``: ``learn_genotypes_core`` (5 iterations,
    doublet prior 0, one ``STAGE_TIMINGS`` dict printed) then
-   ``predict_posteriors_compact`` (prior 0.35), launch counts, output
-   checks, truth accuracy, the same run through the plain versions at
-   phase 4's bars, and the CUDA-event time of ``snp_aggregated_logits`` at
-   32 and 528 columns. (b) On phase 6's BAM with only chr1–chr4 known:
+   ``predict_posteriors_compact`` (prior 0.35), launch counts (every
+   E-step one ``aggregated_logits`` launch), output checks, truth
+   accuracy, the predict's device peak above what it held before (its
+   output, no [groups, columns] buffer); each EM E-step against the plain
+   chain on its own inputs, the EM with the plain M-step at phase 4's bars,
+   and the plain path: learnt betas at phase 4's bar, the same argmax, an
+   EM drift no larger than the plain path's own with a float64 E-step (five
+   iterations amplify float32 rounding) and under a fixed 2e-3, the predict on the same learnt
+   genotypes at phase 4's bars; then the aggregate kernel against its plain
+   version at 32 and 528 columns on the learn's and predict's operands and
+   at 64 donors (8,192 barcodes, 2,080 columns): logits, posteriors,
+   argmax, float64 beside both, two runs bit-equal, each call's peak, the
+   CUDA-event times in turns beside ``AggregateRoofline``'s bound, the
+   aggregate EM iteration and predict in turns; and the operands' one check
+   trapping on a group past the calls and a variant id past the table, in
+   child processes. (b) On phase 6's BAM with only chr1–chr4 known:
    ``detect_snps_positions`` (the provisional predict launches the E-step
    kernel; the pileup takes the C++ scanner), its selections against the
    hidden truth, the parquet fed back through ``add_prior_betas``, native
@@ -180,8 +193,9 @@ The line before the last is a JSON object with one entry per kernel
 6, 7 and 8a, which ``launches_by_path`` keeps apart, with the A/B's runs
 of them in ``ab_launches``; ``mstep_update`` stands beside
 ``mstep_addition`` with the old chain's time and both kernels' times by
-depth in flight; the experiments' kernels' runs in 9b-d, 10b
-and 11b-d;
+depth in flight; ``aggregated_logits``'s ``ms`` is its fused call at
+528 columns, 32 columns and 64 donors in ``by_columns`` and ``d64``; the
+experiments' kernels' runs in 9b-d, 10b and 11b-d;
 ``bound_ms`` is the least time the card could take for the call that
 ``ms`` times, from ``utils.profiling``, the banded kernels' that of the
 function they compute, with their band CSRs in ``layout_bytes``; the
@@ -249,6 +263,8 @@ LOGITS_TOL = dict(rtol=1e-4, atol=5e-3)
 POSTERIOR_ATOL = 3e-5
 ADDITION_TOL = dict(rtol=1e-4, atol=1e-5)
 BETAS_TOL = dict(rtol=1e-4, atol=1e-2)
+# phase 7a: max |Δposterior| of five aggregate EM iterations from the plain path's
+AGGREGATE_EM_DRIFT_CEILING = 2e-3
 # phase 6: benchmarks/end_to_end.py:94-96 (its default shape), seed 0
 E2E_FIXTURE = dict(
     n_genotypes=32, n_barcodes=65_536, n_reads_per_barcode=20, mutation_prob=0.003,
@@ -360,6 +376,10 @@ def phase_build() -> None:
         injected_warpgroup_arrives=result.log.count("C7519"))
     say("build", folded_and_gather_sum={name: k for name, k in kernels.items()
                                         if name.startswith(("folded", "gather_sum", "cluster_gather_sum"))})
+    # the aggregate E-step (aggregate.cu): <columns a lane in registers (0: the shared-memory row), floats per copy>
+    aggregate = {name: k for name, k in kernels.items() if name.startswith("aggregate")}
+    require(not result.log or len(aggregate) == 12, f"aggregate.cu's 12 kernels in ptxas' report: {sorted(aggregate)}")
+    say("build", aggregate_registers=aggregate)
     # the E-step's and M-step's instantiations, main path and banded: the banded E-step at the main path's 4
     # blocks of 4 warps per SM, so at most 128 registers; its shared memory at 32 donors (528 columns): each
     # warp's ring of two 32-call tiles, its row of logits and its window of 32 segments (an SM's 228 KB hold a
@@ -412,7 +432,7 @@ def _kernel_name(text: str):
     import re
 
     entry = re.search(r"((?:split_f32|split|tiles|cluster_gather_sum|gather_sum_chip|gather_sum|estep|mstep_banded|"
-                      r"mstep)_kernel)"
+                      r"aggregate|mstep)_kernel)"
                       r"I(\S*?)EEv", text)
     if entry is None:
         return None
@@ -730,10 +750,12 @@ def _bench_data():
 
 def _mainline_kernels() -> dict:
     """{name: wrapper} of the package paths' kernels (each wrapper carries ``.launches``)."""
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregated_logits
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
     from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_update
 
-    return {"estep_logits": estep_logits, "mstep_addition": mstep_addition, "mstep_update": mstep_update}
+    return {"estep_logits": estep_logits, "mstep_addition": mstep_addition, "mstep_update": mstep_update,
+            "aggregated_logits": aggregated_logits}
 
 
 def _zero_launches() -> None:
@@ -746,19 +768,26 @@ def _launches() -> dict:
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Point the engine at the kernels' plain versions (comparison runs only)."""
+def plain_versions(*names: str, **replacements):
+    """Point the engine at the kernels' plain versions (comparison runs only): every kernel's, or those of
+    ``names``; ``replacements`` binds other functions in their place."""
     from demuxalot_tpu_torch.models import demux
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregated_logits_plain
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits_plain
     from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition_plain, mstep_update_plain
 
-    saved = demux.estep_logits, demux.mstep_addition, demux.mstep_update
-    demux.estep_logits, demux.mstep_addition, demux.mstep_update = (estep_logits_plain, mstep_addition_plain,
-                                                                    mstep_update_plain)
+    plain = {"estep_logits": estep_logits_plain, "mstep_addition": mstep_addition_plain,
+             "mstep_update": mstep_update_plain, "aggregated_logits": aggregated_logits_plain}
+    bound = {name: plain[name] for name in (names or plain)}
+    bound.update(replacements)
+    saved = {name: getattr(demux, name) for name in bound}
+    for name, fn in bound.items():
+        setattr(demux, name, fn)
     try:
         yield
     finally:
-        demux.estep_logits, demux.mstep_addition, demux.mstep_update = saved
+        for name, kernel in saved.items():
+            setattr(demux, name, kernel)
 
 
 def _run_main_path(genotypes, handler, packed):
@@ -785,7 +814,8 @@ def phase_main(genotypes, handler, packed, truth) -> dict:
     wall = time.perf_counter() - t0
     launches = _launches()
     # every M-step is one mstep_update launch (addition, mask and the next normalisation)
-    expected = {"estep_logits": N_ITERATIONS + 1, "mstep_addition": 0, "mstep_update": N_ITERATIONS - 1}
+    expected = {"estep_logits": N_ITERATIONS + 1, "mstep_addition": 0, "mstep_update": N_ITERATIONS - 1,
+                "aggregated_logits": 0}
     require(launches == expected, f"main path launches {launches}, expected {expected}")
 
     n_barcodes, n_pg = BENCH["n_barcodes"], len(columns)
@@ -919,13 +949,14 @@ def _log_fold(likelihood_kernel, fast: bool):
         likelihood_kernel.FAST_LOG = saved
 
 
-def _em_iteration_ms(genotypes, handler, packed, repeats: int = 5, sharded=None) -> float:
+def _em_iteration_ms(genotypes, handler, packed, repeats: int = 5, sharded=None,
+                     doublet_prior: float = DOUBLET_PRIOR) -> float:
     """Per-iteration time of the EM generator in steady state (M + E step), or of ``sharded``'s."""
     from demuxalot_tpu_torch.models.demux import _EMRun
     from demuxalot_tpu_torch.parallel.sharded import _ShardedEM
 
     if sharded is None:
-        run = _EMRun(packed, genotypes, handler, repeats + 2, 0.01, DOUBLET_PRIOR, None)
+        run = _EMRun(packed, genotypes, handler, repeats + 2, 0.01, doublet_prior, None)
     else:
         run = _ShardedEM(sharded, packed, genotypes, handler, repeats + 2, 0.01, DOUBLET_PRIOR, None, None)
     iterations = run.device_iterations()
@@ -1205,7 +1236,7 @@ def phase_bam(card: str, tmp: Path) -> dict:
     fused = packed.reindex.windowed_max_per_snp > 0
     m_steps = 2 * (N_ITERATIONS - 1)
     expected = {"estep_logits": 2 * N_ITERATIONS + 1, "mstep_addition": 0 if fused else m_steps,
-                "mstep_update": m_steps if fused else 0}
+                "mstep_update": m_steps if fused else 0, "aggregated_logits": 0}
     require(launches == expected, f"BAM path launches {launches}, expected {expected}")
     say("bam", stage="learn auto + compact", card=card, launches=launches, learn_auto_s=stages["learn_auto_s"],
         damping_selected=learnt.damping_selected, anchored_disagreement=learnt.anchored_disagreement,
@@ -1272,7 +1303,6 @@ def phase_bam(card: str, tmp: Path) -> dict:
 def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict:
     from demuxalot_tpu_torch import Demultiplexer
     from demuxalot_tpu_torch.models import demux
-    from demuxalot_tpu_torch.ops import likelihood as L
 
     Demultiplexer.device = "cuda"
     cuda = demux.resolve_device(Demultiplexer.device)  # the engine's device key, as its layout cache has it
@@ -1293,9 +1323,12 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
                                                            doublet_prior=DOUBLET_PRIOR, k=E2E_TOPK)
         compact_s = time.perf_counter() - t0
         launches = _launches()
-        # the aggregate EM shares the fused M-step (same SNP runs as phase 4)
-        expected = {"estep_logits": 0, "mstep_addition": 0, "mstep_update": N_ITERATIONS - 1}
+        # every aggregate E-step is one aggregate kernel launch: the EM's 5 (softmax fused) and the compact
+        # predict's forward; the aggregate EM shares the fused M-step (same SNP runs as phase 4)
+        expected = {"estep_logits": 0, "mstep_addition": 0, "mstep_update": N_ITERATIONS - 1,
+                    "aggregated_logits": N_ITERATIONS}
         require(learn_launches == expected, f"aggregate EM launches {learn_launches}, expected {expected}")
+        expected["aggregated_logits"] += 1
         require(launches == expected, f"aggregate path launches {launches}, expected {expected}")
         layout = packed.snp_aggregation_layout(cuda)
         # the learn run's layout_s: this one-off grouping on the host and its upload
@@ -1305,12 +1338,11 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
         layout_build_s = time.perf_counter() - t0
         say("aggregate", stage="learn + compact", card=card, launches=launches, learn_s=learn_s,
             compact_s=compact_s, layout_build_s=layout_build_s, n_groups=layout.n_groups,
-            n_molecule_calls=int(layout.vid.shape[0]), max_molecules_per_group=int(layout.calls_per_group.max()),
+            n_molecule_calls=int(layout.vid.shape[0]), max_molecules_per_group=int(layout.group_ptr.diff().max()),
             max_memory_allocated=torch.cuda.max_memory_allocated())
         say("aggregate", stage="STAGE_TIMINGS of the learn run", card=card, **stage_timings)
 
-        logits, probs, columns = Demultiplexer.predict_posteriors_core(packed, learnt.genotypes, handler,
-                                                                       doublet_prior=DOUBLET_PRIOR)
+        logits, probs, columns, predict_peak = _predict_peak(packed, learnt.genotypes, handler)
         n_barcodes, n_donors, n_pg = handler.n_barcodes, len(genotypes.genotype_names), len(columns)
         for name, frame, width in (("em_probs", learnt.state.probs, n_donors), ("logits", logits, n_pg),
                                    ("probs", probs, n_pg)):
@@ -1331,6 +1363,13 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
         singlet = np.array([len(t) == 1 for t in truth])
         singlet_accuracy = float((compact.assignment[singlet] == truth_column[singlet]).mean())
         require(accuracy >= 0.9, f"aggregate assignment accuracy {accuracy}")
+        # the predict's device peak at 528 columns: its output (logits and probs) beside the genotype table's
+        # normalisation, no [groups, columns] buffer
+        out_bytes, table_bytes = logits.nbytes + probs.nbytes, gprob.nbytes
+        operands = packed.aggregate_operands(n_barcodes, n_donors, DOUBLET_PRIOR, cuda)
+        layout_bytes = sum(t.nbytes for t in operands.tensors())
+        require(predict_peak <= out_bytes + 8 * table_bytes + (64 << 20),
+                f"aggregate predict peaked {predict_peak} B above what it held before: output {out_bytes} B")
 
         # a second run through the kernels gives the same bits (every sum of
         # the path runs in a fixed order; with atomic sums in the E-step,
@@ -1341,47 +1380,289 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
                                                                                    learnt.state.logits),
                 "two aggregate EM runs through the kernels are bit-equal")
 
-        # the same path through the plain versions: reruns the M-step, while
-        # snp_aggregated_logits is the same torch ops on both runs
+        # each E-step of the kernels' EM against the plain chain on its own genotype probabilities
+        em_steps = _aggregate_em_steps(packed, genotypes, handler)
+        # the kernels' EM against the plain M-step on the same E-step kernel (the E-step the same code on both
+        # runs, as this comparison ran before the aggregate E-step had a kernel)
+        learn = lambda: Demultiplexer.learn_genotypes_core(packed, genotypes, handler,  # noqa: E731
+                                                           n_iterations=N_ITERATIONS, doublet_prior=0.0)
+        with plain_versions("mstep_addition", "mstep_update"):
+            learnt_m = learn()
+        # the plain path (the plain aggregate chain and the plain M-step). Five EM iterations amplify any rounding
+        # difference of the E-step (atomic sum order alone moved the EM posteriors by 1.09e-3, PR 3), so beside it
+        # the plain path with a float64 E-step: how far the float32 rounding of the plain chain itself moves the EM
         with plain_versions():
-            learnt_p = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
-                                                          doublet_prior=0.0)
-            logits_p, probs_p, _ = Demultiplexer.predict_posteriors_core(packed, learnt_p.genotypes, handler,
-                                                                         doublet_prior=DOUBLET_PRIOR)
+            learnt_p = learn()
+            logits_p, probs_p, _, plain_predict_peak = _predict_peak(packed, learnt_p.genotypes, handler)
+            # the plain predict on the kernels' learnt genotypes: the predict's E-step on the same inputs
+            logits_s, probs_s, _, _ = _predict_peak(packed, learnt.genotypes, handler)
+        with plain_versions(aggregated_logits=_aggregate_float64):
+            learnt_d = learn()
+        betas = lambda result: torch.from_numpy(np.array(result.genotypes.get_betas()))  # noqa: E731
         errors = {
-            "em_posteriors": compare("aggregate EM posteriors", learnt.state.probs, learnt_p.state.probs,
-                                     0.0, POSTERIOR_ATOL),
-            "learnt_betas": compare("aggregate learnt betas",
-                                    torch.from_numpy(np.array(learnt.genotypes.get_betas())),
-                                    torch.from_numpy(np.array(learnt_p.genotypes.get_betas())), **BETAS_TOL),
-            "logits": compare("aggregate predict logits", logits, logits_p, **LOGITS_TOL),
-            "posteriors": compare("aggregate predict posteriors", probs, probs_p, 0.0, POSTERIOR_ATOL),
+            "em_estep_posteriors": max(e["posteriors"] for e in em_steps),
+            "em_estep_logits": max(e["logits"] for e in em_steps),
+            "plain_mstep_em_posteriors": compare("aggregate EM posteriors, plain M-step", learnt.state.probs,
+                                                 learnt_m.state.probs, 0.0, POSTERIOR_ATOL),
+            "plain_mstep_learnt_betas": compare("aggregate learnt betas, plain M-step", betas(learnt),
+                                                betas(learnt_m), **BETAS_TOL),
+            "learnt_betas": compare("aggregate learnt betas", betas(learnt), betas(learnt_p), **BETAS_TOL),
+            "logits": compare("aggregate predict logits", logits, logits_s, **LOGITS_TOL),
+            "posteriors": compare("aggregate predict posteriors", probs, probs_s, 0.0, POSTERIOR_ATOL),
         }
-        argmax_same = float((probs.argmax(1) == probs_p.argmax(1)).float().mean())
+        argmax_same = float((probs.argmax(1) == probs_s.argmax(1)).float().mean())
         require(argmax_same == 1.0, f"aggregate argmax agrees on {argmax_same} of barcodes")
+        # the drift of five EM iterations from the plain path: the kernels' path, and the plain path's own with a
+        # float64 E-step; the kernels may move the EM no further than the plain chain's float32 rounding does
+        drift = {name: {"em_posteriors": float((other.state.probs - learnt_p.state.probs).abs().max()),
+                        "em_argmax_agreement": float((other.state.probs.argmax(1) == learnt_p.state.probs.argmax(1))
+                                                     .float().mean()),
+                        "learnt_betas": float((betas(other) - betas(learnt_p)).abs().max())}
+                 for name, other in (("kernels", learnt), ("float64_estep", learnt_d))}
+        drift["kernels"].update(predict_logits=float((logits - logits_p).abs().max()),
+                                predict_posteriors=float((probs - probs_p).abs().max()),
+                                predict_argmax_agreement=float((probs.argmax(1) == probs_p.argmax(1)).float().mean()))
+        require(drift["kernels"]["em_posteriors"] <= drift["float64_estep"]["em_posteriors"],
+                f"aggregate EM: the kernels drift from the plain path by {drift['kernels']['em_posteriors']}, "
+                f"further than its float64 E-step ({drift['float64_estep']['em_posteriors']})")
+        # and under a fixed ceiling: H100 readings 5.61e-4 (kernels) and 8.29e-4 (float64 E-step)
+        require(drift["kernels"]["em_posteriors"] <= AGGREGATE_EM_DRIFT_CEILING,
+                f"aggregate EM: the kernels drift from the plain path by {drift['kernels']['em_posteriors']}, "
+                f"over {AGGREGATE_EM_DRIFT_CEILING}")
+        require(drift["kernels"]["em_argmax_agreement"] == 1.0, "aggregate EM: the same argmax as the plain path")
         say("aggregate", stage="checks", card=card, accuracy=accuracy, singlet_accuracy=singlet_accuracy,
             max_row_sum_err=row_err, compact_equals_full_frame=True, kernel_runs_bit_equal=True,
-            plain_vs_kernels_max_abs_err=errors,
-            argmax_agreement=argmax_same)
+            plain_vs_kernels_max_abs_err=errors, argmax_agreement=argmax_same, em_estep_errors=em_steps,
+            drift_from_the_plain_path=drift)
+        say("aggregate", stage="predict peak", card=card, kernel_peak_bytes=predict_peak,
+            plain_peak_bytes=plain_predict_peak, output_bytes=out_bytes, layout_bytes=layout_bytes,
+            genotype_table_bytes=table_bytes, groups_x_columns_f32_bytes=4 * layout.n_groups * n_pg)
+        del logits_p, probs_p, logits_s, probs_s, learnt_p, learnt_m, learnt_d, again
 
-        # one snp_aggregated_logits call at the learn run's and the predict's
-        # widths; two calls on the same inputs give the same bits
-        aggregated_ms = {}
+        # the aggregate EM iteration (the learn run's: 32 columns, the fused M-step) and the predict's wall, each
+        # through the kernels and the plain versions, in turns (plain, kernels, kernels, plain)
+        def plain_run(fn):
+            with plain_versions():
+                return fn()
+
+        em = lambda: _em_iteration_ms(genotypes, handler, packed, doublet_prior=0.0)  # noqa: E731
+        predict = lambda: _predict_peak(packed, learnt.genotypes, handler)[-1]  # noqa: E731
+        em_plain_ms, em_ms = _in_turns(lambda: plain_run(em), em, lambda fn: fn())
+        predict_plain_s, predict_s = _in_turns(lambda: plain_run(predict), predict, _host_seconds)
+        say("aggregate", stage="EM iteration and predict", card=card, em_iteration_ms=em_ms,
+            plain_em_iteration_ms=em_plain_ms, predict_s=predict_s, plain_predict_s=predict_plain_s)
+
+        # the kernel against its plain version at the learn run's and the predict's widths (their cached
+        # operands), then at 64 donors; each one call, fused softmax, as the EM loop and predict make it
+        widths = {}
         for prior in (0.0, DOUBLET_PRIOR):
-            mixing = torch.from_numpy(L.pseudogenotype_mixing(list(genotypes.genotype_names), prior)[0]).to(cuda)
-            run = lambda: layout.logits(gprob, mixing, handler.n_barcodes)  # noqa: E731
-            require(torch.equal(run(), run()), f"snp_aggregated_logits bit-equal across calls at prior {prior}")
-            torch.cuda.reset_peak_memory_stats()
-            samples = [_time_ms(run, repeats=5) for _ in range(2)]
-            aggregated_ms[int(mixing.shape[1])] = samples
-            say("aggregate", stage="snp_aggregated_logits", card=card, n_columns=int(mixing.shape[1]),
-                ms=samples, n_groups=layout.n_groups, bit_equal_across_calls=True,
-                max_memory_allocated=torch.cuda.max_memory_allocated())
+            case = _aggregate_case(gprob, packed.aggregate_operands(n_barcodes, n_donors, prior, cuda),
+                                   f"bench shape, prior {prior}")
+            widths[case["n_pg"]] = case
+            say("aggregate", stage="aggregated_logits", card=card, **case)
+        d64 = _aggregate_case(*_aggregate_d64_inputs(cuda), "64 donors")
+        say("aggregate", stage="aggregated_logits at 64 donors", card=card, shape=AGGREGATE_D64, **d64)
+        trapped = _trapping_children(_AGGREGATE_TRAP, ("groups", "vid"))
+        say("aggregate", stage="operands checked once", card=card, trapped=trapped)
     finally:
         Demultiplexer.aggregate_on_snps = False
         demux.STAGE_TIMINGS = None
-    return {"launches": launches, "accuracy": accuracy, "errors": errors, "aggregated_ms": aggregated_ms,
-            "learn_s": learn_s, "compact_s": compact_s}
+    return {"launches": launches, "accuracy": accuracy, "errors": errors, "widths": widths, "d64": d64,
+            "learn_s": learn_s, "compact_s": compact_s, "predict_peak": predict_peak,
+            "plain_predict_peak": plain_predict_peak, "em_ms": em_ms, "plain_em_ms": em_plain_ms,
+            "predict_s": predict_s, "plain_predict_s": predict_plain_s}
+
+
+def _host_seconds(fn) -> float:
+    """Host seconds of ``fn()`` (which ends in a device synchronise)."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _aggregate_em_steps(packed, genotypes, handler) -> list:
+    """Each E-step of a 5-iteration aggregate EM through the kernels (prior 0, as phase 7a learns) against the
+    plain chain on the same genotype probabilities: {logits, posteriors} max |err| per iteration, at the bars."""
+    from demuxalot_tpu_torch.models.demux import _EMRun
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregated_logits_plain
+
+    run = _EMRun(packed, genotypes, handler, N_ITERATIONS, 0.01, 0.0, None)
+    likelihood, errors = run.likelihood, []
+    kernel = likelihood.posteriors
+
+    def held(genotype_prob, prior_logits=None):
+        logits, probs = kernel(genotype_prob, prior_logits)
+        want_logits, want_probs = aggregated_logits_plain(genotype_prob, likelihood.snp_groups,
+                                                          prior_logits=prior_logits, softmax=True)
+        what = f"aggregate EM E-step {len(errors)}"
+        errors.append({"logits": compare(f"{what} logits", logits, want_logits, **LOGITS_TOL),
+                       "posteriors": compare(f"{what} posteriors", probs, want_probs, 0.0, POSTERIOR_ATOL)})
+        require(torch.equal(probs.argmax(1), want_probs.argmax(1)), f"{what}: the same argmax")
+        return logits, probs
+
+    likelihood.posteriors = held
+    for _state in run.device_iterations():
+        pass
+    require(len(errors) == N_ITERATIONS, f"{len(errors)} aggregate E-steps held to the plain chain")
+    return errors
+
+
+def _float64_logits(genotype_prob, operands) -> torch.Tensor:
+    """The plain aggregate chain in float64."""
+    from demuxalot_tpu_torch.ops import likelihood as L
+
+    o = operands
+    pairs = o.pairs.cpu().numpy()
+    mixing = torch.from_numpy(L.mixing_from_pairs(pairs[0], pairs[1], o.n_donors)).to(genotype_prob.device)
+    return L.snp_aggregated_logits(genotype_prob.double(), mixing.double(), o.vid, o.q.double(),
+                                   o.group_ptr.cpu().numpy(), o.group_ptr.diff(), o.barcode_ptr.diff(),
+                                   compensation=o.compensation, p_bad_snp=o.p_bad_snp)
+
+
+def _aggregate_float64(genotype_prob, operands, *, prior_logits=None, softmax=False):
+    """The plain aggregate chain in float64, its logits rounded to float32 (phase 7a's reference for rounding)."""
+    logits = _float64_logits(genotype_prob, operands).float()
+    if prior_logits is not None:
+        logits = logits + prior_logits
+    return (logits, torch.softmax(logits, dim=-1)) if softmax else logits
+
+
+def _float64_errors(gprob, operands, n_barcodes: int = 8_192) -> dict:
+    """The kernel's and the plain chain's max |err| against float64 over the first ``n_barcodes`` barcodes (their
+    groups and calls; float64 [groups, columns] at the whole bench shape would not fit beside the rest)."""
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregate_operands, aggregated_logits, aggregated_logits_plain
+
+    o = operands
+    n_barcodes = min(n_barcodes, o.n_barcodes)
+    n_groups = int(o.barcode_ptr[n_barcodes])
+    n_calls = int(o.group_ptr[n_groups])
+    sub = aggregate_operands(o.pairs.cpu().numpy(), o.n_donors, o.vid[:n_calls], o.q[:n_calls],
+                             o.group_ptr[:n_groups + 1], o.barcode_ptr[:n_barcodes + 1], o.n_variants,
+                             o.compensation, o.p_bad_snp)
+    want = _float64_logits(gprob, sub)
+    want_probs = torch.softmax(want, dim=-1)
+    errors = {}
+    for name, fn in (("kernel", aggregated_logits), ("plain", aggregated_logits_plain)):
+        logits, probs = fn(gprob, sub, softmax=True)
+        errors[name] = {"logits": float((logits.double() - want).abs().max()),
+                        "posteriors": float((probs.double() - want_probs).abs().max()),
+                        "argmax_agreement": float((probs.argmax(1) == want_probs.argmax(1)).float().mean())}
+    return {"n_barcodes": n_barcodes, **errors}
+
+
+def _predict_peak(packed, genotypes, handler) -> tuple:
+    """(logits, probs, columns, the device bytes ``predict_posteriors_core`` allocated above what was held before)."""
+    from demuxalot_tpu_torch import Demultiplexer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    logits, probs, columns = Demultiplexer.predict_posteriors_core(packed, genotypes, handler,
+                                                                   doublet_prior=DOUBLET_PRIOR)
+    torch.cuda.synchronize()
+    return logits, probs, columns, torch.cuda.max_memory_allocated() - before
+
+
+def _aggregate_case(gprob, operands, what: str) -> dict:
+    """The aggregate kernel against its plain version on one set of operands: logits, posteriors and argmax,
+    two runs bit-equal, each one's device peak above what was held before (the kernel's: its output), and
+    both times in turns (plain, kernel, kernel, plain), beside ``AggregateRoofline``'s bound."""
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregated_logits, aggregated_logits_plain
+    from demuxalot_tpu_torch.utils.profiling import AggregateRoofline
+
+    kernel = lambda: aggregated_logits(gprob, operands, softmax=True)  # noqa: E731
+    plain = lambda: aggregated_logits_plain(gprob, operands, softmax=True)  # noqa: E731
+    logits, probs = kernel()
+    again = kernel()
+    require(torch.equal(logits, again[0]) and torch.equal(probs, again[1]), f"aggregate {what}: two runs bit-equal")
+    want_logits, want_probs = plain()
+    errors = {"logits": compare(f"aggregate {what} logits", logits, want_logits, **LOGITS_TOL),
+              "posteriors": compare(f"aggregate {what} posteriors", probs, want_probs, 0.0, POSTERIOR_ATOL)}
+    require(torch.equal(probs.argmax(1), want_probs.argmax(1)), f"aggregate {what}: the same argmax")
+    require(torch.equal(aggregated_logits(gprob, operands), logits), f"aggregate {what}: logits-only bits")
+    # as close to float64 as the plain chain: its float32 rounding sets the floor
+    float64 = _float64_errors(gprob, operands)
+    require(float64["kernel"]["posteriors"] <= 1.5 * max(float64["plain"]["posteriors"], 1e-6),
+            f"aggregate {what}: posteriors against float64 {float64}")
+    out_bytes = logits.nbytes + probs.nbytes
+    del again, want_logits, want_probs, logits, probs
+    peaks = {}
+    for name, fn in (("kernel", kernel), ("plain", plain)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - before
+        del out
+    require(peaks["kernel"] <= out_bytes + (4 << 20),
+            f"aggregate {what}: the kernel's call peaked {peaks['kernel']} B, its output is {out_bytes} B")
+    samples = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        samples[which].append(_time_ms(plain if which == "plain" else kernel, repeats=5))
+    kernel_ms, plain_ms = sum(samples["kernel"]) / 2, sum(samples["plain"]) / 2
+    n_variants, n_donors = gprob.shape
+    n_pg = int(operands.pairs.shape[1])
+    bound = AggregateRoofline(n_calls=int(operands.vid.shape[0]), n_groups=operands.n_groups,
+                              n_barcodes=operands.n_barcodes, n_variants=n_variants, n_donors=n_donors,
+                              n_pseudogenotypes=n_pg, softmax=True)
+    bound_ms = bound.speed_of_light_s() * 1e3
+    return {"n_pg": n_pg, "n_groups": operands.n_groups, "n_calls": int(operands.vid.shape[0]),
+            "n_barcodes": operands.n_barcodes, "errors": errors, "float64_errors": float64, "bit_equal_runs": True,
+            "ms": kernel_ms, "plain_ms": plain_ms, "samples_ms": samples,
+            "logits_only_ms": _time_ms(lambda: aggregated_logits(gprob, operands), repeats=5),
+            "bound_ms": bound_ms, "bound_by": bound.bound_by(), "share_of_bound": bound_ms / kernel_ms,
+            "bound_bytes": bound.bytes_moved(), "bound_mufu_operations": bound.operations(),
+            "kernel_peak_bytes": peaks["kernel"], "plain_peak_bytes": peaks["plain"], "output_bytes": out_bytes}
+
+
+# phase 7a's 64-donor case (2,080 columns: the shared-memory row): the bench shape's SNPs and calls per barcode,
+# fewer barcodes, seed 0
+AGGREGATE_D64 = dict(n_barcodes=8_192, n_donors=64, n_snps=65_536, calls_per_barcode=64)
+
+
+def _aggregate_d64_inputs(cuda) -> tuple:
+    """(genotype_prob, the aggregate operands at prior 0.35) of a synthetic 64-donor dataset, as predict makes them."""
+    from demuxalot_tpu_torch import Demultiplexer
+    from demuxalot_tpu_torch.ops import likelihood as L
+    from demuxalot_tpu_torch.sim import synthesize_compressed_calls
+
+    genotypes, calls, _truth, _names = synthesize_compressed_calls(doublets_fraction=0.2, seed=0, **AGGREGATE_D64)
+    packed = Demultiplexer.pack_dataset(calls, genotypes)
+    reindex = packed.reindex
+    betas = torch.from_numpy(reindex.permute_rows(packed.betas_for(genotypes, False))).to(cuda)
+    gprob = L.probs_from_betas(betas, torch.from_numpy(reindex.variant2snp).to(cuda), int(packed.variant2snp.max()) + 1,
+                               0.01, reindex.windowed_max_per_snp)
+    return gprob, packed.aggregate_operands(AGGREGATE_D64["n_barcodes"], AGGREGATE_D64["n_donors"], DOUBLET_PRIOR,
+                                            cuda)
+
+
+# a child process: the aggregate operands with a group's calls past the last call, or a variant id past the table,
+# must trap when they are built (their one check), before any launch
+_AGGREGATE_TRAP = """
+import sys
+import numpy as np
+import torch
+sys.path[:0] = [{repo!r}, {repo!r} + "/tests"]
+from demuxalot_tpu_torch.models.demux import _SnpAggregationLayout
+from demuxalot_tpu_torch.ops.likelihood import pseudogenotype_pairs
+from torch_problems import aggregate_problem
+p = aggregate_problem(n_donors=4)
+layout = _SnpAggregationLayout.build(p["calls"], torch.device("cuda"))
+n_variants = p["gprob"].shape[0]
+if {case!r} == "groups":
+    group_ptr = layout.group_ptr.clone()
+    group_ptr[-1] = len(p["calls"]) + 1
+    layout = layout._replace(group_ptr=group_ptr)
+else:
+    n_variants = int(p["calls"].variant_id.max())
+try:
+    layout.operands(p["n_barcodes"], np.stack(pseudogenotype_pairs(4, 0.35)), 4, n_variants)
+    torch.cuda.synchronize()
+except Exception as error:
+    print(type(error).__name__, error)
+    sys.exit(3)
+"""
 
 
 @contextlib.contextmanager
@@ -1448,7 +1729,7 @@ def phase_discovery(card: str, fixture: tuple, tmp: Path) -> dict:
         native_counter.try_count_coverage_native = real_pileup
     total_s = time.perf_counter() - t0
     launches = _launches()
-    expected = {"estep_logits": 1, "mstep_addition": 0, "mstep_update": 0}
+    expected = {"estep_logits": 1, "mstep_addition": 0, "mstep_update": 0, "aggregated_logits": 0}
     require(launches == expected, f"discovery launches {launches}, expected {expected}")
     n_fragments = len(E2E_FIXTURE["chromosome2length"])
     require(len(pileups) == n_fragments and all(pileups),
@@ -1535,7 +1816,7 @@ def phase_sharded(genotypes, handler, packed, truth, main: dict, timing: dict, c
     launches = _launches()
     # the shards' partials are reduced before the normalisation: addition-only launches
     expected = {"estep_logits": SHARDS * (N_ITERATIONS + 2), "mstep_addition": SHARDS * (N_ITERATIONS - 1),
-                "mstep_update": 0}
+                "mstep_update": 0, "aggregated_logits": 0}
     require(launches == expected, f"sharded launches {launches}, expected {expected}")
     require((sharded.layout_cache_misses, sharded.layout_cache_hits) == (2, 2),
             f"layouts built {sharded.layout_cache_misses}, reused {sharded.layout_cache_hits}: expected 2 and 2")
@@ -2823,6 +3104,23 @@ def main() -> int:
          "library_ms": None, "old_chain_ms": t["old_chain"]["kernel_ms_mean"],
          "in_flight_ms": t["in_flight_ms"]["mstep_update"]},
     ]
+    # the aggregate E-step: an XLA op of the JAX package, its hand kernel on the aggregate EM and predict; ms at
+    # the predict's 528 columns (fused softmax), the learn run's 32 and 64 donors beside it
+    case_keys = ("n_pg", "n_groups", "n_barcodes", "ms", "plain_ms", "logits_only_ms", "bound_ms", "bound_by",
+                 "share_of_bound", "errors", "float64_errors", "kernel_peak_bytes", "plain_peak_bytes", "output_bytes")
+    a = aggregate["widths"][max(aggregate["widths"])]
+    kernels.append({
+        "name": "aggregated_logits", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/aggregate.cu",
+        "replaces": "demuxalot_tpu/ops/likelihood.py:258", **launches("aggregated_logits"),
+        "max_abs_err": a["errors"]["logits"], "posterior_max_abs_err": a["errors"]["posteriors"], "ms": a["ms"],
+        "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+        "share_of_bound": a["share_of_bound"], "library_ms": None,
+        "library_ms_reason": "no single PyTorch call computes it",
+        "by_columns": {str(n): {k: case[k] for k in case_keys} for n, case in aggregate["widths"].items()},
+        "d64": {k: aggregate["d64"][k] for k in case_keys},
+        "predict_peak_bytes": aggregate["predict_peak"], "plain_predict_peak_bytes": aggregate["plain_predict_peak"],
+        "em_iteration_ms": aggregate["em_ms"], "plain_em_iteration_ms": aggregate["plain_em_ms"],
+        "predict_s": aggregate["predict_s"], "plain_predict_s": aggregate["plain_predict_s"]})
     # the experiments' kernels: the banded ones at the JAX harness's shape (phase 9b, G past L2 beside
     # it), the gathers on the TPU bench's [8192, 64] table (the other tables beside it)
     ab, ab_past, e = experiments["ab"], experiments["ab_past"], experiments

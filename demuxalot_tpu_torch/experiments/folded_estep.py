@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
-from ..ops.likelihood import DEFAULT_CALL_CHUNK
+from ..ops.likelihood import DEFAULT_CALL_CHUNK, column_pairs
 from ..ops.likelihood_kernel import ENTRY, EStepOperands, _check
 
 
@@ -60,21 +60,6 @@ class VariantOperands(NamedTuple):
     @property
     def n_barcodes(self) -> int:
         return self.row_ptr.shape[0] - 1
-
-
-def column_pairs(mixing: np.ndarray) -> np.ndarray:
-    """int32 [2, PG]: the donor pair (i, j) of each column of a mixing matrix ½e_i + ½e_j (e_i when i == j)."""
-    n_donors = mixing.shape[0]
-    nonzero = mixing != 0
-    first = nonzero.argmax(axis=0)
-    last = n_donors - 1 - nonzero[::-1].argmax(axis=0)
-    rebuilt = np.zeros_like(mixing)
-    columns = np.arange(mixing.shape[1])
-    np.add.at(rebuilt, (first, columns), 0.5)
-    np.add.at(rebuilt, (last, columns), 0.5)
-    if not np.array_equal(rebuilt, mixing):
-        raise ValueError("every mixing column must be ½e_i + ½e_j (e_i for a singlet)")
-    return np.stack([first, last]).astype(np.int32)
 
 
 class CheckedOperands(VariantOperands):

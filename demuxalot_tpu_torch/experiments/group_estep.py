@@ -73,7 +73,7 @@ class GroupCalls(NamedTuple):
 
 def group_schedule(pairs: np.ndarray, n_donors: int) -> np.ndarray:
     """The kernel's tile schedule, int32 [passes, 32, 24]: ``estep_schedule``'s tiles with each slot's column
-    taken from ``pairs`` (int32 [2, PG], :func:`folded_estep.column_pairs`); raises unless every column of
+    taken from ``pairs`` (int32 [2, PG], :func:`ops.likelihood.column_pairs`); raises unless every column of
     ``pairs`` lies in exactly one slot."""
     doublets = bool((pairs[0] != pairs[1]).any())
     prior = 1.0 if doublets else 0.0  # the schedule's tiles depend only on whether there are doublets

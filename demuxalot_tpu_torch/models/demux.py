@@ -25,10 +25,12 @@ builds the reference-shaped pandas frames; pandas is imported only there.
 their top-k and logsumexp on the device.
 
 With ``Demultiplexer.aggregate_on_snps`` the E-step is the per-SNP
-aggregation of ``ops.likelihood.snp_aggregated_logits`` over (barcode,
-snp) groups of the molecule calls (:class:`_SnpAggregationLayout`, built
-once per dataset and device; segment sums in order, so every run gives
-the same bits); the M-step stays the kernel. Setting
+aggregation over (barcode, snp) groups of the molecule calls
+(:class:`_SnpAggregationLayout`, built once per dataset and device): the
+kernel of ``ops.aggregate_kernel.aggregated_logits``, its row softmax
+fused, with operands checked once per dataset, doublet prior and device
+(:meth:`PackedCalls.aggregate_operands`); every sum in order, so every run
+gives the same bits. The M-step stays the M-step kernel. Setting
 :data:`STAGE_TIMINGS` to a dict records per-stage wall seconds. Semantics
 are those of ``demuxalot_tpu.models.demux`` (reference:
 demuxalot/demux.py:24-156).
@@ -45,6 +47,7 @@ import torch
 from ..native.hostops import stable_argsort
 from ..ops import likelihood as L
 from ..ops import packing as P
+from ..ops.aggregate_kernel import AggregateOperands, aggregate_operands, aggregated_logits
 from ..ops.likelihood_kernel import estep_logits, estep_operands
 from ..ops.mstep_kernel import MStepOperands, mstep_addition, mstep_operands, mstep_update
 from ..utils.barcodes import BarcodeHandler
@@ -109,16 +112,15 @@ class _SnpAggregationLayout(NamedTuple):
     (:meth:`PackedCalls.snp_aggregation_layout`). Groups are numbered in
     (barcode, snp) order, the dense ids of ``utils.lookup.FeatureLookup``,
     and calls are sorted by group, stably: the JAX package's layout, held
-    as CSR run lengths. ``vid`` indexes the rows of whatever genotype table
+    as CSR pointers. ``vid`` indexes the rows of whatever genotype table
     the caller passes: the engine builds it from molecule calls remapped to
     the device (SNP-sorted) variant order.
     """
 
     vid: torch.Tensor  # i32 [N] variant of every molecule call, sorted by group
     q: torch.Tensor  # f32 [N] p_base_wrong of every molecule call
-    group_ptr: np.ndarray  # i64 [G + 1] first call of every group (host)
-    calls_per_group: torch.Tensor  # i64 [G] molecule calls of every group
-    groups_per_barcode: torch.Tensor  # i64 [1 + the largest barcode of any group]
+    group_ptr: torch.Tensor  # i64 [G + 1] first call of every group
+    barcode_ptr: torch.Tensor  # i64 [2 + the largest barcode of any group] first group of every barcode
 
     @classmethod
     def build(cls, molecule_calls: P.MoleculeCalls, device: torch.device) -> "_SnpAggregationLayout":
@@ -129,30 +131,34 @@ class _SnpAggregationLayout(NamedTuple):
         by_group = stable_argsort(key)
         sorted_key = key[by_group]
         first = P._group_boundaries(sorted_key)
-        group_ptr = np.append(first, len(key)).astype(np.int64)
+        groups_per_barcode = np.bincount(sorted_key[first] // snp_span)
         return cls(
             vid=_to_device(molecule_calls.variant_id[by_group].astype(np.int32), device),
             q=_to_device(molecule_calls.p_base_wrong[by_group].astype(np.float32), device),
-            group_ptr=group_ptr,
-            calls_per_group=_to_device(np.diff(group_ptr), device),
-            groups_per_barcode=_to_device(np.bincount(sorted_key[first] // snp_span).astype(np.int64), device),
+            group_ptr=_to_device(np.append(first, len(key)).astype(np.int64), device),
+            barcode_ptr=_to_device(np.append(0, np.cumsum(groups_per_barcode)).astype(np.int64), device),
         )
 
     @property
     def n_groups(self) -> int:
-        return self.calls_per_group.shape[0]
+        return self.group_ptr.shape[0] - 1
 
     def tensors(self) -> tuple:
-        return self.vid, self.q, self.calls_per_group, self.groups_per_barcode
+        return self.vid, self.q, self.group_ptr, self.barcode_ptr
 
-    def logits(self, genotype_prob: torch.Tensor, mixing: torch.Tensor, n_barcodes: int) -> torch.Tensor:
-        """Aggregated logits f32 [n_barcodes, PG] (no doublet penalties)."""
-        reached = self.groups_per_barcode.shape[0]
+    def operands(self, n_barcodes: int, pairs: np.ndarray, n_donors: int, n_variants: int) -> AggregateOperands:
+        """Checked operands of the aggregate E-step over ``n_barcodes`` barcodes (no doublet penalties).
+
+        ``pairs`` int32 [2, PG]: the columns' donor pairs; ``n_variants`` x
+        ``n_donors``: the genotype table's shape. Barcodes past the last group
+        get no group.
+        """
+        reached = self.barcode_ptr.shape[0] - 1
         if n_barcodes < reached:
             raise ValueError(f"calls reach barcode {reached - 1}, but n_barcodes={n_barcodes}")
-        return L.snp_aggregated_logits(
-            genotype_prob, mixing, self.vid, self.q, self.group_ptr, self.calls_per_group,
-            torch.nn.functional.pad(self.groups_per_barcode, (0, n_barcodes - reached)),
+        barcode_ptr = torch.nn.functional.pad(self.barcode_ptr, (0, n_barcodes - reached), value=self.n_groups)
+        return aggregate_operands(
+            pairs, n_donors, self.vid, self.q, self.group_ptr, barcode_ptr, n_variants,
             compensation=float(Demultiplexer.compensation_during_computing_barcode_logits),
         )
 
@@ -175,7 +181,8 @@ class PackedCalls:
     on every use. :meth:`device_calls` caches the device tensors per
     (n_barcodes, device), :meth:`mstep_operands` the M-step's checked
     operands over them, :meth:`snp_aggregation_layout` the (barcode, snp)
-    groups of the aggregate_on_snps path per device.
+    groups of the aggregate_on_snps path per device and
+    :meth:`aggregate_operands` its E-step's checked operands.
     """
 
     def __init__(self, chromosome2compressed_snp_calls, genotypes: ProbabilisticGenotypes):
@@ -197,6 +204,7 @@ class PackedCalls:
         self._device_calls: dict = {}
         self._mstep_operands: dict = {}
         self._snp_layouts: dict = {}
+        self._aggregate_operands: dict = {}
         self._sharded_layouts: dict = {}  # parallel.ShardedDemultiplexer's per-shard layouts
 
     @property
@@ -219,6 +227,18 @@ class PackedCalls:
             remapped = replace(calls, variant_id=self.reindex.remap_variant_ids(calls.variant_id))
             layout = self._snp_layouts[key] = _SnpAggregationLayout.build(remapped, device)
         return layout
+
+    def aggregate_operands(self, n_barcodes: int, n_donors: int, doublet_prior: float,
+                           device: torch.device) -> AggregateOperands:
+        """Cached operands of the aggregate E-step (indices checked once on a card) over the layout."""
+        compensation = float(Demultiplexer.compensation_during_computing_barcode_logits)
+        key = (n_barcodes, n_donors, doublet_prior, compensation, str(device))
+        cached = self._aggregate_operands.get(key)
+        if cached is None:
+            pairs = np.stack(L.pseudogenotype_pairs(n_donors, doublet_prior))
+            cached = self._aggregate_operands[key] = self.snp_aggregation_layout(device).operands(
+                n_barcodes, pairs, n_donors, self.n_variants)
+        return cached
 
     def calls_by_barcode(self) -> tuple:
         """(cb, vid, q) columns in barcode-major order (cached one-sort view)."""
@@ -310,7 +330,8 @@ class _Likelihood:
         self.calls = c = packed.device_calls(n_barcodes, device)
         self.estep = estep_operands(len(genotype_names), doublet_prior, c.row_ptr, c.cb_b, c.vid_b, c.q_b)
         self.mstep = packed.mstep_operands(n_barcodes, device)
-        self.snp_groups = packed.snp_aggregation_layout(device) if Demultiplexer.aggregate_on_snps else None
+        self.snp_groups = (packed.aggregate_operands(n_barcodes, len(genotype_names), doublet_prior, device)
+                           if Demultiplexer.aggregate_on_snps else None)
 
     @property
     def n_options(self) -> int:
@@ -324,18 +345,15 @@ class _Likelihood:
 
     def logits(self, genotype_prob: torch.Tensor) -> torch.Tensor:
         if self.snp_groups is not None:
-            return self.snp_groups.logits(genotype_prob, self.estep.mixing, self.n_barcodes)
+            return aggregated_logits(genotype_prob, self.snp_groups)
         return estep_logits(genotype_prob, self.estep)
 
     def posteriors(self, genotype_prob: torch.Tensor,
                    prior_logits: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits + prior_logits, their row softmax): one fused kernel launch on the kernel path."""
-        if self.snp_groups is None:
-            return estep_logits(genotype_prob, self.estep, prior_logits=prior_logits, softmax=True)
-        logits = self.logits(genotype_prob)
-        if prior_logits is not None:
-            logits = logits + prior_logits
-        return logits, torch.softmax(logits, dim=-1)
+        if self.snp_groups is not None:
+            return aggregated_logits(genotype_prob, self.snp_groups, prior_logits=prior_logits, softmax=True)
+        return estep_logits(genotype_prob, self.estep, prior_logits=prior_logits, softmax=True)
 
     def addition(self, probs: torch.Tensor, n_genotypes: int) -> torch.Tensor:
         return mstep_addition(probs, self.mstep, n_genotypes, float(Demultiplexer.contribution_power))
@@ -636,7 +654,7 @@ class Demultiplexer:
     contribution_power = 2.0
     # the reference's alternative likelihood: per-(barcode, snp) groups,
     # damped by molecule count**compensation, with a bad-SNP floor and no
-    # doublet penalties (ops.likelihood.snp_aggregated_logits); read by
+    # doublet penalties (ops.aggregate_kernel.aggregated_logits); read by
     # every entry point
     aggregate_on_snps = False
     compensation_during_computing_barcode_logits = 0.5
@@ -994,8 +1012,8 @@ class Demultiplexer:
         """
         del penalties
         device = resolve_device(Demultiplexer.device)
-        logits = _SnpAggregationLayout.build(molecule_calls, device).logits(
-            _to_device(np.asarray(genotype_prob, dtype=np.float32), device),
-            _to_device(np.asarray(mixing, dtype=np.float32), device), n_barcodes,
-        )
-        return logits.cpu().numpy()
+        mixing = np.asarray(mixing, dtype=np.float32)
+        genotype_prob = _to_device(np.asarray(genotype_prob, dtype=np.float32), device)
+        operands = _SnpAggregationLayout.build(molecule_calls, device).operands(
+            n_barcodes, L.column_pairs(mixing), mixing.shape[0], genotype_prob.shape[0])
+        return aggregated_logits(genotype_prob, operands).cpu().numpy()

@@ -130,6 +130,17 @@ _SIGNATURES = {
     # out (int32 [4]: ring stages, shared memory per CTA, clusters the card places, CTAs per SM), device
     "demux_cluster_gather_plan": (_i64, _i32, _vp, _i32),  # n_rows, width, out, device
     "demux_tiny": (_vp, _i64, _vp, _i32, _vp),  # x, n, out, device, stream
+    "demux_aggregated_logits": (
+        _vp, _i32, _vp, _vp,  # genotype_prob, n_donors, vid, q
+        _vp, _vp, _i64,  # group_ptr, barcode_ptr, n_barcodes
+        _vp, _i32, _f32, _f32, _f32,  # pairs, n_pg, compensation, escape, log_norm
+        _vp, _vp, _vp, _i32, _vp,  # prior_logits (or null), logits, probs (or null), device, stream
+    ),
+    "demux_aggregate_check": (
+        _vp, _i64, _i64, _vp, _i64,  # group_ptr, n_groups, n_calls, vid, n_variants
+        _vp, _i64, _vp, _i32, _i32,  # barcode_ptr, n_barcodes, pairs, n_pg, n_donors
+        _i32, _vp,  # device, stream
+    ),
 }
 
 

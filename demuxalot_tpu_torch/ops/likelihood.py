@@ -98,6 +98,21 @@ def mixing_from_pairs(col_i: np.ndarray, col_j: np.ndarray, n_genotypes: int) ->
     return mixing
 
 
+def column_pairs(mixing: np.ndarray) -> np.ndarray:
+    """int32 [2, PG]: the donor pair (i, j) of each column of a mixing matrix ½e_i + ½e_j (e_i when i == j)."""
+    n_donors = mixing.shape[0]
+    nonzero = mixing != 0
+    first = nonzero.argmax(axis=0)
+    last = n_donors - 1 - nonzero[::-1].argmax(axis=0)
+    rebuilt = np.zeros_like(mixing)
+    columns = np.arange(mixing.shape[1])
+    np.add.at(rebuilt, (first, columns), 0.5)
+    np.add.at(rebuilt, (last, columns), 0.5)
+    if not np.array_equal(rebuilt, mixing):
+        raise ValueError("every mixing column must be ½e_i + ½e_j (e_i for a singlet)")
+    return np.stack([first, last]).astype(np.int32)
+
+
 def pseudogenotype_mixing(
     genotype_names: List[str], doublet_prior: float
 ) -> Tuple[np.ndarray, List[str]]:

@@ -9,7 +9,8 @@ from .encoding import (
 )
 from .files import as_str
 from .lookup import FeatureLookup
-from .profiling import GatherRoofline, MStepRoofline, Roofline, StreamRoofline, VariantRoofline, device_trace
+from .profiling import (AggregateRoofline, GatherRoofline, MStepRoofline, Roofline, StreamRoofline, VariantRoofline,
+                        device_trace)
 from .summary import _compute_qualities, compute_qualities, summarize_counted_SNPs
 from .timing import Timer
 
@@ -29,6 +30,7 @@ __all__ = [
     "Roofline",
     "StreamRoofline",
     "VariantRoofline",
+    "AggregateRoofline",
     "Timer",
     "as_str",
     "base_lookup",

@@ -9,7 +9,9 @@ kernel's work, the larger of its bytes over the HBM rate and its FP32
 operations over the FP32 rate; :class:`VariantRoofline` (the E-step
 variants, ``experiments.folded_estep``, ``split_estep``, ``group_estep``)
 adds their logs over the MUFU rate and split's dense bf16 products over
-the tensor cores' rate. Bytes count each input read once and each output
+the tensor cores' rate; :class:`AggregateRoofline` (the aggregate-on-SNPs
+E-step, ``csrc/aggregate.cu``) takes its MUFU operations over that rate in
+place of FP32 operations. Bytes count each input read once and each output
 written once, whatever the kernel reads again; operations count what these
 inputs need. The default rates are the published peaks of the H100 SXM at
 its 700 W limit (3.35 TB/s of HBM and 67 TFLOP/s in FP32 outside the
@@ -77,7 +79,7 @@ class _Bound:
     def bound_by(self) -> str:
         """"bytes" or "operations": which of the two sets the bound."""
         bounds = self.estimate_seconds()
-        return "bytes" if bounds["hbm_bound_s"] >= bounds["fp32_bound_s"] else "operations"
+        return "bytes" if bounds["hbm_bound_s"] >= max(bounds.values()) else "operations"
 
 
 @dataclass
@@ -251,6 +253,45 @@ class VariantRoofline(Roofline):
         return {**super().estimate_seconds(), "mufu_bound_s": self.log_count / self.mufu_logs_per_s,
                 "tensor_bound_s": self.tensor_flop / self.bf16_flops_per_s}
 
-    def bound_by(self) -> str:
-        bounds = self.estimate_seconds()
-        return "bytes" if bounds["hbm_bound_s"] >= max(bounds.values()) else "operations"
+
+@dataclass
+class AggregateRoofline(_Bound):
+    """Speed of light of the aggregate-on-SNPs E-step (``csrc/aggregate.cu``).
+
+    Bytes: every molecule call's variant id and ``q`` (4 + 4), the group
+    and barcode pointers (8 each per group and barcode, + 8 each), the
+    genotype table (4·V·D), the pair table (8 per column) and the logits
+    written once (4·B·PG); ``softmax`` writes the probs too, ``prior`` reads
+    the prior logits (4·B·PG each). Operations: the MUFU operations the
+    function needs, at ``mufu_per_s``: a log per (call, column) for the call
+    terms, an exp and a log per (group, column) for the two log-softmaxes
+    (the second's normaliser is a constant), and two per group (its scale
+    and its sum's reciprocal). The rate is the MUFU unit's alone: the FMA
+    pipe can compute a log or exp by polynomial beside it, so a floor that
+    splits the work between both units would be lower than this bound.
+    """
+
+    n_calls: int
+    n_groups: int
+    n_barcodes: int
+    n_variants: int
+    n_donors: int
+    n_pseudogenotypes: int
+    softmax: bool = False
+    prior: bool = False
+    hbm_bytes_per_s: float = H100_HBM_BYTES_PER_S
+    mufu_per_s: float = H100_MUFU_LOGS_PER_S
+
+    def bytes_moved(self) -> int:
+        b, pg = self.n_barcodes, self.n_pseudogenotypes
+        rows = 1 + self.softmax + self.prior  # [B, PG] arrays: logits, probs, prior
+        return (8 * self.n_calls + 8 * (self.n_groups + 1) + 8 * (b + 1) + 4 * self.n_variants * self.n_donors
+                + 8 * pg + 4 * b * pg * rows)
+
+    def operations(self) -> int:
+        pg = self.n_pseudogenotypes
+        return self.n_calls * pg + 2 * self.n_groups * pg + 2 * self.n_groups
+
+    def estimate_seconds(self) -> dict:
+        return {"hbm_bound_s": self.bytes_moved() / self.hbm_bytes_per_s,
+                "mufu_bound_s": self.operations() / self.mufu_per_s}

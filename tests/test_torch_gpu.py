@@ -22,12 +22,13 @@ from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, sim
 from demuxalot_tpu_torch.experiments.kernel_gather import H100_SHARED_OPTIN, slice_rows
 from demuxalot_tpu_torch.models import demux
 from demuxalot_tpu_torch.ops import likelihood_kernel
+from demuxalot_tpu_torch.ops.aggregate_kernel import aggregated_logits, aggregated_logits_plain
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
 from demuxalot_tpu_torch.ops import likelihood as L
 from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain, mstep_update, mstep_update_plain
 from oracle import oracle_barcode_logits
-from torch_problems import (estep_args, estep_problem, in_order_addition, mstep_operands, mstep_problem, offset_view,
-                            side_stream_and_replay, t, update_problem)
+from torch_problems import (aggregate_args, aggregate_problem, estep_args, estep_problem, in_order_addition,
+                            mstep_operands, mstep_problem, offset_view, side_stream_and_replay, t, update_problem)
 
 
 # the most rows an on-chip gather-sum slice holds at width 64 on an H100
@@ -255,6 +256,22 @@ elif {kernel!r} == "variants":
     bad[-1] = len(operands.cb) + 1  # a barcode's calls past the last call
     # the operands' constructor checks the CSR once, so no split kernel ever reads through it
     launch = lambda: FE.variant_operands(operands._replace(row_ptr=bad))
+elif {kernel!r}.startswith("aggregate"):
+    import numpy as np
+    from demuxalot_tpu_torch.models.demux import _SnpAggregationLayout
+    from demuxalot_tpu_torch.ops.likelihood import pseudogenotype_pairs
+    from torch_problems import aggregate_problem
+    p = aggregate_problem(n_donors=4)
+    layout = _SnpAggregationLayout.build(p["calls"], torch.device("cuda"))
+    n_variants = p["gprob"].shape[0]
+    if {kernel!r} == "aggregate_groups":
+        group_ptr = layout.group_ptr.clone()
+        group_ptr[-1] = len(p["calls"]) + 1  # the last group's calls past the last call
+        layout = layout._replace(group_ptr=group_ptr)
+    else:
+        n_variants = int(p["calls"].variant_id.max())  # the largest id is one past the table
+    # the operands' constructor checks the CSRs and ids once, so no aggregate kernel ever reads through them
+    launch = lambda: layout.operands(p["n_barcodes"], np.stack(pseudogenotype_pairs(4, 0.35)), 4, n_variants)
 elif {kernel!r} == "estep":
     gprob, operands = estep_args(estep_problem(n_donors=4), "cuda")
     bad = operands.vid.clone()
@@ -276,10 +293,11 @@ except Exception as error:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["estep", "mstep", "variants", "take_axis0", "take_axis1", "cluster_past",
-                                    "cluster_negative"])
+                                    "cluster_negative", "aggregate_groups", "aggregate_vid"])
 def test_gpu_out_of_range_index_traps(kernel):
     """An index past its table traps in checks.cu before the main kernel reads it: the E-step's at each
-    launch, the M-step's and the split and group E-steps' when their operands are built. take_along_axis
+    launch, the M-step's, the split and group E-steps' and the aggregate E-step's (a group's calls past the
+    last call, a variant id past the table) when their operands are built. take_along_axis
     and the cluster gather-sum test each index inside the kernel and trap there.
 
     A trap ends the process's CUDA context, so the launch runs in a child process.
@@ -294,13 +312,13 @@ def test_gpu_out_of_range_index_traps(kernel):
 @contextlib.contextmanager
 def _plain_versions():
     """Point the engine at the kernels' plain versions."""
-    saved = demux.estep_logits, demux.mstep_addition, demux.mstep_update
-    demux.estep_logits, demux.mstep_addition, demux.mstep_update = (estep_logits_plain, mstep_addition_plain,
-                                                                    mstep_update_plain)
+    saved = demux.estep_logits, demux.mstep_addition, demux.mstep_update, demux.aggregated_logits
+    (demux.estep_logits, demux.mstep_addition, demux.mstep_update,
+     demux.aggregated_logits) = estep_logits_plain, mstep_addition_plain, mstep_update_plain, aggregated_logits_plain
     try:
         yield
     finally:
-        demux.estep_logits, demux.mstep_addition, demux.mstep_update = saved
+        demux.estep_logits, demux.mstep_addition, demux.mstep_update, demux.aggregated_logits = saved
 
 
 @pytest.fixture
@@ -383,15 +401,18 @@ def test_gpu_auto_damping_matches_plain(engine_problem, erased):
 
 @pytest.mark.gpu
 def test_gpu_aggregate_em_matches_plain(engine_problem, monkeypatch):
-    """aggregate_on_snps on the card: the E-step is torch ops, every M-step the fused kernel."""
+    """aggregate_on_snps on the card: every E-step is one aggregate kernel launch (the plain chain never
+    runs), every M-step the fused kernel."""
     _need_card()
     packed, genotypes, handler = engine_problem
     monkeypatch.setattr(Demultiplexer, "aggregate_on_snps", True)
     learn = lambda: Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=3, doublet_prior=0.35)
-    launches = estep_logits.launches, mstep_addition.launches, mstep_update.launches
-    result = learn()
-    assert (estep_logits.launches - launches[0], mstep_addition.launches - launches[1],
-            mstep_update.launches - launches[2]) == (0, 0, 2)
+    kernels = (estep_logits, mstep_addition, mstep_update, aggregated_logits)
+    launches = [kernel.launches for kernel in kernels]
+    with monkeypatch.context() as patch:
+        patch.setattr(L, "snp_aggregated_logits", lambda *args, **kwargs: pytest.fail("the plain chain ran"))
+        result = learn()
+    assert tuple(kernel.launches - n for kernel, n in zip(kernels, launches)) == (0, 0, 2, 3)
     with _plain_versions():
         plain = learn()
     np.testing.assert_allclose(result.state.probs.cpu().numpy(), plain.state.probs.cpu().numpy(), atol=3e-5)
@@ -422,17 +443,57 @@ def test_gpu_aggregated_logits_are_deterministic(engine_problem, doublet_prior):
     kept = replace(calls, **{field: getattr(calls, field)[keep] for field in fields})
     rng = np.random.RandomState(0)
     gprob = rng.uniform(0.01, 0.99, (packed.n_variants, genotypes.n_genotypes)).astype(np.float32)
-    mixing, _ = L.pseudogenotype_mixing(list(genotypes.genotype_names), doublet_prior)
+    pairs = np.stack(L.pseudogenotype_pairs(genotypes.n_genotypes, doublet_prior))
     logits = {}
     for device in ("cuda", "cpu"):
         layout = demux._SnpAggregationLayout.build(kept, torch.device(device))
-        run = lambda: layout.logits(t(gprob, device), t(mixing, device), handler.n_barcodes)  # noqa: E731
+        operands = layout.operands(handler.n_barcodes, pairs, genotypes.n_genotypes, packed.n_variants)
+        run = lambda: aggregated_logits(t(gprob, device), operands)  # noqa: E731
         logits[device] = run()
         assert torch.equal(logits[device], run())
     got = logits["cuda"].cpu().numpy()
     empty = np.arange(handler.n_barcodes) % 5 == 2
     assert (got[empty] == 0).all() and (got[~empty] != 0).any(axis=1).all()
     np.testing.assert_allclose(got, logits["cpu"].numpy(), rtol=1e-4, atol=5e-3)
+
+
+# (donors, doublet prior): columns in registers at 1, 10, 32 and 528 (the aggregate EM's and predict's widths at
+# 32 donors), the shared-memory row at 561 and 2,080 (64 donors)
+AGGREGATE_SHAPES = [(1, 0.0), (4, 0.35), (32, 0.0), (32, 0.35), (33, 0.35), (64, 0.35)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_donors, doublet_prior", AGGREGATE_SHAPES)
+def test_gpu_aggregated_logits_match_plain(n_donors, doublet_prior):
+    """The aggregate kernel against its plain version, with and without prior logits: groups of one molecule and
+    of many, empty barcodes, q down to 1e-7 and genotype rows of 0. One launch a call; the logits-only call gives
+    the fused call's logits bit for bit."""
+    _need_card()
+    gprob, operands = aggregate_args(aggregate_problem(seed=n_donors, n_donors=n_donors,
+                                                       doublet_prior=doublet_prior), "cuda")
+    n_pg = operands.n_columns
+    prior = t(np.random.RandomState(n_donors).randn(operands.n_barcodes, n_pg).astype(np.float32), "cuda")
+    for prior_logits in (None, prior):
+        launches = aggregated_logits.launches
+        logits, probs = aggregated_logits(gprob, operands, prior_logits=prior_logits, softmax=True)
+        assert aggregated_logits.launches == launches + 1
+        want_logits, want_probs = aggregated_logits_plain(gprob, operands, prior_logits=prior_logits, softmax=True)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(logits.cpu().numpy(), want_logits.cpu().numpy(), rtol=1e-4, atol=5e-3)
+        np.testing.assert_allclose(probs.cpu().numpy(), want_probs.cpu().numpy(), atol=3e-5)
+        assert torch.equal(probs.argmax(1), want_probs.argmax(1))
+        assert torch.equal(aggregated_logits(gprob, operands, prior_logits=prior_logits), logits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_donors", [32, 64])
+def test_gpu_aggregated_logits_runs_are_bit_equal(n_donors):
+    _need_card()
+    gprob, operands = aggregate_args(aggregate_problem(seed=1, n_donors=n_donors, n_barcodes=300, n_calls=20_000),
+                                     "cuda")
+    first = aggregated_logits(gprob, operands, softmax=True)
+    again = aggregated_logits(gprob, operands, softmax=True)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,7 @@ MODULES = [
     "demuxalot_tpu_torch.native.hostops",
     "demuxalot_tpu_torch.native.scanner",
     "demuxalot_tpu_torch.ops._cuda",
+    "demuxalot_tpu_torch.ops.aggregate_kernel",
     "demuxalot_tpu_torch.ops.likelihood",
     "demuxalot_tpu_torch.ops.likelihood_kernel",
     "demuxalot_tpu_torch.ops.mstep_kernel",

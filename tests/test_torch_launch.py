@@ -72,6 +72,7 @@ torch.cuda._lazy_init = refuse
 torch.cuda.init = refuse
 from demuxalot_tpu_torch.ops import _cuda
 from demuxalot_tpu_torch.experiments import folded_estep, gather_forms, gather_operand, inkernel_gather, kernel_gather
+from demuxalot_tpu_torch.ops import aggregate_kernel
 assert not torch.cuda.is_initialized()
 assert _cuda._library is None and _cuda._build is None
 assert gather_forms._take_along_axis._fn is None and gather_operand._tiny._fn is None
@@ -79,6 +80,7 @@ assert folded_estep._folded._fn is None and kernel_gather._gather_sum._fn is Non
 assert inkernel_gather._estep_banded._fn is None and inkernel_gather._mstep_banded._fn is None
 assert inkernel_gather._check_banded._fn is None and gather_forms._cluster_gather_sum._fn is None
 assert not gather_forms._CARD_PLANS
+assert aggregate_kernel._aggregate._fn is None and aggregate_kernel._check_on_card._fn is None
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=300)

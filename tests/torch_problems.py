@@ -127,3 +127,37 @@ def in_order_addition(posterior, operands, n_genotypes, power):
         rows = o.vid[calls].long()
         acc[rows] = acc[rows] + term
     return acc
+
+
+def aggregate_problem(seed=0, n_donors=4, doublet_prior=0.35, n_barcodes=60, n_snps=2000, n_calls=3000, q_low=1e-7,
+                      zero_rows=0.1):
+    """Molecule calls for the aggregate E-step: barcodes b % 3 == 0 call 4 SNPs only (groups of many molecules),
+    the others any of ``n_snps`` (groups of one, mostly); barcodes b % 7 == 3 and the last 5 have no call; q
+    down to ``q_low``; a ``zero_rows`` share of the genotype rows is 0 (an unclipped table, p = 0)."""
+    from demuxalot_tpu_torch.ops.packing import MoleculeCalls
+
+    rng = np.random.RandomState(seed)
+    barcodes = np.array([b for b in range(n_barcodes - 5) if b % 7 != 3])
+    cb = rng.choice(barcodes, n_calls)
+    snp = np.where(cb % 3 == 0, rng.randint(0, 4, n_calls), rng.randint(0, n_snps, n_calls))
+    vid = 2 * snp + rng.randint(0, 2, n_calls)
+    q = np.exp(rng.uniform(np.log(q_low), np.log(0.3), n_calls))
+    gprob = rng.uniform(0.01, 0.99, (2 * n_snps, n_donors))
+    gprob[rng.rand(2 * n_snps) < zero_rows] = 0.0
+    calls = MoleculeCalls(variant_id=vid.astype(np.int32), snp_id=snp.astype(np.int32),
+                          compressed_cb=cb.astype(np.int32), molecule_id=np.arange(n_calls, dtype=np.int32),
+                          p_base_wrong=q.astype(np.float32), p_molecule_aligned_wrong=np.zeros(n_calls, np.float32))
+    return dict(gprob=gprob.astype(np.float32), calls=calls, n_barcodes=n_barcodes, n_donors=n_donors,
+                doublet_prior=doublet_prior)
+
+
+def aggregate_args(problem, device="cpu"):
+    """(genotype_prob, checked AggregateOperands) of an :func:`aggregate_problem` on ``device``, through the engine's
+    layout."""
+    from demuxalot_tpu_torch.models.demux import _SnpAggregationLayout
+    from demuxalot_tpu_torch.ops.likelihood import pseudogenotype_pairs
+
+    gprob, n_donors = problem["gprob"], problem["n_donors"]
+    pairs = np.stack(pseudogenotype_pairs(n_donors, problem["doublet_prior"]))
+    layout = _SnpAggregationLayout.build(problem["calls"], torch.device(device))
+    return t(gprob, device), layout.operands(problem["n_barcodes"], pairs, n_donors, gprob.shape[0])
