@@ -14,7 +14,8 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    seconds of each and ptxas' registers/spills per kernel (no kernel may
    spill), the split and group kernels' registers by instantiation, the
    folded and gather-sum kernels' registers and spills, the aggregate
-   E-step's 12 kernels' registers (``aggregate.cu``), the
+   E-step's kernels' registers (``aggregate.cu``: every instantiation of
+   ``aggregate_kernel.TEAM_COLUMNS`` at both copy widths), the
    E-step's hot loop and split (2,2)'s instruction mix per term from
    cuobjdump's SASS (split's kernels must hold HGMMA and no HMMA);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
@@ -67,13 +68,17 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    EM drift no larger than the plain path's own with a float64 E-step (five
    iterations amplify float32 rounding) and under a fixed 2e-3, the predict on the same learnt
    genotypes at phase 4's bars; then the aggregate kernel against its plain
-   version at 32 and 528 columns on the learn's and predict's operands and
-   at 64 donors (8,192 barcodes, 2,080 columns): logits, posteriors,
+   version at 32 and 528 columns on the learn's and predict's operands, at
+   64 donors (8,192 barcodes, 2,080 columns) and on the learn's calls
+   regrouped 8 a group (groups of many molecules): logits, posteriors,
    argmax, float64 beside both, two runs bit-equal, each call's peak, the
    CUDA-event times in turns beside ``AggregateRoofline``'s bound, the
-   aggregate EM iteration and predict in turns; and the operands' one check
-   trapping on a group past the calls and a variant id past the table, in
-   child processes. (b) On phase 6's BAM with only chr1–chr4 known:
+   aggregate EM iteration and predict in turns; every instantiation that
+   holds the row (``aggregate_kernel.instantiations``) at widths 4-528 on
+   the bench calls and 561-2,080 on the 64-donor case's, its time and its
+   logits against the plan's pick; the wrapper's host µs a call at 32
+   columns; and the operands' one check trapping on a group past the calls
+   and a variant id past the table, in child processes. (b) On phase 6's BAM with only chr1–chr4 known:
    ``detect_snps_positions`` (the provisional predict launches the E-step
    kernel; the pileup takes the C++ scanner), its selections against the
    hidden truth, the parquet fed back through ``add_prior_betas``, native
@@ -194,7 +199,9 @@ The line before the last is a JSON object with one entry per kernel
 of them in ``ab_launches``; ``mstep_update`` stands beside
 ``mstep_addition`` with the old chain's time and both kernels' times by
 depth in flight; ``aggregated_logits``'s ``ms`` is its fused call at
-528 columns, 32 columns and 64 donors in ``by_columns`` and ``d64``; the
+528 columns, 32 columns and 64 donors in ``by_columns`` and ``d64``, groups
+of 8 molecules in ``many_molecules``, each instantiation by width in
+``by_instantiation``, the wrapper's ``host_us``; the
 experiments' kernels' runs in 9b-d, 10b and 11b-d;
 ``bound_ms`` is the least time the card could take for the call that
 ``ms`` times, from ``utils.profiling``, the banded kernels' that of the
@@ -224,12 +231,16 @@ at [8, 128], gather_sum at [8192, 64] (1,048,576 indices) and
 cluster_gather_sum at [8192, 32] (4,194,304), eagerly
 (100 calls) and in a CUDA graph's replay, its split E-step at (2,2)
 and (0,0), group E-step at G 4 with 2 words and folded E-step at phase
-10b's shape, and its banded E-step and M-step at phase 9b's shape, in its
+10b's shape, its banded E-step and M-step at phase 9b's shape, and its
+aggregate kernel's fused call at 32 and 528 columns and at 64 donors with
+the wrapper's host µs at 32 (a tree without the kernel has none), in its
 own process, in turns (parent, this tree, this tree, parent). Then
 whether each output is bit-equal to the parent's on the same inputs: the
 bench-shape E-step's logits and posteriors, the M-step addition and the
 EM loop's M-step, the banded logits and additions (with a digest of the
-banded inputs, which the mainline kernels make), gather_sum's sum; and the E-step's and
+banded inputs, which the mainline kernels make), gather_sum's sum, the
+aggregate kernel's logits and probs at each case, with their largest
+difference from the parent's and the argmax agreement; and the E-step's and
 M-step's registers in both trees' libraries (``cuobjdump
 --dump-resource-usage``), with whether the mainline's are unchanged.
 """
@@ -376,9 +387,15 @@ def phase_build() -> None:
         injected_warpgroup_arrives=result.log.count("C7519"))
     say("build", folded_and_gather_sum={name: k for name, k in kernels.items()
                                         if name.startswith(("folded", "gather_sum", "cluster_gather_sum"))})
-    # the aggregate E-step (aggregate.cu): <columns a lane in registers (0: the shared-memory row), floats per copy>
+    # the aggregate E-step (aggregate.cu): <lanes a group (0: the block's warps split the row), columns a lane in
+    # registers (0: the shared-memory row), floats per copy>, every instantiation of aggregate_kernel.TEAM_COLUMNS
+    # at both copy widths
+    from demuxalot_tpu_torch.ops.aggregate_kernel import TEAM_COLUMNS
+
     aggregate = {name: k for name, k in kernels.items() if name.startswith("aggregate")}
-    require(not result.log or len(aggregate) == 12, f"aggregate.cu's 12 kernels in ptxas' report: {sorted(aggregate)}")
+    wanted = 2 * sum(len(cols) for cols in TEAM_COLUMNS.values())
+    require(not result.log or len(aggregate) == wanted,
+            f"aggregate.cu's {wanted} kernels in ptxas' report: {sorted(aggregate)}")
     say("build", aggregate_registers=aggregate)
     # the E-step's and M-step's instantiations, main path and banded: the banded E-step at the main path's 4
     # blocks of 4 warps per SM, so at most 128 registers; its shared memory at 32 donors (528 columns): each
@@ -1303,6 +1320,7 @@ def phase_bam(card: str, tmp: Path) -> dict:
 def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict:
     from demuxalot_tpu_torch import Demultiplexer
     from demuxalot_tpu_torch.models import demux
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregated_logits
 
     Demultiplexer.device = "cuda"
     cuda = demux.resolve_device(Demultiplexer.device)  # the engine's device key, as its layout cache has it
@@ -1460,15 +1478,28 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
                                    f"bench shape, prior {prior}")
             widths[case["n_pg"]] = case
             say("aggregate", stage="aggregated_logits", card=card, **case)
-        d64 = _aggregate_case(*_aggregate_d64_inputs(cuda), "64 donors")
+        d64_inputs = _aggregate_d64_inputs(cuda)
+        d64 = _aggregate_case(*d64_inputs, "64 donors")
         say("aggregate", stage="aggregated_logits at 64 donors", card=card, shape=AGGREGATE_D64, **d64)
+        # groups of many molecules: the bench calls at 32 columns regrouped 8 calls a group
+        em_operands = packed.aggregate_operands(n_barcodes, n_donors, 0.0, cuda)
+        many = _aggregate_case(gprob, _regrouped(em_operands, AGGREGATE_GROUP_CALLS),
+                               f"groups of {AGGREGATE_GROUP_CALLS} molecules")
+        say("aggregate", stage=f"aggregated_logits, groups of {AGGREGATE_GROUP_CALLS} molecules", card=card, **many)
+        # every instantiation that holds each width, beside the plan's pick; the wrapper's host path
+        sweep = {**_aggregate_sweep(gprob, em_operands, AGGREGATE_SWEEP_WIDTHS),
+                 **_aggregate_sweep(*d64_inputs, AGGREGATE_D64_SWEEP_WIDTHS)}
+        say("aggregate", stage="instantiations by width", card=card, sweep=sweep)
+        host_us = _host_us(lambda: aggregated_logits(gprob, em_operands, softmax=True))
+        say("aggregate", stage="wrapper host path", card=card, host_us_per_call=host_us, n_pg=em_operands.n_columns)
+        del d64_inputs, em_operands
         trapped = _trapping_children(_AGGREGATE_TRAP, ("groups", "vid"))
         say("aggregate", stage="operands checked once", card=card, trapped=trapped)
     finally:
         Demultiplexer.aggregate_on_snps = False
         demux.STAGE_TIMINGS = None
     return {"launches": launches, "accuracy": accuracy, "errors": errors, "widths": widths, "d64": d64,
-            "learn_s": learn_s, "compact_s": compact_s, "predict_peak": predict_peak,
+            "many": many, "sweep": sweep, "host_us": host_us, "learn_s": learn_s, "compact_s": compact_s, "predict_peak": predict_peak,
             "plain_predict_peak": plain_predict_peak, "em_ms": em_ms, "plain_em_ms": em_plain_ms,
             "predict_s": predict_s, "plain_predict_s": predict_plain_s}
 
@@ -1616,9 +1647,65 @@ def _aggregate_case(gprob, operands, what: str) -> dict:
             "kernel_peak_bytes": peaks["kernel"], "plain_peak_bytes": peaks["plain"], "output_bytes": out_bytes}
 
 
-# phase 7a's 64-donor case (2,080 columns: the shared-memory row): the bench shape's SNPs and calls per barcode,
-# fewer barcodes, seed 0
+# phase 7a's 64-donor case (2,080 columns: the row split over a block's warps): the bench shape's SNPs and calls per
+# barcode, fewer barcodes, seed 0
 AGGREGATE_D64 = dict(n_barcodes=8_192, n_donors=64, n_snps=65_536, calls_per_barcode=64)
+# phase 7a's case of groups of many molecules: the bench calls at 32 columns, this many calls a group
+AGGREGATE_GROUP_CALLS = 8
+# phase 7a's sweep of the instantiations: the first n columns of the donors' singlets and doublets, on the bench
+# calls (32 donors) and on the 64-donor case's
+AGGREGATE_SWEEP_WIDTHS = (4, 8, 10, 16, 32, 64, 128, 256, 528)
+AGGREGATE_D64_SWEEP_WIDTHS = (561, 1088, 1089, 2080)
+
+
+def _regrouped(operands, calls: int):
+    """``operands``' calls in groups of ``calls`` consecutive calls of each barcode (its last group shorter), through
+    ``aggregate_operands``."""
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregate_operands
+
+    o = operands
+    group_ptr, barcode_ptr = o.group_ptr.cpu().numpy(), o.barcode_ptr.cpu().numpy()
+    starts, ends = group_ptr[barcode_ptr[:-1]], group_ptr[barcode_ptr[1:]]
+    n_groups = -(-(ends - starts) // calls)
+    new_barcode_ptr = np.concatenate([[0], np.cumsum(n_groups)])
+    rank = np.arange(new_barcode_ptr[-1]) - np.repeat(new_barcode_ptr[:-1], n_groups)
+    new_group_ptr = np.concatenate([np.repeat(starts, n_groups) + calls * rank, [group_ptr[-1]]])
+    device = o.vid.device
+    return aggregate_operands(o.pairs.cpu().numpy(), o.n_donors, o.vid, o.q,
+                              torch.from_numpy(new_group_ptr.astype(np.int64)).to(device),
+                              torch.from_numpy(new_barcode_ptr.astype(np.int64)).to(device), o.n_variants,
+                              o.compensation, o.p_bad_snp)
+
+
+def _aggregate_sweep(gprob, operands, widths) -> dict:
+    """The kernel's fused call at every instantiation that holds each width (``aggregate_kernel.instantiations``),
+    on ``operands``' calls with the first n columns of their donors' singlets and doublets: each instantiation's ms
+    (one sample) and its logits against the plan's own pick's at the logits bar."""
+    from demuxalot_tpu_torch.ops import aggregate_kernel as AK
+    from demuxalot_tpu_torch.ops import likelihood as L
+
+    o = operands
+    pairs = np.stack(L.pseudogenotype_pairs(o.n_donors, 1.0))
+    result = {}
+    for n_pg in widths:
+        sub = AK.aggregate_operands(pairs[:, :n_pg], o.n_donors, o.vid, o.q, o.group_ptr, o.barcode_ptr, o.n_variants,
+                                    o.compensation, o.p_bad_snp)
+        run = lambda: AK.aggregated_logits(gprob, sub, softmax=True)  # noqa: E731
+        own = run()[0]
+        times, errors = {}, {}
+        for plan in AK.instantiations(n_pg):
+            AK.PLAN = plan
+            try:
+                name = f"{plan[0]},{plan[1]}"
+                errors[name] = compare(f"aggregate at {n_pg} columns, instantiation {name}", run()[0], own,
+                                       **LOGITS_TOL)
+                times[name] = _time_ms(run, repeats=5)
+            finally:
+                AK.PLAN = None
+        result[str(n_pg)] = {"plan": "%d,%d" % AK.aggregate_plan(n_pg), "fastest": min(times, key=times.get),
+                             "ms": times, "logits_err_vs_plan": errors}
+        del own, sub
+    return result
 
 
 def _aggregate_d64_inputs(cuda) -> tuple:
@@ -2869,8 +2956,10 @@ def steps_ms() -> dict:
             "mstep_addition": _digest(mstep_addition(state.probs, run.likelihood.mstep, run.n_genotypes, 2.0)),
             "m_step": _digest(*(m_out if isinstance(m_out, tuple) else (m_out,)))}
     banded, launch_bound = _banded_steps(cuda), _launch_bound_ms(cuda)
+    aggregate = _aggregate_steps(packed, handler, gprob, cuda)
     return {"package": str(Path(inspect.getfile(estep_logits)).parents[2]), "fused": fused,
-            "bits": {**bits, **banded.pop("bits"), **launch_bound.pop("bits")}, **banded,
+            "bits": {**bits, **banded.pop("bits"), **launch_bound.pop("bits"), **aggregate.pop("bits")}, **banded,
+            **aggregate,
             "estep_softmax_ms": [_time_ms(step) for _ in range(3)],
             "estep_ms": [_time_ms(lambda: estep_logits(gprob, lik.estep)) for _ in range(3)],
             "mstep_addition_ms": [_time_ms(lambda: mstep_addition(state.probs, run.likelihood.mstep,
@@ -2878,6 +2967,35 @@ def steps_ms() -> dict:
             "m_step_ms": [_time_ms(m_step) for _ in range(3)],
             "em_iteration_ms": [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)],
             **launch_bound, **_variant_steps_ms(cuda)}
+
+
+def _aggregate_steps(packed, handler, gprob, cuda) -> dict:
+    """The aggregate kernel's fused call of the package on sys.path at 32 and 528 columns (the bench shape's EM and
+    predict operands) and at 64 donors (phase 7a's case): three samples each, the wrapper's host µs a call at 32
+    columns, its outputs' bits; where ``CHIP_SMOKE_SAVE`` gives a path prefix, the logits and probs stacked into
+    ``<prefix>_<case>.npy`` for the drift between trees. Nothing for a package without the kernel."""
+    import os
+
+    if not hasattr(packed, "aggregate_operands"):
+        return {"bits": {}}
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregated_logits
+
+    n_barcodes, n_donors = handler.n_barcodes, BENCH["n_donors"]
+    cases = {str(prior_pg): (gprob, packed.aggregate_operands(n_barcodes, n_donors, prior, cuda))
+             for prior, prior_pg in ((0.0, 32), (DOUBLET_PRIOR, 528))}
+    cases["d64"] = _aggregate_d64_inputs(cuda)
+    result, bits = {}, {}
+    save = os.environ.get("CHIP_SMOKE_SAVE")
+    for name, (g, operands) in cases.items():
+        run = lambda: aggregated_logits(g, operands, softmax=True)  # noqa: E731
+        result[f"aggregate_{name}_ms"] = [_time_ms(run, repeats=5) for _ in range(3)]
+        logits, probs = run()
+        bits[f"aggregate_{name}"] = _digest(logits, probs)
+        if save:
+            np.save(f"{save}_{name}.npy", torch.stack([logits, probs]).cpu().numpy())
+        del logits, probs
+    result["aggregate_host_us"] = [_host_us(lambda: aggregated_logits(gprob, cases["32"][1], softmax=True))]
+    return {**result, "bits": bits}
 
 
 def _digest(*tensors: torch.Tensor) -> str:
@@ -2961,11 +3079,15 @@ def _launch_bound_ms(cuda) -> dict:
 
 def compare_with_parent(parent: Path, card: str) -> None:
     """Each tree's steps in its own process (one package per process), parent, this, this, parent."""
+    import os
+
     samples = {"parent": [], "this": []}
+    saved = tempfile.TemporaryDirectory()
     for which in ("parent", "this", "this", "parent"):
         root = parent if which == "parent" else REPO
+        env = {**os.environ, "CHIP_SMOKE_SAVE": f"{saved.name}/{which}"}
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--steps-ms", str(root)],
-                              capture_output=True, text=True, timeout=900)
+                              capture_output=True, text=True, timeout=900, env=env)
         require(proc.returncode == 0, f"step timing of {root} exited {proc.returncode}: {proc.stderr[-2000:]}")
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         require(Path(result["package"]).resolve() == root.resolve(), f"{root}: imported {result['package']}")
@@ -2979,10 +3101,21 @@ def compare_with_parent(parent: Path, card: str) -> None:
         "estep_softmax_ms", "estep_ms", "mstep_addition_ms", "m_step_ms", "em_iteration_ms", "take_along_axis_ms",
         "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms", "split_22_ms", "split_00_ms", "group_G4_ms",
         "folded_ms", "gather_sum_ms", "gather_sum_graph_ms", "cluster_gather_sum_ms", "cluster_gather_sum_graph_ms",
-        "banded_estep_ms", "banded_mstep_ms")})
+        "banded_estep_ms", "banded_mstep_ms", "aggregate_32_ms", "aggregate_528_ms", "aggregate_d64_ms",
+        "aggregate_host_us")})
     # bit for bit: each output of this tree against the parent's on the same inputs, every run alike
-    bits = {key: "bit-equal" if len({r["bits"][key] for r in samples["parent"] + samples["this"]}) == 1
+    bits = {key: "bit-equal" if len({r["bits"].get(key) for r in samples["parent"] + samples["this"]}) == 1
             else "differs" for key in samples["this"][0]["bits"]}
+    # the aggregate kernel's outputs, this tree's against the parent's (the runs of each tree are bit-equal)
+    drift = {}
+    for case in ("32", "528", "d64"):
+        ours, theirs = (Path(f"{saved.name}/{which}_{case}.npy") for which in ("this", "parent"))
+        if ours.is_file() and theirs.is_file():
+            a, b = np.load(ours), np.load(theirs)
+            drift[case] = {"logits": float(np.abs(a[0] - b[0]).max()), "probs": float(np.abs(a[1] - b[1]).max()),
+                           "argmax_agreement": float((a[1].argmax(1) == b[1].argmax(1)).mean())}
+    saved.cleanup()
+    say("parent", card=card, aggregate_drift_from_parent=drift)
     # the E-step's and M-step's registers in each tree's library (the parent's built by its first child)
     from demuxalot_tpu_torch.ops import _cuda
 
@@ -3118,7 +3251,8 @@ def main() -> int:
         "library_ms_reason": "no single PyTorch call computes it",
         "by_columns": {str(n): {k: case[k] for k in case_keys} for n, case in aggregate["widths"].items()},
         "d64": {k: aggregate["d64"][k] for k in case_keys},
-        "predict_peak_bytes": aggregate["predict_peak"], "plain_predict_peak_bytes": aggregate["plain_predict_peak"],
+        "many_molecules": {k: aggregate["many"][k] for k in case_keys}, "by_instantiation": aggregate["sweep"],
+        "host_us": aggregate["host_us"], "predict_peak_bytes": aggregate["predict_peak"], "plain_predict_peak_bytes": aggregate["plain_predict_peak"],
         "em_iteration_ms": aggregate["em_ms"], "plain_em_iteration_ms": aggregate["plain_em_ms"],
         "predict_s": aggregate["predict_s"], "plain_predict_s": aggregate["plain_predict_s"]})
     # the experiments' kernels: the banded ones at the JAX harness's shape (phase 9b, G past L2 beside

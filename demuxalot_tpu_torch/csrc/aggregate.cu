@@ -12,7 +12,7 @@
 //   p[c, g]   = 0.5 * (G[vid_c, i_g] + G[vid_c, j_g])           (i_g == j_g for a singlet)
 //   y         = log_softmax(x[grp, :])
 //   z         = log_softmax(logaddexp(y, log(escape)))           escape = p_bad_snp / n_pg
-//   logits[b] = sum_{groups of b, in group order} z[grp, :]      (+ prior[b]; probs = softmax, when given)
+//   logits[b] = sum_{groups of b} z[grp, :]                      (+ prior[b]; probs = softmax, when given)
 //
 // No doublet penalty is added (the reference computes but never adds them on
 // this path); a barcode with no group gets a row of zeros (+ prior).
@@ -30,31 +30,75 @@
 // What bounds it on the H100: the MUFU unit, (calls + 2 groups) x columns
 // operations (utils/profiling.py: AggregateRoofline); its bytes (the calls'
 // ids and q, the pointers, G, the rows written) take a fraction of that time.
-// The design:
-// - One warp per barcode, warps persistent over a static stride of barcodes.
-//   A warp walks its barcode's groups in order (their pointers a window of 31
-//   at a time, one per lane, with each group's 1 / n^compensation) and its
-//   calls in tiles of 32: the next tile's G rows are gathered into the warp's
-//   double-buffered ring with cp.async while this tile is computed (as in
-//   likelihood.cu's main path), and the ids and q of the tile after that are
-//   already in registers.
-// - Up to 544 columns, the columns live in registers: kCols a lane, column
-//   k * 32 + lane, each with its donor pair's offsets. A call term is one FADD
-//   and one FFMA, 0.5 * (G_i + G_j) + q: the bits of the plain path's f32
-//   product with a 0 / 0.5 / 1 mixing matrix (no tensor cores: TF32 would shift
-//   the posteriors), then one lg2. A group's max and sum are warp shuffles; the
-//   barcode's row is summed in registers in group order.
-// - Past 544 columns (kCols = 0: 33 donors or more with doublets), the group's
-//   row sits in the warp's shared memory and the barcode's running row in its
-//   own logits row, each column always the same lane's; columns in strides of
-//   32 lanes.
-// Nothing of size [groups, columns] or [calls, columns] exists in device
-// memory. No atomics and no cross-warp sums: two runs give the same bits. The
-// indices are checked once per dataset (demux_aggregate_check, when the
-// operands are built), so a launch checks nothing.
+// What held the first design (one warp a group, one column a lane at narrow
+// rows) was not the MUFU unit but each group's chain of dependent steps: the
+// group's bounds, q and two 5-step shuffle reductions, all for 3 MUFU
+// operations a lane. With teams, groups of 8 calls take nearly as long as
+// groups of one at 32 columns: what is left at narrow rows rides mostly on
+// each call (its G row, n_donors floats gathered from L2 whatever the width,
+// and its terms), not on a group's reductions (PERF.md). The design, by width
+// (the host's plan, ops/aggregate_kernel.py: aggregate_plan, picks the
+// instantiation):
+// - Every warp walks its barcode's calls in tiles of 32, in call order: the
+//   next tile's G rows are gathered into a double-buffered ring in shared
+//   memory with cp.async while this tile is computed (as in likelihood.cu's
+//   main path), the ids and q of the tile after that already in registers. A
+//   call term is one FADD and one FFMA, 0.5 * (G_i + G_j) + q: the bits of the
+//   plain path's f32 product with a 0 / 0.5 / 1 mixing matrix (no tensor
+//   cores: TF32 would shift the posteriors), then one lg2. Columns live in
+//   registers with their donor pairs' offsets, read once a warp.
+// - Narrow rows (kTeam < 32, up to 256 columns; the aggregate EM's width): a
+//   team of kTeam lanes works one group, so a warp has 32 / kTeam groups in
+//   flight; lane l of a team holds columns k * kTeam + l, k < kCols. A warp
+//   reads the pointers of 32 groups at once (one group a lane, with its
+//   1 / n^compensation); in a round, team t takes the window's group r + t,
+//   its bounds and scale by one shuffle each that serves every team. The
+//   round's calls are contiguous: the warp steps through the part of each
+//   ring tile that they cover, every team adding the terms of its own calls
+//   there. A group's max takes log2(kTeam) xor shuffles inside the team, one
+//   instruction for every team; its sum the first design's order (below),
+//   its 1 / S one correctly rounded reciprocal (as 1.f / S) that serves every
+//   team. The teams then write the round's z rows to the warp's shared memory
+//   and the barcode's running row, held as in the first design (lane l:
+//   columns j * 32 + l), adds them in group order. The ring's rows and the
+//   teams' rows are padded so that teams reading or writing the same column
+//   of different rows hit different banks.
+// - Up to 544 columns (kTeam = 32): one warp a group, kCols a lane, column
+//   k * 32 + lane: the first design, unchanged (its bits and time).
+// - Wide rows (kTeam = 0, past 544 columns): the barcode's columns split over
+//   the warps of a block, kCols a lane each (column w * 32 * kCols + k * 32 +
+//   lane), the block's warps sharing one ring; a group's max and sum are the
+//   warps' own, combined in warp order through shared memory at a block
+//   barrier. The running row stays in registers until the barcode ends.
+// - Past 16 such warps (over 8,704 columns, 132 donors with doublets) the
+//   group's row sits in the warp's shared memory and the barcode's running row
+//   in its own logits row (kTeam = 32, kCols = 0), one warp a barcode.
+// Logits and probs are written once a barcode. Nothing of size [groups,
+// columns] or [calls, columns] exists in device memory. The indices are
+// checked once per dataset (demux_aggregate_check, when the operands are
+// built), so a launch checks nothing; what a launch asks the card (its SMs,
+// the shared-memory attribute, the occupancy) is asked once and kept.
+//
+// Sum order, fixed by the layout and the instantiation, never by the grid or
+// by timing (no atomics; two runs give the same bits):
+// - x: a group's call terms in call order, one column at a time.
+// - S: lane l of the warp sums its columns K * 32 + l in K order, then xor
+//   butterflies with offsets 16, ..., 1. A team lane stands for 32 / kTeam of
+//   those lanes: it adds their registers in that order, and the offsets of
+//   kTeam and up between its registers before the team's shuffles. At
+//   kTeam = 0, each warp's sum so, then the warps' sums in warp order.
+// - logits: every group of the barcode in group order, from zero, lane l
+//   holding columns j * 32 + l (kTeam = 0: the warp's own columns).
+// - probs: a lane's columns in j order, then the butterflies (kTeam = 0: the
+//   warps in warp order).
+// So every instantiation up to 544 columns gives the same bits, the first
+// design's; the split row past 544 its own.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 #include "common.cuh"
 
@@ -67,9 +111,10 @@ using demux::kFullMask;
 using demux::kWarpSize;
 
 constexpr int kTileCalls = 32;           // calls per ring slot
-constexpr int kWindow = kWarpSize - 1;   // groups per window of 32 group pointers
+constexpr int kWindow = kWarpSize - 1;   // groups per window of 32 group pointers (kTeam = 32, 0)
 constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxRegisterCols = 17;     // columns a lane in registers: 544 a warp
+constexpr int kMaxSplitWarps = 16;       // warps a block on one barcode's columns: 128 registers a thread
 constexpr float kLn2 = 0.693147180559945309f;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -96,25 +141,31 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
-// butterflies: every lane ends with the same bits (a + b == b + a)
-__device__ __forceinline__ float warp_max(float v) {
+// butterflies over aligned teams of kLanes lanes: every lane of a team ends with the same bits (a + b == b + a)
+template <int kLanes>
+__device__ __forceinline__ float team_max(float v) {
 #pragma unroll
-    for (int o = kWarpSize / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+    for (int o = kLanes / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
     return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <int kLanes>
+__device__ __forceinline__ float team_sum(float v) {
 #pragma unroll
-    for (int o = kWarpSize / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+    for (int o = kLanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
     return v;
 }
+
+__device__ __forceinline__ float warp_max(float v) { return team_max<kWarpSize>(v); }
+__device__ __forceinline__ float warp_sum(float v) { return team_sum<kWarpSize>(v); }
 
 // The calls of one barcode, [start of its first tile, end), asked for in
-// order, in tiles of 32: the current tile's G rows in one slot of the warp's
-// ring, the next tile's in flight into the other, the ids and q of the one
-// after that in registers. kChunk: floats per cp.async (4 when G's rows are
-// 16-byte aligned).
-template <int kChunk>
+// order, in tiles of 32: the current tile's G rows in one slot of the ring,
+// the next tile's in flight into the other, the ids and q of the one after
+// that in registers. kChunk: floats per cp.async (4 when G's rows are 16-byte
+// aligned). kBlock: the block's warps share the ring (each holding the same
+// ids and q), else it is the warp's own.
+template <int kChunk, bool kBlock = false>
 struct CallTiles {
     const float* G;
     const int32_t* vid;
@@ -130,6 +181,14 @@ struct CallTiles {
                          int stride_, int lane_)
         : G(G_), vid(vid_), q(q_), ring(ring_), n_donors(n_donors_), stride(stride_), lane(lane_) {}
 
+    __device__ void sync() const {
+        if constexpr (kBlock) {
+            __syncthreads();
+        } else {
+            __syncwarp();
+        }
+    }
+
     // call t + lane's id and q (0 and 1 past the end)
     __device__ void load(int64_t t, int& v, float& qq) const {
         const int64_t c = t + lane;
@@ -143,8 +202,10 @@ struct CallTiles {
         const int n = left <= 0 ? 0 : (left < kTileCalls ? (int)left : kTileCalls);
         const int row_chunks = n_donors / kChunk;
         const int total = n * row_chunks;
-        for (int i0 = 0; i0 < total; i0 += kWarpSize) {
-            const int i = i0 + lane;
+        const int first = kBlock ? (int)threadIdx.x : lane;
+        const int step = kBlock ? (int)blockDim.x : kWarpSize;
+        for (int i0 = 0; i0 < total; i0 += step) {
+            const int i = i0 + first;
             const int r = i / row_chunks;
             const int vr = __shfl_sync(kFullMask, v, r & (kWarpSize - 1));
             if (i < total) {
@@ -163,16 +224,16 @@ struct CallTiles {
         load(lo, v0, q_cur);
         load(lo + kTileCalls, v1, q_next);
         load(lo + 2 * kTileCalls, v_ahead, q_ahead);
-        __syncwarp();  // every lane is done with the ring
+        sync();  // every thread is done with the ring
         gather(lo, v0, ring);
         gather(lo + kTileCalls, v1, ring + kTileCalls * stride);
         asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-        __syncwarp();  // the first tile landed
+        sync();  // the first tile landed
     }
 
     __device__ void advance() {
         asm volatile("cp.async.wait_all;\n" ::: "memory");
-        __syncwarp();  // the next tile landed; every lane is done with this one
+        sync();  // the next tile landed; every thread is done with this one
         start += kTileCalls;
         cur ^= 1;
         q_cur = q_next;
@@ -181,16 +242,56 @@ struct CallTiles {
         load(start + 2 * kTileCalls, v_ahead, q_ahead);
     }
 
+    // row r of the current tile
+    __device__ const float* slot(int r) const { return ring + (cur * kTileCalls + r) * stride; }
+
     // call c's G row in shared memory and its q; c is the call after the last one asked for
     __device__ const float* row(int64_t c, float& qc) {
         if (c >= start + kTileCalls) advance();
         const int r = (int)(c - start);
         qc = __shfl_sync(kFullMask, q_cur, r);
-        return ring + (cur * kTileCalls + r) * stride;
+        return slot(r);
     }
 };
 
-// Up to 32 * kCols columns in registers: lane l holds columns k * 32 + l.
+// one call's terms, added to a lane's columns: x[k] += log2(½(row[i_k] + row[j_k]) + q)
+template <int kCols>
+__device__ __forceinline__ void add_terms(float (&x)[kCols], const int (&oi)[kCols], const int (&oj)[kCols],
+                                          const float* row, float qc) {
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) x[k] += lg2(fmaf(row[oi[k]] + row[oj[k]], 0.5f, qc));
+}
+
+// The barcode's row in the first design's layout, lane l holding columns k * 32 + l (+ prior) → logits and, when
+// probs is given, its softmax; every pointer is at the barcode's row.
+template <int kCols>
+__device__ __forceinline__ void finish_row(float (&acc)[kCols], int lane, int n_pg, const float* prior, float* logits,
+                                           float* probs) {
+    float m = neg_inf();
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+        const int g = k * kWarpSize + lane;
+        if (g >= n_pg) continue;
+        if (prior != nullptr) acc[k] += prior[g];
+        logits[g] = acc[k];
+        m = fmaxf(m, acc[k]);
+    }
+    if (probs == nullptr) return;
+    m = warp_max(m);
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+        acc[k] = k * kWarpSize + lane < n_pg ? expf(acc[k] - m) : 0.f;
+        s += acc[k];
+    }
+    const float inv = 1.f / warp_sum(s);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+        if (k * kWarpSize + lane < n_pg) probs[k * kWarpSize + lane] = acc[k] * inv;
+    }
+}
+
+// kTeam = 32: up to 32 * kCols columns in registers, one warp a group: lane l holds columns k * 32 + l.
 template <int kCols>
 struct RegisterColumns {
     float x[kCols], acc[kCols];
@@ -218,10 +319,7 @@ struct RegisterColumns {
         for (int k = 0; k < kCols; ++k) x[k] = 0.f;
     }
 
-    __device__ void add_call(const float* row, float qc) {
-#pragma unroll
-        for (int k = 0; k < kCols; ++k) x[k] += lg2(fmaf(row[oi[k]] + row[oj[k]], 0.5f, qc));
-    }
+    __device__ void add_call(const float* row, float qc) { add_terms(x, oi, oj, row, qc); }
 
     // x (log2 units) times 1 / n^compensation → z, added to the barcode's row
     __device__ void close_group(float scale, float escape, float log_norm) {
@@ -247,27 +345,202 @@ struct RegisterColumns {
 
     // the row (+ prior) → logits and, when probs is given, its softmax; every pointer is at the barcode's row
     __device__ void finish(const float* prior, float* logits, float* probs) {
+        finish_row(acc, lane, n_pg, prior, logits, probs);
+    }
+};
+
+// floats a row of the round's group rows (TeamColumns::rows): at least kTeam * kCols, kTeam mod 32, so that the
+// 32 lanes storing one register of their team's row hit 32 banks
+__host__ __device__ constexpr int team_row(int team, int cols) {
+    int row = team * cols;
+    while (row % kWarpSize != team % kWarpSize) ++row;
+    return row;
+}
+
+// kTeam < 32: a team of kTeam lanes a group, 32 / kTeam teams a warp; lane l of team t holds columns k * kTeam + l
+// of its group. Each round the teams' rows go through the warp's shared memory (rows: [32 / kTeam][kRow]) to the
+// barcode's running row, which sits in the first design's layout (lane l: columns j * 32 + l, j < kOwn) and takes
+// them in group order. A group's S is taken in the first design's order too (lane l of the warp: its columns
+// K * 32 + l in K order, then xor butterflies 16, ..., 1; the offsets of kTeam and up between a lane's registers),
+// so every width gives the first design's bits.
+template <int kTeam, int kCols>
+struct TeamColumns {
+    static constexpr int kTeams = kWarpSize / kTeam;
+    static constexpr int kLo = kTeams < kCols ? kTeams : kCols;  // the first design's lanes a lane of a team stands for
+    static constexpr int kOwn = (kTeam * kCols + kWarpSize - 1) / kWarpSize;
+    static constexpr int kRow = team_row(kTeam, kCols);
+    float x[kCols], acc[kOwn];
+    int oi[kCols], oj[kCols];
+    int lane, sub, team, n_pg;
+    float* rows;
+
+    __device__ TeamColumns(const int32_t* pairs, int n_pg_, int lane_, float* rows_)
+        : lane(lane_), sub(lane_ % kTeam), team(lane_ / kTeam), n_pg(n_pg_), rows(rows_) {
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+            const int g = k * kTeam + sub;
+            oi[k] = g < n_pg ? pairs[g] : 0;
+            oj[k] = g < n_pg ? pairs[n_pg + g] : 0;
+        }
+    }
+
+    __device__ bool valid(int k) const { return k * kTeam + sub < n_pg; }
+
+    __device__ void start_barcode() {
+#pragma unroll
+        for (int j = 0; j < kOwn; ++j) acc[j] = 0.f;
+    }
+
+    __device__ void start_group() {
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) x[k] = 0.f;
+    }
+
+    __device__ void add_call(const float* row, float qc) { add_terms(x, oi, oj, row, qc); }
+
+    // each team's x (log2 units) times its 1 / n^compensation → z; the rows of the round's first n_active teams
+    // (its groups, in group order) added to the barcode's row
+    __device__ void close_round(float scale, float escape, float log_norm, int n_active) {
+        float m = neg_inf();
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+            x[k] = valid(k) ? x[k] * scale : neg_inf();
+            m = fmaxf(m, x[k]);
+        }
+        m = team_max<kTeam>(m);
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) x[k] = ex2(x[k] - m);
+        // register k holds the first design's lane (k % kTeams) * kTeam + sub, its column k / kTeams
+        float p[kLo];
+#pragma unroll
+        for (int lo = 0; lo < kLo; ++lo) {
+            p[lo] = x[lo];
+#pragma unroll
+            for (int k = lo + kTeams; k < kCols; k += kTeams) p[lo] += x[k];
+        }
+#pragma unroll
+        for (int h = kTeams / 2; h > 0; h >>= 1) {
+#pragma unroll
+            for (int lo = 0; lo < h; ++lo) {
+                if (lo + h < kLo) p[lo] += p[lo + h];
+            }
+        }
+        const float inv = __frcp_rn(team_sum<kTeam>(p[0]));  // 1 / S correctly rounded, as 1.f / S, one a round
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+            rows[team * kRow + k * kTeam + sub] = fmaf(lg2_normal(fmaf(x[k], inv, escape)), kLn2, -log_norm);
+        }
+        __syncwarp();
+        for (int t = 0; t < n_active; ++t) {
+#pragma unroll
+            for (int j = 0; j < kOwn; ++j) acc[j] += rows[t * kRow + j * kWarpSize + lane];
+        }
+        __syncwarp();  // every lane has read the rows before the next round writes them
+    }
+
+    __device__ void finish(const float* prior, float* logits, float* probs) {
+        finish_row(acc, lane, n_pg, prior, logits, probs);
+    }
+};
+
+// kTeam = 0: the barcode's columns split over the block's warps, kCols a lane: warp w's lane l holds columns
+// w * 32 * kCols + k * 32 + l. A group's max and sum are each warp's, combined in warp order through shared
+// memory (red: the warps' maxima, then their sums) at a block barrier.
+template <int kCols>
+struct SplitColumns {
+    float x[kCols], acc[kCols];
+    int oi[kCols], oj[kCols];
+    int lane, warp, first, n_pg;
+    float* red;  // [2][kMaxSplitWarps]
+
+    __device__ SplitColumns(const int32_t* pairs, int n_pg_, int lane_, float* red_)
+        : lane(lane_), warp((int)threadIdx.x / kWarpSize), first(warp * kWarpSize * kCols), n_pg(n_pg_), red(red_) {
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+            const int g = first + k * kWarpSize + lane;
+            oi[k] = g < n_pg ? pairs[g] : 0;
+            oj[k] = g < n_pg ? pairs[n_pg + g] : 0;
+        }
+    }
+
+    __device__ bool valid(int k) const { return first + k * kWarpSize + lane < n_pg; }
+
+    // The block's max and sum of one value a thread. Every thread calls them in turn (max, sum, max, ...): a
+    // warp writes its max only after the barrier of the sum before, which every warp reaches after reading the
+    // maxima before, and likewise the sums, so one slot each suffices.
+    __device__ float block_max(float v) {
+        v = warp_max(v);
+        if (lane == 0) red[warp] = v;
+        __syncthreads();
+        float m = red[0];
+        for (int w = 1; w < (int)(blockDim.x / kWarpSize); ++w) m = fmaxf(m, red[w]);
+        return m;
+    }
+
+    __device__ float block_sum(float v) {
+        v = warp_sum(v);
+        if (lane == 0) red[kMaxSplitWarps + warp] = v;
+        __syncthreads();
+        float s = red[kMaxSplitWarps];
+        for (int w = 1; w < (int)(blockDim.x / kWarpSize); ++w) s += red[kMaxSplitWarps + w];
+        return s;
+    }
+
+    __device__ void start_barcode(float*) {
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) acc[k] = 0.f;
+    }
+
+    __device__ void start_group() {
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) x[k] = 0.f;
+    }
+
+    __device__ void add_call(const float* row, float qc) { add_terms(x, oi, oj, row, qc); }
+
+    __device__ void close_group(float scale, float escape, float log_norm) {
+        float m = neg_inf();
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+            x[k] = valid(k) ? x[k] * scale : neg_inf();
+            m = fmaxf(m, x[k]);
+        }
+        m = block_max(m);
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+            x[k] = ex2(x[k] - m);
+            s += x[k];
+        }
+        const float inv = 1.f / block_sum(s);
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+            acc[k] += fmaf(lg2_normal(fmaf(x[k], inv, escape)), kLn2, -log_norm);
+        }
+    }
+
+    __device__ void finish(const float* prior, float* logits, float* probs) {
         float m = neg_inf();
 #pragma unroll
         for (int k = 0; k < kCols; ++k) {
             if (!valid(k)) continue;
-            const int g = k * kWarpSize + lane;
+            const int g = first + k * kWarpSize + lane;
             if (prior != nullptr) acc[k] += prior[g];
             logits[g] = acc[k];
             m = fmaxf(m, acc[k]);
         }
         if (probs == nullptr) return;
-        m = warp_max(m);
+        m = block_max(m);
         float s = 0.f;
 #pragma unroll
         for (int k = 0; k < kCols; ++k) {
             acc[k] = valid(k) ? expf(acc[k] - m) : 0.f;
             s += acc[k];
         }
-        const float inv = 1.f / warp_sum(s);
+        const float inv = 1.f / block_sum(s);
 #pragma unroll
         for (int k = 0; k < kCols; ++k) {
-            if (valid(k)) probs[k * kWarpSize + lane] = acc[k] * inv;
+            if (valid(k)) probs[first + k * kWarpSize + lane] = acc[k] * inv;
         }
     }
 };
@@ -335,56 +608,115 @@ struct SharedColumns {
     }
 };
 
-template <int kCols>
+template <int kTeam, int kCols>
 struct ColumnsOf {
     using type = RegisterColumns<kCols>;
 };
 template <>
-struct ColumnsOf<0> {
+struct ColumnsOf<32, 0> {
     using type = SharedColumns;
 };
+template <int kCols>
+struct ColumnsOf<0, kCols> {
+    using type = SplitColumns<kCols>;
+};
 
-// kCols: columns a lane in registers (1, 2, 4, 8 or 17), 0 for the shared-memory row; kChunk: floats per cp.async.
-// Shared memory per warp: its ring (2 x 32 calls x stride floats), then (kCols = 0) x_floats for the group's row.
-template <int kCols, int kChunk>
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarpSize, 4) aggregate_kernel(
-    const float* __restrict__ genotype_prob,  // [n_variants, n_donors]
-    int n_donors, int stride,                 // stride: n_donors rounded up to 4
-    const int32_t* __restrict__ vid,          // [n_calls], sorted by group
-    const float* __restrict__ q,              // [n_calls]
-    const int64_t* __restrict__ group_ptr,    // [n_groups + 1] first call of every group
-    const int64_t* __restrict__ barcode_ptr,  // [n_barcodes + 1] first group of every barcode
-    int64_t n_barcodes,
-    const int32_t* __restrict__ pairs,        // [2, n_pg] every column's donor pair
-    int n_pg, int x_floats,                   // x_floats: the shared row's floats (kCols = 0), else 0
-    float compensation, float escape, float log_norm,
-    const float* __restrict__ prior,          // [n_barcodes, n_pg] or null
-    float* __restrict__ logits,               // [n_barcodes, n_pg]
-    float* __restrict__ probs)                // [n_barcodes, n_pg] or null
-{
-    extern __shared__ __align__(16) float smem[];
-    const int lane = threadIdx.x & (kWarpSize - 1);
-    const int warp = threadIdx.x / kWarpSize;
-    const int tile_floats = kTileCalls * stride;
-    float* ring = smem + (size_t)warp * (2 * tile_floats + x_floats);
-    typename ColumnsOf<kCols>::type cols(pairs, n_pg, lane, ring + 2 * tile_floats);
-    CallTiles<kChunk> tiles(genotype_prob, vid, q, ring, n_donors, stride, lane);
+struct Args {
+    const float* genotype_prob;  // [n_variants, n_donors]
+    int n_donors, stride;        // stride: the ring's floats a row (n_donors rounded up to 4, padded: ring_stride)
+    const int32_t* vid;          // [n_calls], sorted by group
+    const float* q;              // [n_calls]
+    const int64_t* group_ptr;    // [n_groups + 1] first call of every group
+    const int64_t* barcode_ptr;  // [n_barcodes + 1] first group of every barcode
+    int64_t n_barcodes;
+    const int32_t* pairs;        // [2, n_pg] every column's donor pair
+    int n_pg, x_floats;          // x_floats: the shared row's floats (kTeam = 32, kCols = 0), else 0
+    float compensation, escape, log_norm;
+    const float* prior;          // [n_barcodes, n_pg] or null
+    float* logits;               // [n_barcodes, n_pg]
+    float* probs;                // [n_barcodes, n_pg] or null
+};
+
+// kTeam < 32: teams of kTeam lanes, one warp a barcode (warps persistent over a static stride of barcodes).
+template <int kTeam, int kCols, int kChunk>
+__device__ __forceinline__ void team_walk(const Args& a, float* ring, float* rows, int lane, int warp) {
+    constexpr int kTeams = kWarpSize / kTeam;
+    TeamColumns<kTeam, kCols> cols(a.pairs, a.n_pg, lane, rows);
+    CallTiles<kChunk> tiles(a.genotype_prob, a.vid, a.q, ring, a.n_donors, a.stride, lane);
     const int64_t n_warps = (int64_t)gridDim.x * (blockDim.x / kWarpSize);
 
-    for (int64_t b = (int64_t)blockIdx.x * (blockDim.x / kWarpSize) + warp; b < n_barcodes; b += n_warps) {
-        const int64_t at = b * (int64_t)n_pg;
-        const int64_t g_lo = barcode_ptr[b];
-        const int64_t g_hi = barcode_ptr[b + 1];
-        cols.start_barcode(logits + at);
+    for (int64_t b = (int64_t)blockIdx.x * (blockDim.x / kWarpSize) + warp; b < a.n_barcodes; b += n_warps) {
+        const int64_t at = b * (int64_t)a.n_pg;
+        const int64_t g_lo = a.barcode_ptr[b];
+        const int64_t g_hi = a.barcode_ptr[b + 1];
+        cols.start_barcode();
         if (g_lo < g_hi) {
-            tiles.begin(group_ptr[g_lo], group_ptr[g_hi]);
+            const int64_t base = a.group_ptr[g_lo];  // the barcode's first call; calls below as offsets from it
+            tiles.begin(base, a.group_ptr[g_hi]);
+            for (int64_t w0 = g_lo; w0 < g_hi; w0 += kWarpSize) {
+                const int nw = (int)(g_hi - w0 < kWarpSize ? g_hi - w0 : kWarpSize);
+                // lane j < nw: group w0 + j's first call, its calls and its 1 / max(n, 1)^compensation
+                const int first = (int)(a.group_ptr[w0 + (lane < nw ? lane : nw)] - base);
+                const int count = (int)(a.group_ptr[w0 + (lane < nw ? lane + 1 : nw)] - base) - first;
+                const float scale = 1.f / powf(fmaxf((float)count, 1.f), a.compensation);
+                for (int r0 = 0; r0 < nw; r0 += kTeams) {  // a round: group r0 + t for team t
+                    const int j = r0 + lane / kTeam;
+                    const int lo = __shfl_sync(kFullMask, first, j);
+                    const int hi = lo + __shfl_sync(kFullMask, count, j);
+                    const float sc = __shfl_sync(kFullMask, scale, j);
+                    const int last = (r0 + kTeams < nw ? r0 + kTeams : nw) - 1;
+                    const int c0 = __shfl_sync(kFullMask, first, r0);
+                    const int c1 = __shfl_sync(kFullMask, first + count, last);
+                    cols.start_group();
+                    // the round's calls [c0, c1), contiguous, through the ring's tiles in order
+                    for (int c = c0; c < c1;) {
+                        if (base + c >= tiles.start + kTileCalls) tiles.advance();
+                        const int tile = (int)(tiles.start - base);
+                        const int end = tile + kTileCalls < c1 ? tile + kTileCalls : c1;
+                        const int from = lo > c ? lo : c;
+                        const int mine = (hi < end ? hi : end) - from;  // this team's calls in [c, end)
+                        const int steps = __reduce_max_sync(kFullMask, mine > 0 ? mine : 0);
+                        for (int s = 0; s < steps; ++s) {
+                            const int r = from - tile + s;
+                            const float qc = __shfl_sync(kFullMask, tiles.q_cur, r & (kWarpSize - 1));
+                            if (s < mine) cols.add_call(tiles.slot(r), qc);
+                        }
+                        c = end;
+                    }
+                    cols.close_round(sc, a.escape, a.log_norm, nw - r0 < kTeams ? nw - r0 : kTeams);
+                }
+            }
+        }
+        cols.finish(a.prior != nullptr ? a.prior + at : nullptr, a.logits + at,
+                    a.probs != nullptr ? a.probs + at : nullptr);
+    }
+}
+
+// kTeam = 32 (one warp a barcode, persistent over a static stride of barcodes) and kTeam = 0 (one block a
+// barcode): every group in turn, its pointers a window of 31 at a time, one per lane, with each group's
+// 1 / n^compensation.
+template <int kTeam, int kCols, int kChunk>
+__device__ __forceinline__ void group_walk(const Args& a, float* ring, float* extra, int lane, int warp) {
+    constexpr bool kBlock = kTeam == 0;
+    typename ColumnsOf<kTeam, kCols>::type cols(a.pairs, a.n_pg, lane, extra);
+    CallTiles<kChunk, kBlock> tiles(a.genotype_prob, a.vid, a.q, ring, a.n_donors, a.stride, lane);
+    const int64_t first_b = kBlock ? (int64_t)blockIdx.x : (int64_t)blockIdx.x * (blockDim.x / kWarpSize) + warp;
+    const int64_t n_b = kBlock ? (int64_t)gridDim.x : (int64_t)gridDim.x * (blockDim.x / kWarpSize);
+
+    for (int64_t b = first_b; b < a.n_barcodes; b += n_b) {
+        const int64_t at = b * (int64_t)a.n_pg;
+        const int64_t g_lo = a.barcode_ptr[b];
+        const int64_t g_hi = a.barcode_ptr[b + 1];
+        cols.start_barcode(a.logits + at);
+        if (g_lo < g_hi) {
+            tiles.begin(a.group_ptr[g_lo], a.group_ptr[g_hi]);
             for (int64_t w0 = g_lo; w0 < g_hi; w0 += kWindow) {
                 const int nw = (int)(g_hi - w0 < kWindow ? g_hi - w0 : kWindow);
                 // lane j <= nw: group w0 + j's first call; lane j < nw: its 1 / max(n, 1)^compensation
-                const int64_t gp = group_ptr[w0 + (lane < nw ? lane : nw)];
+                const int64_t gp = a.group_ptr[w0 + (lane < nw ? lane : nw)];
                 const int64_t gp_next = __shfl_down_sync(kFullMask, gp, 1);
                 const float n = lane < nw ? (float)(gp_next - gp) : 1.f;
-                const float scale = 1.f / powf(fmaxf(n, 1.f), compensation);
+                const float scale = 1.f / powf(fmaxf(n, 1.f), a.compensation);
                 for (int j = 0; j < nw; ++j) {
                     const int64_t lo = __shfl_sync(kFullMask, gp, j);
                     const int64_t hi = __shfl_sync(kFullMask, gp, j + 1);
@@ -394,36 +726,142 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kWarpSize, 4) aggregate_kerne
                         const float* row = tiles.row(c, qc);
                         cols.add_call(row, qc);
                     }
-                    cols.close_group(__shfl_sync(kFullMask, scale, j), escape, log_norm);
+                    cols.close_group(__shfl_sync(kFullMask, scale, j), a.escape, a.log_norm);
                 }
             }
         }
-        cols.finish(prior != nullptr ? prior + at : nullptr, logits + at, probs != nullptr ? probs + at : nullptr);
+        cols.finish(a.prior != nullptr ? a.prior + at : nullptr, a.logits + at,
+                    a.probs != nullptr ? a.probs + at : nullptr);
     }
 }
 
-using Kernel = decltype(&aggregate_kernel<1, 4>);
-
-// columns a lane in registers for n_pg columns: 1, 2, 4, 8, 17, or 0 (the shared-memory row)
-int register_cols(int n_pg) {
-    const int per_lane = (n_pg + kWarpSize - 1) / kWarpSize;
-    const int options[] = {1, 2, 4, 8, kMaxRegisterCols};
-    for (int cols : options) {
-        if (per_lane <= cols) return cols;
+// kTeam: lanes a group (1-16: teams; 32: a warp; 0: the block's warps split the columns); kCols: columns a lane
+// in registers (0 at kTeam = 32: the shared-memory row); kChunk: floats per cp.async. Shared memory: kTeam > 0,
+// per warp its ring (2 x 32 calls x stride floats), then x_floats for the group's row; kTeam = 0, the block's
+// ring (2 x 32 x stride), then the warps' maxima and sums. Registers: at most 128 a thread (4 blocks of 4 warps an
+// SM), 168 for teams of 16 columns a lane, which spill at 128.
+template <int kTeam, int kCols, int kChunk>
+__global__ void __launch_bounds__(kTeam == 0 ? kMaxSplitWarps * kWarpSize : kWarpsPerBlock * kWarpSize,
+                                  kTeam == 0 ? 1 : kTeam < kWarpSize && kCols >= 16 ? 3 : 4)
+aggregate_kernel(
+    const float* __restrict__ genotype_prob, int n_donors, int stride, const int32_t* __restrict__ vid,
+    const float* __restrict__ q, const int64_t* __restrict__ group_ptr, const int64_t* __restrict__ barcode_ptr,
+    int64_t n_barcodes, const int32_t* __restrict__ pairs, int n_pg, int x_floats, float compensation, float escape,
+    float log_norm, const float* __restrict__ prior, float* __restrict__ logits, float* __restrict__ probs)
+{
+    extern __shared__ __align__(16) float smem[];
+    const Args a{genotype_prob, n_donors, stride, vid, q, group_ptr, barcode_ptr, n_barcodes, pairs, n_pg, x_floats,
+                 compensation, escape, log_norm, prior, logits, probs};
+    const int lane = threadIdx.x & (kWarpSize - 1);
+    const int warp = threadIdx.x / kWarpSize;
+    const int tile_floats = kTileCalls * a.stride;
+    if constexpr (kTeam == 0) {
+        group_walk<kTeam, kCols, kChunk>(a, smem, smem + 2 * tile_floats, lane, warp);
+    } else {
+        float* ring = smem + (size_t)warp * (2 * tile_floats + a.x_floats);
+        if constexpr (kTeam < kWarpSize) {
+            team_walk<kTeam, kCols, kChunk>(a, ring, ring + 2 * tile_floats, lane, warp);
+        } else {
+            group_walk<kTeam, kCols, kChunk>(a, ring, ring + 2 * tile_floats, lane, warp);
+        }
     }
+}
+
+}  // namespace
+
+namespace {
+
+using Kernel = decltype(&aggregate_kernel<32, kMaxRegisterCols, 4>);
+
+// the instantiations the host's plan may name (ops/aggregate_kernel.py: TEAM_COLUMNS), null for any other
+template <int kChunk>
+Kernel pick(int team, int cols) {
+#define DEMUX_AGGREGATE(T, C) \
+    if (team == T && cols == C) return aggregate_kernel<T, C, kChunk>;
+    DEMUX_AGGREGATE(1, 4)
+    DEMUX_AGGREGATE(2, 4)
+    DEMUX_AGGREGATE(4, 4)
+    DEMUX_AGGREGATE(4, 8)
+    DEMUX_AGGREGATE(8, 8)
+    DEMUX_AGGREGATE(16, 8)
+    DEMUX_AGGREGATE(16, 16)
+    DEMUX_AGGREGATE(32, kMaxRegisterCols)
+    DEMUX_AGGREGATE(32, 0)
+    DEMUX_AGGREGATE(0, 9)
+    DEMUX_AGGREGATE(0, kMaxRegisterCols)
+#undef DEMUX_AGGREGATE
+    return nullptr;
+}
+
+// What a launch asks the card once: per device its SMs and the shared memory a block may opt in to; per (device,
+// kernel) the shared-memory attribute, raised to that opt-in once (the attribute is the kernel's, so a launch
+// that set it to its own bytes would refuse a later, larger one); per (device, kernel, threads, shared bytes) the
+// blocks the occupancy calculator places on an SM.
+struct Card {
+    int device, n_sms, optin;
+};
+
+struct Plan {
+    int device;
+    Kernel kernel;
+    int threads;  // 0: the kernel's shared-memory attribute is set
+    size_t shared;
+    int per_sm;
+};
+
+std::mutex plans_lock;
+std::vector<Card> cards;
+std::vector<Plan> plans;
+
+int card_of(int device, Card& card) {
+    std::lock_guard<std::mutex> hold(plans_lock);
+    for (const Card& c : cards) {
+        if (c.device == device) {
+            card = c;
+            return 0;
+        }
+    }
+    int status;
+    card.device = device;
+    if ((status = cudaDeviceGetAttribute(&card.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != 0)
+        return status;
+    if ((status = cudaDeviceGetAttribute(&card.n_sms, cudaDevAttrMultiProcessorCount, device)) != 0) return status;
+    cards.push_back(card);
     return 0;
 }
 
-template <int kChunk>
-Kernel pick(int cols) {
-    switch (cols) {
-        case 1: return aggregate_kernel<1, kChunk>;
-        case 2: return aggregate_kernel<2, kChunk>;
-        case 4: return aggregate_kernel<4, kChunk>;
-        case 8: return aggregate_kernel<8, kChunk>;
-        case kMaxRegisterCols: return aggregate_kernel<kMaxRegisterCols, kChunk>;
-        default: return aggregate_kernel<0, kChunk>;
+int blocks_per_sm(const Card& card, Kernel kernel, int threads, size_t shared, int& per_sm) {
+    std::lock_guard<std::mutex> hold(plans_lock);
+    bool attribute = false;
+    for (const Plan& p : plans) {
+        if (p.device != card.device || p.kernel != kernel) continue;
+        if (p.threads == threads && p.shared == shared) {
+            per_sm = p.per_sm;
+            return 0;
+        }
+        attribute = attribute || p.threads == 0;
     }
+    int status;
+    if (!attribute) {
+        if ((status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, card.optin)) != 0)
+            return status;
+        plans.push_back(Plan{card.device, kernel, 0, 0, 0});
+    }
+    if ((status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shared)) != 0)
+        return status;
+    plans.push_back(Plan{card.device, kernel, threads, shared, per_sm});
+    return 0;
+}
+
+// the ring's floats a row: n_donors rounded up to 4; for teams of 4, 8 or 16 lanes padded to kTeam mod 32 (else 4
+// mod 32), so that the teams of a round, reading the same column of consecutive rows, hit different banks
+int ring_stride(int n_donors, int team) {
+    int stride = 4 * ((n_donors + 3) / 4);
+    if (team > 0 && team < kWarpSize) {
+        const int want = team >= 4 ? team : 4;
+        while (stride % kWarpSize != want) stride += 4;
+    }
+    return stride;
 }
 
 }  // namespace
@@ -446,37 +884,49 @@ extern "C" int demux_aggregate_check(const int64_t* group_ptr, int64_t n_groups,
 }
 
 // logits [n_barcodes, n_pg] (+ prior_logits where given) and, where probs is given, their row softmax, in one
-// launch; operands checked by demux_aggregate_check. escape = p_bad_snp / n_pg, log_norm = log(1 + n_pg escape).
+// launch of the instantiation (team, cols) that the host's plan picked for n_pg; operands checked by
+// demux_aggregate_check. escape = p_bad_snp / n_pg, log_norm = log(1 + n_pg escape).
 extern "C" int demux_aggregated_logits(
     const float* genotype_prob, int n_donors, const int32_t* vid, const float* q,
     const int64_t* group_ptr, const int64_t* barcode_ptr, int64_t n_barcodes,
-    const int32_t* pairs, int n_pg, float compensation, float escape, float log_norm,
+    const int32_t* pairs, int n_pg, int team, int cols, float compensation, float escape, float log_norm,
     const float* prior_logits, float* logits, float* probs, int device, void* stream)
 {
     if (n_barcodes <= 0 || n_pg <= 0 || n_donors <= 0) return (int)cudaErrorInvalidValue;
+    const bool rows16 = n_donors % 4 == 0 && demux::aligned16(genotype_prob);
+    const Kernel kernel = rows16 ? pick<4>(team, cols) : pick<1>(team, cols);
+    const int per_warp = team == 0 ? 0 : (team == kWarpSize ? kWarpSize : team) * cols;  // columns a warp (team)
+    const int split = team == 0 ? (n_pg + kWarpSize * cols - 1) / (kWarpSize * cols) : 0;  // warps a barcode
+    if (kernel == nullptr || (team == 0 ? split > kMaxSplitWarps : cols > 0 && per_warp < n_pg))
+        return (int)cudaErrorInvalidValue;
     const demux::DeviceGuard guard(device);
     if (guard.status() != 0) return guard.status();
-    const int cols = register_cols(n_pg);
-    const int stride = 4 * ((n_donors + 3) / 4);
-    const int x_floats = cols == 0 ? 4 * ((n_pg + 3) / 4) : 0;
-    const size_t warp_bytes = ((size_t)2 * kTileCalls * stride + x_floats) * sizeof(float);
-    int optin, n_sms, status;
-    if ((status = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != 0) return status;
-    if ((status = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, device)) != 0) return status;
-    const size_t fit = (size_t)optin / warp_bytes;  // a warp's ring (and row) must fit in shared memory
-    if (fit < 1) return (int)cudaErrorInvalidValue;
-    const int warps = (int)(fit < (size_t)kWarpsPerBlock ? fit : kWarpsPerBlock);
-    const size_t shared = warps * warp_bytes;
-    const bool rows16 = n_donors % 4 == 0 && demux::aligned16(genotype_prob);
-    const Kernel kernel = rows16 ? pick<4>(cols) : pick<1>(cols);
-    if ((status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared)) != 0)
-        return status;
+    Card card;
+    int status;
+    if ((status = card_of(device, card)) != 0) return status;
+    const int stride = ring_stride(n_donors, team);
+    const size_t ring_bytes = (size_t)2 * kTileCalls * stride * sizeof(float);
+    int warps, x_floats = 0;
+    size_t shared;
+    if (team == 0) {
+        warps = split;
+        shared = ring_bytes + 2 * kMaxSplitWarps * sizeof(float);
+        if (shared > (size_t)card.optin) return (int)cudaErrorInvalidValue;
+    } else {
+        const int row_floats = team < kWarpSize ? kWarpSize / team * team_row(team, cols) : cols == 0 ? n_pg : 0;
+        x_floats = 4 * ((row_floats + 3) / 4);  // the group's row (kCols = 0) or the teams' rows (kTeam < 32)
+        const size_t warp_bytes = ring_bytes + x_floats * sizeof(float);
+        const size_t fit = (size_t)card.optin / warp_bytes;  // a warp's ring (and row) must fit in shared memory
+        if (fit < 1) return (int)cudaErrorInvalidValue;
+        warps = (int)(fit < (size_t)kWarpsPerBlock ? fit : kWarpsPerBlock);
+        shared = warps * warp_bytes;
+    }
     int per_sm = 0;
-    if ((status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * kWarpSize, shared)) != 0)
-        return status;
+    if ((status = blocks_per_sm(card, kernel, warps * kWarpSize, shared, per_sm)) != 0) return status;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const int64_t wanted = (n_barcodes + warps - 1) / warps;
-    const int64_t resident = (int64_t)per_sm * n_sms;
+    const int64_t per_block = team == 0 ? 1 : warps;  // barcodes a block at once
+    const int64_t wanted = (n_barcodes + per_block - 1) / per_block;
+    const int64_t resident = (int64_t)per_sm * card.n_sms;
     const unsigned int grid = (unsigned int)(wanted < resident ? wanted : resident);
     kernel<<<grid, warps * kWarpSize, shared, (cudaStream_t)stream>>>(
         genotype_prob, n_donors, stride, vid, q, group_ptr, barcode_ptr, n_barcodes, pairs, n_pg, x_floats,

@@ -133,7 +133,8 @@ _SIGNATURES = {
     "demux_aggregated_logits": (
         _vp, _i32, _vp, _vp,  # genotype_prob, n_donors, vid, q
         _vp, _vp, _i64,  # group_ptr, barcode_ptr, n_barcodes
-        _vp, _i32, _f32, _f32, _f32,  # pairs, n_pg, compensation, escape, log_norm
+        _vp, _i32, _i32, _i32,  # pairs, n_pg, team, cols (aggregate_kernel.aggregate_plan)
+        _f32, _f32, _f32,  # compensation, escape, log_norm
         _vp, _vp, _vp, _i32, _vp,  # prior_logits (or null), logits, probs (or null), device, stream
     ),
     "demux_aggregate_check": (

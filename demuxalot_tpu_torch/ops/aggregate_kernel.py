@@ -12,9 +12,12 @@ column g, a group being the molecule calls of one (barcode, SNP):
     probs[b]  = softmax(logits[b])                                      (softmax=True)
 
 with no doublet penalty. On the H100 it is bound by the MUFU unit (a log
-per call and column, an exp and a log per group and column): one warp per
-barcode walks its groups, the columns in registers up to 544 of them, no
-``[groups, columns]`` buffer in device memory. See the source.
+per call and column, an exp and a log per group and column). One launch,
+its instantiation picked by :func:`aggregate_plan` from the row's width: at
+narrow rows a team of lanes a group, several groups a warp; up to 544
+columns a warp a group; wider rows split over the warps of a block; the
+columns and the barcode's running row in registers, no ``[groups,
+columns]`` buffer in device memory. See the source.
 
 :func:`aggregate_operands` builds what it reads once per dataset, doublet
 prior and device, and checks the indices on a card then. :func:`aggregated_logits`
@@ -36,6 +39,42 @@ from . import likelihood as L
 from .likelihood_kernel import _check
 
 P_BAD_SNP = 0.01
+
+# The kernel's instantiations (csrc/aggregate.cu: pick): lanes a group -> columns a lane in registers. 1-16: teams
+# of lanes, several groups a warp; 32: a warp a group (0: the group's row in shared memory, any width); 0: the
+# block's warps split the row, at most MAX_SPLIT_WARPS of them. Kept: those that were fastest at some width of
+# chip_smoke.py's sweep on an H100 (PERF.md), and (32, 0) for rows past the split's.
+TEAM_COLUMNS = {1: (4,), 2: (4,), 4: (4, 8), 8: (8,), 16: (8, 16), 32: (17, 0), 0: (9, 17)}
+# aggregate_plan's pick up to 544 columns: (the widest row, lanes a group, columns a lane)
+NARROW_PLANS = ((4, 1, 4), (8, 2, 4), (16, 4, 4), (32, 4, 8), (64, 8, 8), (128, 16, 8), (256, 16, 16), (544, 32, 17))
+MAX_SPLIT_WARPS = 16
+# (lanes a group, columns a lane) for every launch, one of instantiations(n_pg), or None for aggregate_plan's
+# choice; set only by chip_smoke.py's sweep and the card tests
+PLAN: Optional[tuple] = None
+
+
+def instantiations(n_pg: int) -> list:
+    """Every (lanes a group, columns a lane) of TEAM_COLUMNS whose kernel holds ``n_pg`` columns."""
+    def holds(team, cols):
+        if team == 0:
+            return -(-n_pg // (32 * cols)) <= MAX_SPLIT_WARPS
+        return cols == 0 or team * cols >= n_pg
+
+    return [(team, cols) for team, options in TEAM_COLUMNS.items() for cols in options if holds(team, cols)]
+
+
+def aggregate_plan(n_pg: int) -> tuple:
+    """(lanes a group, columns a lane) of the kernel's instantiation for ``n_pg`` columns: ``NARROW_PLANS`` up to
+    544 columns; past that the row split over a block's warps, at the columns a lane (of ``TEAM_COLUMNS[0]``) that
+    leave the fewest lane-columns idle; past MAX_SPLIT_WARPS such warps the row in shared memory."""
+    if n_pg < 1:
+        raise ValueError(f"n_pg must be positive, got {n_pg}")
+    for widest, lanes, cols in NARROW_PLANS:
+        if n_pg <= widest:
+            return lanes, cols
+    fits = [(-(-n_pg // (32 * cols)) * cols, cols) for cols in TEAM_COLUMNS[0]
+            if -(-n_pg // (32 * cols)) <= MAX_SPLIT_WARPS]
+    return (0, min(fits)[1]) if fits else (32, 0)
 
 
 class AggregateOperands(NamedTuple):
@@ -111,6 +150,8 @@ def aggregate_operands(pairs: np.ndarray, n_donors: int, vid: torch.Tensor, q: t
         pairs=torch.from_numpy(pairs).to(device), vid=vid, q=q, group_ptr=group_ptr, barcode_ptr=barcode_ptr,
         n_variants=int(n_variants), n_donors=int(n_donors), compensation=float(compensation), p_bad_snp=float(p_bad_snp),
     )
+    if vid.shape[0] >= 2 ** 31 and int((group_ptr[barcode_ptr[1:]] - group_ptr[barcode_ptr[:-1]]).max()) >= 2 ** 31:
+        raise ValueError("a barcode holds 2**31 calls or more: the kernel counts a barcode's calls in 32 bits")
     if device.type == "cuda":
         o = operands
         _check_on_card(vid, o.group_ptr.data_ptr(), o.n_groups, vid.shape[0], vid.data_ptr(), o.n_variants,
@@ -168,9 +209,10 @@ def aggregated_logits(genotype_prob: torch.Tensor, operands: AggregateOperands, 
     if o.n_barcodes > 0:
         escape = np.float32(o.p_bad_snp / n_pg)
         log_norm = math.log1p(n_pg * float(escape))  # log Σ_k (e^{y_k} + escape), Σ_k e^{y_k} = 1
+        team, cols = PLAN or aggregate_plan(n_pg)
         _aggregate(genotype_prob, genotype_prob.data_ptr(), n_donors, o.vid.data_ptr(), o.q.data_ptr(),
                    o.group_ptr.data_ptr(), o.barcode_ptr.data_ptr(), o.n_barcodes, o.pairs.data_ptr(), n_pg,
-                   o.compensation, float(escape), log_norm,
+                   team, cols, o.compensation, float(escape), log_norm,
                    prior_logits.data_ptr() if prior_logits is not None else None, logits.data_ptr(),
                    probs.data_ptr() if softmax else None)
         aggregated_logits.launches += 1

@@ -133,12 +133,56 @@ def test_cpu_path_keeps_the_engine_bits(n_donors, doublet_prior, softmax):
         assert torch.equal(got, before)
 
 
-def kernel_scheme_logits(gprob, operands):
-    """csrc/aggregate.cu's scheme in float32 torch: call terms as log2(½(G_i + G_j) + q), one log each, summed
-    per group in call order and scaled by 1 / n^compensation; e = 2^(x - max), S = Σ e; z = ln 2 · log2(e / S +
-    escape) − log(1 + PG · escape) (Σ_k e^{y_k} = 1); logits = the groups' z summed per barcode in group order."""
+def _butterfly(v, lanes):
+    """v [..., lanes] after xor butterflies with offsets lanes / 2, ..., 1: every lane's a + b (== b + a), lane 0."""
+    idx = torch.arange(lanes)
+    o = lanes // 2
+    while o > 0:
+        v = v + v[..., idx ^ o]
+        o //= 2
+    return v[..., 0]
+
+
+def _row_sums(e, team, cols):
+    """S = Σ_k e[:, k] in the kernel's order: lane l of a warp holds columns K·32 + l, summed in K order, then the
+    warp's butterfly (teams of 1-16 lanes reproduce this order, the first design's); at team 0 the row is split
+    over warps of ``cols`` columns a lane, each warp's sum so, then the warps in warp order."""
+    n, n_pg = e.shape
+    per_lane = cols if team == 0 else -(-n_pg // 32)
+    warps = -(-n_pg // (32 * per_lane))
+    padded = torch.nn.functional.pad(e, (0, warps * per_lane * 32 - n_pg)).view(n, warps, per_lane, 32)
+    lane = padded[:, :, 0]
+    for k in range(1, per_lane):
+        lane = lane + padded[:, :, k]
+    warp = _butterfly(lane, 32)
+    total = warp[:, 0]
+    for w in range(1, warps):
+        total = total + warp[:, w]
+    return total
+
+
+def _barcode_sums(z, barcode_ptr):
+    """logits = each barcode's z rows added in group order, from zero."""
+    counts = barcode_ptr.diff()
+    n_barcodes = counts.shape[0]
+    barcode = torch.repeat_interleave(torch.arange(n_barcodes), counts)
+    rank = torch.arange(z.shape[0]) - barcode_ptr[barcode]
+    rows = z.new_zeros((n_barcodes, z.shape[1]))
+    for r in range(int(counts.max()) if n_barcodes else 0):
+        at = torch.nonzero(rank == r).squeeze(1)
+        rows[barcode[at]] = rows[barcode[at]] + z[at]
+    return rows
+
+
+def kernel_scheme_logits(gprob, operands, plan=None):
+    """csrc/aggregate.cu's scheme in float32 torch at the instantiation ``plan`` (lanes a group, columns a lane;
+    ``aggregate_plan``'s by default): call terms as log2(½(G_i + G_j) + q), one log each, summed per group in
+    call order and scaled by 1 / n^compensation; e = 2^(x - max), S = Σ e in the kernel's order; z = ln 2 ·
+    log2(e / S + escape) − log(1 + PG · escape) (Σ_k e^{y_k} = 1); logits = the groups' z summed per barcode in
+    group order."""
     o = operands
     n_pg = o.pairs.shape[1]
+    team, cols = plan or A.aggregate_plan(n_pg)
     g = gprob[o.vid.long()]
     terms = torch.log2((g[:, o.pairs[0].long()] + g[:, o.pairs[1].long()]) * 0.5 + o.q[:, None])
     calls = o.group_ptr.diff()
@@ -146,18 +190,16 @@ def kernel_scheme_logits(gprob, operands):
     x = x * (1.0 / calls.to(torch.float32).clamp(min=1.0) ** o.compensation)[:, None]
     e = torch.exp2(x - x.max(dim=1, keepdim=True).values)
     escape = torch.tensor(o.p_bad_snp / n_pg, dtype=torch.float32)
-    z = torch.log2(e * (1.0 / e.sum(dim=1, keepdim=True)) + escape) * math.log(2) - math.log1p(n_pg * float(escape))
-    return torch.segment_reduce(z, "sum", lengths=o.barcode_ptr.diff(), unsafe=True)
+    s = _row_sums(e, team, cols)
+    z = torch.log2(e * (1.0 / s)[:, None] + escape) * math.log(2) - math.log1p(n_pg * float(escape))
+    return _barcode_sums(z, o.barcode_ptr)
 
 
-@pytest.mark.parametrize("n_donors, doublet_prior", SHAPES)
-def test_kernel_scheme_matches_jax_and_oracle(n_donors, doublet_prior):
-    problem = aggregate_problem(seed=10 + n_donors, n_donors=n_donors, doublet_prior=doublet_prior)
-    calls, n_barcodes = problem["calls"], problem["n_barcodes"]
-    gprob, operands = aggregate_args(problem)
-    got = kernel_scheme_logits(gprob, operands).numpy()
+def _references(problem):
+    """JAX's snp_aggregated_logits and the float64 oracle on ``problem``."""
+    calls, n_barcodes, n_donors = problem["calls"], problem["n_barcodes"], problem["n_donors"]
     theirs = _jax_layout(calls)
-    mixing, _ = L.pseudogenotype_mixing([f"D{i}" for i in range(n_donors)], doublet_prior)
+    mixing, _ = L.pseudogenotype_mixing([f"D{i}" for i in range(n_donors)], problem["doublet_prior"])
     want = np.asarray(JL.snp_aggregated_logits(
         jnp.asarray(problem["gprob"]), jnp.asarray(mixing), theirs.vid_by_group, theirs.q_by_group,
         theirs.group_of_call, theirs.barcode_of_group, theirs.calls_per_group, n_groups=theirs.n_groups,
@@ -165,14 +207,48 @@ def test_kernel_scheme_matches_jax_and_oracle(n_donors, doublet_prior):
     oracle = oracle_snp_aggregated_logits(problem["gprob"].astype(np.float64), mixing.astype(np.float64),
                                           calls.variant_id, calls.p_base_wrong.astype(np.float64),
                                           calls.compressed_cb, calls.snp_id, n_barcodes)
+    return (("jax", want), ("oracle", oracle))
+
+
+def _held_to(got, references):
     softmax = lambda x: torch.softmax(torch.from_numpy(np.asarray(x, np.float64)), -1).numpy()  # noqa: E731
-    for name, reference in (("jax", want), ("oracle", oracle)):
+    for name, reference in references:
         np.testing.assert_allclose(got, reference, **LOGITS_TOL, err_msg=name)
         np.testing.assert_allclose(softmax(got), softmax(reference), atol=POSTERIOR_ATOL, err_msg=name)
         np.testing.assert_array_equal(got.argmax(1), np.asarray(reference).argmax(1), err_msg=name)
+
+
+@pytest.mark.parametrize("n_donors, doublet_prior", SHAPES)
+def test_kernel_scheme_matches_jax_and_oracle(n_donors, doublet_prior):
+    problem = aggregate_problem(seed=10 + n_donors, n_donors=n_donors, doublet_prior=doublet_prior)
+    calls = problem["calls"]
+    gprob, operands = aggregate_args(problem)
+    got = kernel_scheme_logits(gprob, operands).numpy()
+    _held_to(got, _references(problem))
     empty = np.diff(operands.barcode_ptr.numpy()) == 0
     assert empty.any() and (got[empty] == 0).all()
     assert (problem["gprob"] == 0).all(axis=1).any() and calls.p_base_wrong.min() < 1e-6
+
+
+# every instantiation that holds the row (its lanes a group T, its columns a lane), at the shapes above
+TEAM_CASES = [(n_donors, prior, *plan) for n_donors, prior in SHAPES
+              for plan in A.instantiations(n_donors * (n_donors + 1) // 2 if prior else n_donors)]
+
+
+@pytest.mark.parametrize("n_donors, doublet_prior, team, cols", TEAM_CASES)
+def test_kernel_scheme_at_every_team_matches_jax_and_oracle(n_donors, doublet_prior, team, cols):
+    """The scheme at each instantiation (its S and barcode sum orders) on the edge barcodes: one group, fewer
+    groups than teams, 31-33 and 62-65 groups, long groups beside groups of one, barcodes without calls."""
+    problem = aggregate_problem(seed=20 + n_donors, n_donors=n_donors, doublet_prior=doublet_prior, n_calls=1500,
+                                edges=True)
+    gprob, operands = aggregate_args(problem)
+    plan = (team, cols)
+    got = kernel_scheme_logits(gprob, operands, plan).numpy()
+    _held_to(got, _references(problem))
+    empty = np.diff(operands.barcode_ptr.numpy()) == 0
+    assert empty.sum() >= 3 and (got[empty] == 0).all()
+    if plan == A.aggregate_plan(operands.n_columns):  # the default plan: the scheme's own bits
+        assert torch.equal(torch.from_numpy(got), kernel_scheme_logits(gprob, operands))
 
 
 def test_engine_paths_go_through_the_wrapper(monkeypatch):
@@ -240,3 +316,49 @@ def test_aggregate_roofline_counts_mufu_operations(softmax, prior):
     bench = dict(n_calls=4_194_304, n_groups=4_192_197, n_barcodes=65_536, n_variants=131_072, n_donors=32)
     assert 1.58e-3 < AggregateRoofline(**bench, n_pseudogenotypes=528).speed_of_light_s() < 1.60e-3
     assert 0.097e-3 < AggregateRoofline(**bench, n_pseudogenotypes=32).speed_of_light_s() < 0.099e-3
+
+
+def test_plan_picks_an_instantiation_that_holds_the_row():
+    """aggregate_plan at every width up to 9,000 columns: one of TEAM_COLUMNS' instantiations that holds the row
+    (teams and warps: lanes x columns; split: at most MAX_SPLIT_WARPS warps), the first design's at 257-544
+    columns, the shared-memory row only past the split's widest."""
+    widest_split = A.MAX_SPLIT_WARPS * 32 * max(A.TEAM_COLUMNS[0])
+    for n_pg in range(1, 9000):
+        plan = A.aggregate_plan(n_pg)
+        assert plan in A.instantiations(n_pg), n_pg
+        if 257 <= n_pg <= 544:
+            assert plan == (32, 17)
+        assert (plan == (32, 0)) == (n_pg > widest_split), n_pg
+    with pytest.raises(ValueError, match="positive"):
+        A.aggregate_plan(0)
+
+
+def test_team_columns_are_the_sources_instantiations():
+    """TEAM_COLUMNS names exactly the instantiations csrc/aggregate.cu's pick() launches."""
+    import re
+
+    from demuxalot_tpu_torch.ops import _cuda
+
+    source = next(s for s in _cuda.sources() if s.name == "aggregate.cu").read_text()
+    cols_max = int(re.search(r"kMaxRegisterCols = (\d+);", source).group(1))
+    built = {(int(team), cols_max if cols == "kMaxRegisterCols" else int(cols))
+             for team, cols in re.findall(r"DEMUX_AGGREGATE\((\d+), (\w+)\)", source)}
+    assert built == {(team, cols) for team, options in A.TEAM_COLUMNS.items() for cols in options}
+    assert int(re.search(r"kMaxSplitWarps = (\d+);", source).group(1)) == A.MAX_SPLIT_WARPS
+
+
+def test_regrouping_many_molecules_keeps_the_calls():
+    """chip_smoke's case of groups of many molecules: the same calls in groups of 8 within each barcode."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _gprob, operands = aggregate_args(aggregate_problem(n_donors=3, edges=True))
+    regrouped = smoke._regrouped(operands, 8)
+    sizes = regrouped.group_ptr.diff().numpy()
+    assert sizes.max() == 8 and sizes.min() >= 1 and torch.equal(regrouped.vid, operands.vid)
+    calls_of = lambda o: (o.group_ptr[o.barcode_ptr[1:]] - o.group_ptr[o.barcode_ptr[:-1]])  # noqa: E731
+    assert torch.equal(calls_of(regrouped), calls_of(operands))
+    assert int((regrouped.barcode_ptr.diff() == 0).sum()) == int((operands.barcode_ptr.diff() == 0).sum())

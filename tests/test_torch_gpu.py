@@ -457,22 +457,16 @@ def test_gpu_aggregated_logits_are_deterministic(engine_problem, doublet_prior):
     np.testing.assert_allclose(got, logits["cpu"].numpy(), rtol=1e-4, atol=5e-3)
 
 
-# (donors, doublet prior): columns in registers at 1, 10, 32 and 528 (the aggregate EM's and predict's widths at
-# 32 donors), the shared-memory row at 561 and 2,080 (64 donors)
+# (donors, doublet prior): teams of lanes at 1, 10 and 32 columns (the aggregate EM's width at 32 donors), a warp
+# a group at 528 (predict's), the row split over a block's warps at 561 and 2,080 (64 donors)
 AGGREGATE_SHAPES = [(1, 0.0), (4, 0.35), (32, 0.0), (32, 0.35), (33, 0.35), (64, 0.35)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_donors, doublet_prior", AGGREGATE_SHAPES)
-def test_gpu_aggregated_logits_match_plain(n_donors, doublet_prior):
-    """The aggregate kernel against its plain version, with and without prior logits: groups of one molecule and
-    of many, empty barcodes, q down to 1e-7 and genotype rows of 0. One launch a call; the logits-only call gives
-    the fused call's logits bit for bit."""
-    _need_card()
-    gprob, operands = aggregate_args(aggregate_problem(seed=n_donors, n_donors=n_donors,
-                                                       doublet_prior=doublet_prior), "cuda")
+def _aggregate_held_to_plain(gprob, operands, seed):
+    """The kernel's fused call against the plain version, with and without prior logits; one launch a call, and
+    the logits-only call gives the fused call's logits bit for bit."""
     n_pg = operands.n_columns
-    prior = t(np.random.RandomState(n_donors).randn(operands.n_barcodes, n_pg).astype(np.float32), "cuda")
+    prior = t(np.random.RandomState(seed).randn(operands.n_barcodes, n_pg).astype(np.float32), "cuda")
     for prior_logits in (None, prior):
         launches = aggregated_logits.launches
         logits, probs = aggregated_logits(gprob, operands, prior_logits=prior_logits, softmax=True)
@@ -483,6 +477,72 @@ def test_gpu_aggregated_logits_match_plain(n_donors, doublet_prior):
         np.testing.assert_allclose(probs.cpu().numpy(), want_probs.cpu().numpy(), atol=3e-5)
         assert torch.equal(probs.argmax(1), want_probs.argmax(1))
         assert torch.equal(aggregated_logits(gprob, operands, prior_logits=prior_logits), logits)
+        empty = operands.barcode_ptr.diff() == 0
+        assert bool(empty.any()) and torch.equal(logits[empty], prior_logits[empty] if prior_logits is not None
+                                                 else torch.zeros_like(logits[empty]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_donors, doublet_prior", AGGREGATE_SHAPES)
+def test_gpu_aggregated_logits_match_plain(n_donors, doublet_prior):
+    """The aggregate kernel against its plain version, with and without prior logits: groups of one molecule and
+    of many, empty barcodes, q down to 1e-7 and genotype rows of 0, and the edge barcodes of
+    ``AGGREGATE_EDGE_GROUPS`` (one group, fewer groups than teams, 31-33 and 62-65 groups, long groups beside
+    groups of one). One launch a call; the logits-only call gives the fused call's logits bit for bit."""
+    _need_card()
+    gprob, operands = aggregate_args(aggregate_problem(seed=n_donors, n_donors=n_donors,
+                                                       doublet_prior=doublet_prior, edges=True), "cuda")
+    _aggregate_held_to_plain(gprob, operands, n_donors)
+
+
+def _plan_switches(limit=9000):
+    """One width each side of every change of ``aggregate_plan``'s instantiation up to ``limit`` columns."""
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregate_plan
+
+    return sorted({w for n in range(2, limit) if aggregate_plan(n) != aggregate_plan(n - 1) for w in (n - 1, n)})
+
+
+def _donors_for(n_pg):
+    return next(d for d in range(1, 200) if d * (d + 1) // 2 >= n_pg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pg", _plan_switches())
+def test_gpu_aggregated_logits_at_plan_switches(n_pg):
+    """One width each side of every switch of the plan's instantiation (the first n_pg of the donors' singlets
+    and doublets), on the edge barcodes."""
+    _need_card()
+    n_donors = _donors_for(n_pg)
+    problem = aggregate_problem(seed=n_pg, n_donors=n_donors, n_calls=1500, n_barcodes=40, edges=True)
+    _aggregate_held_to_plain(*aggregate_args(problem, "cuda", n_pg=n_pg), n_pg)
+
+
+def _every_instantiation(widths=(4, 10, 32, 64, 136, 528, 561, 2080)):
+    from demuxalot_tpu_torch.ops.aggregate_kernel import instantiations
+
+    return [(n_pg, *plan) for n_pg in widths for plan in instantiations(n_pg)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pg, team, cols", _every_instantiation())
+def test_gpu_aggregated_logits_every_instantiation(n_pg, team, cols, monkeypatch):
+    """Each instantiation that holds the row, forced (``aggregate_kernel.PLAN``), on the edge barcodes; up to 544
+    columns every one but the split row gives the first design's bits (a warp a group, 17 columns a lane)."""
+    _need_card()
+    from demuxalot_tpu_torch.ops import aggregate_kernel
+
+    monkeypatch.setattr(aggregate_kernel, "PLAN", (team, cols))
+    problem = aggregate_problem(seed=n_pg + team, n_donors=_donors_for(n_pg), n_calls=1500, n_barcodes=40,
+                                edges=True)
+    gprob, operands = aggregate_args(problem, "cuda", n_pg=n_pg)
+    _aggregate_held_to_plain(gprob, operands, n_pg)
+    first = aggregated_logits(gprob, operands, softmax=True)
+    again = aggregated_logits(gprob, operands, softmax=True)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    if team != 0 and n_pg <= 544:
+        monkeypatch.setattr(aggregate_kernel, "PLAN", (32, 17))
+        warp = aggregated_logits(gprob, operands, softmax=True)
+        assert torch.equal(first[0], warp[0]) and torch.equal(first[1], warp[1])
 
 
 @pytest.mark.gpu

@@ -129,17 +129,37 @@ def in_order_addition(posterior, operands, n_genotypes, power):
     return acc
 
 
+# the edge barcodes of aggregate_problem(edges=True): each a list of group sizes (calls of one SNP a group). One
+# group and fewer groups than a warp has teams; 31, 32 and 33 groups and 62-65 (the kernel's windows of 31 and 32
+# groups, its rounds of 2-32 groups); one long group beside groups of one (past a 32-call tile, a round of over
+# 32 calls), one in the middle of them, and groups of many molecules
+AGGREGATE_EDGE_GROUPS = ([1], [1] * 3, [1] * 31, [1] * 32, [1] * 33, [1] * 62, [1] * 63, [2] * 64, [1] * 65,
+                         [100] + [1] * 20, [1] * 5 + [40] + [1] * 10, [7] * 9, [33, 1, 31])
+
+
 def aggregate_problem(seed=0, n_donors=4, doublet_prior=0.35, n_barcodes=60, n_snps=2000, n_calls=3000, q_low=1e-7,
-                      zero_rows=0.1):
+                      zero_rows=0.1, edges=False):
     """Molecule calls for the aggregate E-step: barcodes b % 3 == 0 call 4 SNPs only (groups of many molecules),
     the others any of ``n_snps`` (groups of one, mostly); barcodes b % 7 == 3 and the last 5 have no call; q
-    down to ``q_low``; a ``zero_rows`` share of the genotype rows is 0 (an unclipped table, p = 0)."""
+    down to ``q_low``; a ``zero_rows`` share of the genotype rows is 0 (an unclipped table, p = 0). With
+    ``edges``, one barcode for each entry of ``AGGREGATE_EDGE_GROUPS`` follows the random ones, then 3 more
+    without a call."""
     from demuxalot_tpu_torch.ops.packing import MoleculeCalls
 
     rng = np.random.RandomState(seed)
     barcodes = np.array([b for b in range(n_barcodes - 5) if b % 7 != 3])
     cb = rng.choice(barcodes, n_calls)
     snp = np.where(cb % 3 == 0, rng.randint(0, 4, n_calls), rng.randint(0, n_snps, n_calls))
+    if edges:
+        extra_cb, extra_snp = [], []
+        for i, sizes in enumerate(AGGREGATE_EDGE_GROUPS):
+            snps = rng.choice(n_snps, len(sizes), replace=False)
+            extra_cb += [n_barcodes + i] * sum(sizes)
+            extra_snp += [s for s, size in zip(snps, sizes) for _ in range(size)]
+        cb = np.concatenate([cb, extra_cb])
+        snp = np.concatenate([snp, extra_snp])
+        n_barcodes += len(AGGREGATE_EDGE_GROUPS) + 3
+        n_calls = len(cb)
     vid = 2 * snp + rng.randint(0, 2, n_calls)
     q = np.exp(rng.uniform(np.log(q_low), np.log(0.3), n_calls))
     gprob = rng.uniform(0.01, 0.99, (2 * n_snps, n_donors))
@@ -151,13 +171,18 @@ def aggregate_problem(seed=0, n_donors=4, doublet_prior=0.35, n_barcodes=60, n_s
                 doublet_prior=doublet_prior)
 
 
-def aggregate_args(problem, device="cpu"):
+def aggregate_args(problem, device="cpu", n_pg=None):
     """(genotype_prob, checked AggregateOperands) of an :func:`aggregate_problem` on ``device``, through the engine's
-    layout."""
+    layout; with ``n_pg``, the columns are the first ``n_pg`` of the donors' singlets and doublets (whatever the
+    problem's doublet prior)."""
     from demuxalot_tpu_torch.models.demux import _SnpAggregationLayout
     from demuxalot_tpu_torch.ops.likelihood import pseudogenotype_pairs
 
     gprob, n_donors = problem["gprob"], problem["n_donors"]
-    pairs = np.stack(pseudogenotype_pairs(n_donors, problem["doublet_prior"]))
+    if n_pg is None:
+        pairs = np.stack(pseudogenotype_pairs(n_donors, problem["doublet_prior"]))
+    else:
+        pairs = np.stack(pseudogenotype_pairs(n_donors, 1.0))[:, :n_pg]
+        assert pairs.shape[1] == n_pg, f"{n_donors} donors have fewer than {n_pg} columns"
     layout = _SnpAggregationLayout.build(problem["calls"], torch.device(device))
     return t(gprob, device), layout.operands(problem["n_barcodes"], pairs, n_donors, gprob.shape[0])
