@@ -143,8 +143,13 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    plain versions' times;
 11. the last three TPU harnesses (``experiments.dma_pattern``,
    ``gather_forms``, ``gather_operand``). (a) Each kernel against its plain
-   version: the streams on ragged N (66,313 and 70,001) at steps of 512,
-   4,096 and 32,768 and D of 32 and 7, against float64 at 1e-6;
+   version: the streams' first launches on each route in a child process
+   under a timeout (a hang fails the smoke), then each route of
+   ``dma_pattern.stream_plan`` (TMA boxes, cp.async), the route asserted,
+   on 1M slots, ragged N (66,313 and 70,001), steps of 512,
+   4,096 and 32,768, D of 32 and 7 and x one float off a 16-byte boundary,
+   against float64 at 1e-6, two runs, a side stream and a graph's replay
+   bit for bit;
    take_along_axis on both axes with widths of 7 and 33, at D2's and E2's
    shapes and with the table and indices one float off a 16-byte boundary,
    eagerly, on a side stream and in a CUDA graph's replay, bit for bit, and
@@ -161,7 +166,10 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    [1,000,003] and one float off a boundary, eagerly, on a side stream and
    in a graph's replay, bit for bit; two runs bit-equal. (b) The stream rates at the
    harness's shape (570.4 MB; widths and rows of 512, 2,048, 8,192 and
-   32,768), each failing above 1.05 of its bytes' bound. (c) The forms probe
+   32,768): each step's route (TMA at all 8, or the smoke fails), stages and
+   box, ms, GB/s and share of the streamed bytes' bound beside ``torch.sum``
+   over the streamed bytes in turns, each failing above 1.05 of its bytes'
+   bound. (c) The forms probe
    (A-E2 on ``main``'s inputs) and the microbench (4,194,304 indices on
    [8192, 32]: ``index_select(...).sum()``, ``gather_sum`` with its path,
    ``cluster_gather_sum``). (d) The gather-operand stages of phases 1-3 at
@@ -214,7 +222,8 @@ terms over U with the logs the function needs (``log_count``) at the MUFU
 rate and split's dense bf16 products on the tensor cores, their U bytes in
 ``layout_bytes``, split's ``ms`` at (2,2), group's at G 4, each other
 setting with its bound in ``by_pair`` and ``by_group``; the streams'
-``ms`` at step 512 with every step in ``by_step``, take_along_axis's at
+``ms`` at step 512 with its ``path`` (the plan's route), ``stages`` and ``box`` and every
+step's in ``by_step``, take_along_axis's at
 form D2 with every form in ``by_form``,
 the tiny kernel's with the gather-operand stages in ``stages_ms``;
 take_along_axis, the cluster gather-sum and tiny carry ``graph_ms``, ``host_us`` and the library
@@ -233,12 +242,14 @@ cluster_gather_sum at [8192, 32] (4,194,304), eagerly
 and (0,0), group E-step at G 4 with 2 words and folded E-step at phase
 10b's shape, its banded E-step and M-step at phase 9b's shape, and its
 aggregate kernel's fused call at 32 and 528 columns and at 64 donors with
-the wrapper's host µs at 32 (a tree without the kernel has none), in its
+the wrapper's host µs at 32 (a tree without the kernel has none), both
+streams at the harness's shape at all 8 steps with each step's route, in its
 own process, in turns (parent, this tree, this tree, parent). Then
 whether each output is bit-equal to the parent's on the same inputs: the
 bench-shape E-step's logits and posteriors, the M-step addition and the
 EM loop's M-step, the banded logits and additions (with a digest of the
-banded inputs, which the mainline kernels make), gather_sum's sum, the
+banded inputs, which the mainline kernels make), gather_sum's sum, each
+stream's scalar at each step, the
 aggregate kernel's logits and probs at each case, with their largest
 difference from the parent's and the argmax agreement; and the E-step's and
 M-step's registers in both trees' libraries (``cuobjdump
@@ -2501,6 +2512,24 @@ def _last_kernels() -> dict:
             "cluster_gather_sum": GF.cluster_gather_sum, "tiny": GO.tiny}
 
 
+# a child process: each stream route's first launches, each against float64 (1M slots: every block of the
+# persistent grid goes round its ring several times)
+_STREAM_FIRST = """
+import sys
+import torch
+sys.path.insert(0, {repo!r})
+from demuxalot_tpu_torch.experiments import dma_pattern as DP
+routes = []
+for cols, n_slots, d, step in ((True, 1 << 20, 32, 512), (False, 1 << 20, 32, 512), (True, 70_001, 7, 4096)):
+    x = DP.stream_inputs(n_slots, d, seed=1, device="cuda", cols=cols)
+    got = float(DP.stream_cols(x, step) if cols else DP.stream_rows(x, step))
+    exact = float((DP.stream_cols_plain if cols else DP.stream_rows_plain)(x.double(), step))
+    assert abs(got - exact) <= DP.SUM_RTOL * abs(exact), (cols, n_slots, d, step, got, exact)
+    routes.append((DP.stream_cols if cols else DP.stream_rows).last_plan.route)
+print("ok", routes)
+"""
+
+
 # a child process: take_along_axis with one index past the table (axis 0) or negative (axis 1) must trap
 _TAKE_TRAP = """
 import sys
@@ -2565,19 +2594,44 @@ def phase_last_kernels() -> None:
     from torch_problems import offset_view, side_stream_and_replay
 
     cuda = torch.device("cuda")
-    # ragged tails (66,313 = 2 x 32,768 + 777), steps of 512 and 32,768, and D = 7 (unaligned runs)
-    for cols, kernel, plain in ((True, DP.stream_cols, DP.stream_cols_plain),
-                                (False, DP.stream_rows, DP.stream_rows_plain)):
-        for n_slots, d, step in ((65_536 + 777, 32, 512), (65_536 + 777, 32, 32_768), (70_001, 7, 4096)):
-            x = DP.stream_inputs(n_slots, d, seed=step, device=cuda, cols=cols)
-            got, want = float(kernel(x, step)), float(plain(x, step))
-            exact = float(plain(x.double(), step))
-            for name, value in (("kernel", got), ("plain", want)):
-                require(abs(value - exact) <= DP.SUM_RTOL * abs(exact),
-                        f"{kernel.__name__}({step}) on {tuple(x.shape)} {name}: {value} vs float64 {exact}")
-            require(float(kernel(x, step)) == got, f"{kernel.__name__}({step}): two runs bit-equal")
-            say("last", kernel=kernel.__name__, shape=list(x.shape), step=step, rel_err=abs(got - exact) / exact,
-                plain_rel_err=abs(want - exact) / exact, runs="bit-equal")
+    # the streams' first launches on both routes in a child process under a timeout (an mbarrier phase that
+    # slips hangs the TMA route, and a hang must fail the smoke, not stall it)
+    try:
+        first = subprocess.run([sys.executable, "-c", _STREAM_FIRST.format(repo=str(REPO))], capture_output=True,
+                               text=True, timeout=180)
+        require(first.returncode == 0, f"the streams' first launches failed: {(first.stdout + first.stderr)[-2000:]}")
+    except subprocess.TimeoutExpired as expired:
+        require(False, f"the streams' first launches did not end in 180 s (a hang): {expired.stdout}")
+    say("last", kernel="streams", first_launches=first.stdout.strip().splitlines()[-1][:200])
+    # each route against float64 (the plain version beside it), two runs, a side stream and a graph's replay, bit
+    # for bit: TMA boxes at the harness's widths and 1M slots (several rounds of each block's ring), with a ragged
+    # tail (66,313 = 2 x 32,768 + 777 rows), and cp.async where TMA cannot address x: N = 66,313 columns, D = 7
+    # rows, x one float off a 16-byte boundary
+    for cols, n_slots, d, step, offset, route in (
+            (True, 1 << 20, 32, 512, 0, "tma"), (True, 65_536, 32, 32_768, 0, "tma"),
+            (False, 1 << 20, 32, 512, 0, "tma"), (False, 65_536 + 777, 32, 512, 0, "tma"),
+            (False, 65_536 + 777, 32, 32_768, 0, "tma"), (True, 65_536 + 777, 32, 512, 0, "cp.async"),
+            (True, 65_536 + 777, 32, 32_768, 0, "cp.async"), (True, 70_001, 7, 4096, 0, "cp.async"),
+            (False, 70_001, 7, 4096, 0, "cp.async"), (True, 1 << 20, 32, 512, 1, "cp.async")):
+        kernel, plain = (DP.stream_cols, DP.stream_cols_plain) if cols else (DP.stream_rows, DP.stream_rows_plain)
+        x = offset_view(DP.stream_inputs(n_slots, d, seed=step, device=cuda, cols=cols), offset)
+        run = lambda: kernel(x, step)  # noqa: E731
+        got, want = run(), float(plain(x, step))
+        plan = kernel.last_plan
+        require(plan.route == route and plan == DP.stream_plan(x, step, cols),
+                f"{kernel.__name__}({step}) on {tuple(x.shape)} offset {offset}: route {plan.route}, not {route}")
+        exact = float(plain(x.double(), step))
+        for name, value in (("kernel", float(got)), ("plain", want)):
+            require(abs(value - exact) <= DP.SUM_RTOL * abs(exact),
+                    f"{kernel.__name__}({step}) on {tuple(x.shape)} {name}: {value} vs float64 {exact}")
+        require(torch.equal(run(), got), f"{kernel.__name__}({step}) {route}: two runs bit-equal")
+        on_side, replayed = side_stream_and_replay(run)
+        require(torch.equal(on_side, got) and torch.equal(replayed, got),
+                f"{kernel.__name__}({step}) {route}: side stream and graph replay bit-equal")
+        say("last", kernel=kernel.__name__, shape=list(x.shape), step=step, offset=offset, route=plan.route,
+            stages=plan.stages, box=list(plan.box), tma_refusal=plan.reason, rel_err=abs(float(got) - exact) / exact,
+            plain_rel_err=abs(want - exact) / exact, runs="bit-equal", side_stream_and_graph="bit-equal")
+        del x
     # both axes, widths of 7 and 33 (no multiple of 4), the harness's D2 and E2, and a table and indices one
     # float past a 16-byte boundary (the scalar paths): bit-equal eagerly, on a side stream and in a graph's replay
     rng = np.random.RandomState(11)
@@ -2693,6 +2747,8 @@ def phase_last(card: str) -> dict:
     del post, cb, estep
     for r in streams:
         say("last", stage="stream rate", card=card, **r)
+        require(r["route"] == "tma", f"{r['layout']} at step {r.get('width', r.get('rows'))}: the harness's shape "
+                                     f"takes the {r['route']} route, not TMA ({r['tma_refusal']})")
     say("last", stage="forms", card=card,
         **{form: {k: v for k, v in r.items() if k != "output"} for form, r in forms.items()})
     say("last", stage="microbench", card=card, **bench)
@@ -2872,9 +2928,12 @@ def _last_entries(last: dict, launches) -> list:
                                  "byte of each step by design",
             "stream_bound_ms": first["stream_bound_ms"], "stream_share_of_bound": first["stream_share_of_bound"],
             "stream_library_ms": e[name]["stream_library_ms"], "shape": first["shape"], "gb_per_s": first["gb_per_s"],
-            "by_step": [{"step": r.get("width", r.get("rows")), "run_bytes": r["run_bytes"], "ms": r["ms_mean"],
-                         "gb_per_s": r["gb_per_s"], "stream_bound_ms": r["stream_bound_ms"],
-                         "stream_share_of_bound": r["stream_share_of_bound"], "corner_bound_ms": r["corner_bound_ms"]}
+            "path": first["route"], "stages": first["stages"], "box": first["box"],
+            "by_step": [{"step": r.get("width", r.get("rows")), "run_bytes": r["run_bytes"], "path": r["route"],
+                         "stages": r["stages"], "box": r["box"], "boxes_per_step": r["boxes_per_step"],
+                         "ms": r["ms_mean"], "gb_per_s": r["gb_per_s"], "stream_bound_ms": r["stream_bound_ms"],
+                         "stream_share_of_bound": r["stream_share_of_bound"],
+                         "stream_library_ms": r["library_ms_mean"], "corner_bound_ms": r["corner_bound_ms"]}
                         for r in e[name]["by_step"]]})
     # take_along_axis and tiny: ms (eager), graph_ms (device), host_us (the host's enqueue time), each beside the
     # library call's
@@ -2957,9 +3016,10 @@ def steps_ms() -> dict:
             "m_step": _digest(*(m_out if isinstance(m_out, tuple) else (m_out,)))}
     banded, launch_bound = _banded_steps(cuda), _launch_bound_ms(cuda)
     aggregate = _aggregate_steps(packed, handler, gprob, cuda)
+    streams = _stream_steps(cuda)
     return {"package": str(Path(inspect.getfile(estep_logits)).parents[2]), "fused": fused,
-            "bits": {**bits, **banded.pop("bits"), **launch_bound.pop("bits"), **aggregate.pop("bits")}, **banded,
-            **aggregate,
+            "bits": {**bits, **banded.pop("bits"), **launch_bound.pop("bits"), **aggregate.pop("bits"),
+                     **streams.pop("bits")}, **banded, **aggregate, **streams,
             "estep_softmax_ms": [_time_ms(step) for _ in range(3)],
             "estep_ms": [_time_ms(lambda: estep_logits(gprob, lik.estep)) for _ in range(3)],
             "mstep_addition_ms": [_time_ms(lambda: mstep_addition(state.probs, run.likelihood.mstep,
@@ -2996,6 +3056,24 @@ def _aggregate_steps(packed, handler, gprob, cuda) -> dict:
         del logits, probs
     result["aggregate_host_us"] = [_host_us(lambda: aggregated_logits(gprob, cases["32"][1], softmax=True))]
     return {**result, "bits": bits}
+
+
+def _stream_steps(cuda) -> dict:
+    """Both streams of the package on sys.path at the harness's shape and all 8 steps: three samples each (CUDA
+    events over 10 calls), each step's route (None for a tree without a plan) and the bits of each scalar."""
+    from demuxalot_tpu_torch.experiments import dma_pattern as DP
+
+    result, bits, routes = {}, {}, {}
+    for cols, kernel, steps in ((True, DP.stream_cols, DP.WIDTHS), (False, DP.stream_rows, DP.ROWS)):
+        x = DP.stream_inputs(device=cuda, cols=cols)
+        for step in steps:
+            name = f"{kernel.__name__}_{step}"
+            result[f"{name}_ms"] = [_time_ms(lambda: kernel(x, step)) for _ in range(3)]
+            bits[name] = _digest(kernel(x, step))
+            plan = getattr(kernel, "last_plan", None)
+            routes[name] = plan.route if plan is not None else None
+        del x
+    return {**result, "stream_routes": routes, "bits": bits}
 
 
 def _digest(*tensors: torch.Tensor) -> str:
@@ -3102,7 +3180,8 @@ def compare_with_parent(parent: Path, card: str) -> None:
         "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms", "split_22_ms", "split_00_ms", "group_G4_ms",
         "folded_ms", "gather_sum_ms", "gather_sum_graph_ms", "cluster_gather_sum_ms", "cluster_gather_sum_graph_ms",
         "banded_estep_ms", "banded_mstep_ms", "aggregate_32_ms", "aggregate_528_ms", "aggregate_d64_ms",
-        "aggregate_host_us")})
+        "aggregate_host_us", *(f"stream_{layout}_{step}_ms" for layout in ("cols", "rows")
+                               for step in (512, 2048, 8192, 32768)))})
     # bit for bit: each output of this tree against the parent's on the same inputs, every run alike
     bits = {key: "bit-equal" if len({r["bits"].get(key) for r in samples["parent"] + samples["this"]}) == 1
             else "differs" for key in samples["this"][0]["bits"]}

@@ -115,9 +115,9 @@ _SIGNATURES = {
         _i32, _vp,  # device, stream
     ),
     "demux_stream_sum": (
-        _vp, _i64, _i64, _i64,  # x, ld, step_offset, n_steps
-        _i32, _i32, _i32, _i32,  # h, w, corner rows, corner columns
-        _vp, _vp, _vp,  # partial, total, stream
+        _vp, _i64, _i64, _i32, _i64, _i32,  # x, n_rows, n_cols, cols, step, corner
+        _i32, _i32, _i32,  # route (0 cp.async, 1 TMA boxes, 2 TMA bulk runs), box, stages
+        _vp, _i64, _vp, _i32, _vp,  # partial, n_partial, total, device, stream
     ),
     "demux_take_along_axis": (
         _vp, _i64, _i64, _vp, _i64, _i64, _i32,  # table, n_rows, n_cols, idx, rows_out, cols_out, axis

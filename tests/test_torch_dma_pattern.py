@@ -22,7 +22,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from demuxalot_tpu_torch.experiments import dma_pattern as DP
-from torch_problems import t
+from torch_problems import offset_view, t
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "benchmarks"))
 import exp_dma_pattern as JDP  # noqa: E402
@@ -126,6 +126,42 @@ def test_wrappers_check_their_inputs():
         DP.stream_cols(x.to("meta"), 10)
 
 
+# (cols, n_slots, d, step, offset, route, boxes a step): the harness's 8 steps (32 KB boxes of 256 columns or
+# rows, 2 a step at 512, 128 at 32,768) take TMA; D = 7 rows, N = 100,003 columns and x one float off a 16-byte
+# boundary take cp.async; a step of 100 takes TMA where the rows are aligned (one box of 100) and cp.async on
+# N = 100,003's
+_PLAN_CASES = ([(True, DP.N_SLOTS, DP.D, w, 0, "tma", w // 256) for w in DP.WIDTHS]
+               + [(False, DP.N_SLOTS, DP.D, r, 0, "tma", r // 256) for r in DP.ROWS]
+               + [(False, 70_001, 7, 4096, 0, "cp.async", 4), (True, 100_003, 32, 100, 0, "cp.async", 1),
+                  (True, 65_536, 32, 512, 1, "cp.async", 2), (False, 65_536, 32, 512, 1, "cp.async", 2),
+                  (False, 100_003, 32, 100, 0, "tma", 1), (True, 4096, 7, 512, 0, "tma", 2)])
+
+
+@pytest.mark.parametrize("cols, n_slots, d, step, offset, route, boxes", _PLAN_CASES)
+def test_stream_plan_takes_tma_where_a_tensor_map_addresses_x(cols, n_slots, d, step, offset, route, boxes):
+    shape = (d, n_slots) if cols else (n_slots, d)
+    x = offset_view(torch.zeros(shape), offset) if offset else torch.empty(shape)  # empty: no page is touched
+    plan = DP.stream_plan(x, step, cols)
+    assert (plan.route, plan.boxes_per_step) == (route, boxes)
+    assert plan.n_steps == n_slots // step
+    if route == "tma":
+        assert plan.reason is None and plan.stages == DP.TMA_STAGES
+        assert plan.box == ((d, step // boxes) if cols else (step // boxes, d))
+        assert plan.box_bytes == 4 * d * step // boxes <= 32_768 and max(plan.box) <= 256
+        assert plan.corner_boxes == 1
+    else:
+        assert plan.reason and plan.stages == DP.CP_ASYNC_STAGES
+
+
+def test_stream_plan_counts_each_box_that_holds_the_corner():
+    """Narrow boxes: a step's 128-column corner spans 4 boxes of 32 columns at D = 256, one partial each."""
+    plan = DP.stream_plan(torch.empty(256, 4096), 512, cols=True)
+    assert plan.route == "tma" and plan.box == (256, 32) and plan.boxes_per_step == 16
+    assert plan.corner_boxes == 4 and plan.n_steps == 8
+    rows = DP.stream_plan(torch.empty(4096, 64), 4, cols=False)  # steps of 4 rows: the corner is the whole step
+    assert rows.route == "tma" and rows.box == (4, 64) and (rows.boxes_per_step, rows.corner_boxes) == (1, 1)
+
+
 def test_rate_runner_on_the_cpu(capsys):
     """The entry point at a small size on the CPU (the plain versions), and without a card for cuda."""
     assert DP.main(["--device", "cpu", "--n-slots", "5000", "--widths", "512,1024", "--rows", "512",
@@ -135,7 +171,11 @@ def test_rate_runner_on_the_cpu(capsys):
         ("cols", 512), ("cols", 1024), ("rows", 512)]
     for r in results:
         assert r["device"] == "cpu" and r["sum"] == pytest.approx(r["float64_sum"], rel=RTOL)
-        assert len(r["ms"]) == 2 and r["bound_by"] == "bytes"
+        assert len(r["ms"]) == 2 and len(r["library_ms"]) == 2 and r["bound_by"] == "bytes"
+        # the plan a card would take: 5,000 slots of 32 floats are TMA-addressable, boxes of 256 columns or rows
+        step = r.get("width", r.get("rows"))
+        assert r["ran"] == "plain" and r["route"] == "tma" and r["tma_refusal"] is None
+        assert r["stages"] == DP.TMA_STAGES and r["boxes_per_step"] == step // 256 and r["box_bytes"] == 32_768
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DP.run_stream()

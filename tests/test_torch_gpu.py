@@ -1149,12 +1149,22 @@ def test_gpu_variants_padding_is_bit_exact():
 # the streams, the gather forms, the cluster gather-sum and the tiny kernel
 # ---------------------------------------------------------------------------
 
+# the route stream_plan takes for each case: TMA where a tensor map can address x (N % 4 == 0 for cols,
+# D % 4 == 0 for rows, torch's 16-byte-aligned storage), cp.async for the rest
+_STREAM_ROUTES = {(True, 65_536, 32, 512): "tma", (False, 65_536, 32, 512): "tma",
+                  (True, 65_536 + 777, 32, 32768): "cp.async", (False, 65_536 + 777, 32, 32768): "tma",
+                  (True, 70_001, 7, 4096): "cp.async", (False, 70_001, 7, 4096): "cp.async",
+                  (True, 100_003, 32, 100): "cp.async", (False, 100_003, 32, 100): "tma",
+                  (True, 4096, 32, 4096): "tma", (False, 4096, 32, 4096): "tma"}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cols", [True, False])
 @pytest.mark.parametrize("n_slots, d, step", [(65_536, 32, 512), (65_536 + 777, 32, 32768), (70_001, 7, 4096),
                                               (100_003, 32, 100), (4096, 32, 4096)])
 def test_gpu_streams_match_float64(cols, n_slots, d, step):
-    """Ragged tails, a D that leaves rows unaligned (7), steps narrower than the corner, one whole step."""
+    """Ragged tails, a D that leaves rows unaligned (7), steps narrower than the corner, one whole step; each on
+    the route its plan names."""
     _need_card()
     from demuxalot_tpu_torch.experiments import dma_pattern as DP
 
@@ -1163,10 +1173,72 @@ def test_gpu_streams_match_float64(cols, n_slots, d, step):
     launches = kernel.launches
     got = kernel(x, step)
     assert kernel.launches == launches + 1
+    assert kernel.last_plan == DP.stream_plan(x, step, cols)
+    assert kernel.last_plan.route == _STREAM_ROUTES[(cols, n_slots, d, step)]
     exact = float(plain(x.double(), step))
     assert float(got) == pytest.approx(exact, rel=1e-6)
     assert float(plain(x, step)) == pytest.approx(exact, rel=1e-6)
     assert torch.equal(got, kernel(x, step))
+
+
+# each route on each layout: (cols, n_slots, d, step, offset, route); 1M slots give every block of the persistent
+# grid several rounds of its ring of 32 KB boxes
+_STREAM_ROUTE_CASES = [(True, 1 << 20, 32, 512, 0, "tma"), (False, 1 << 20, 32, 512, 0, "tma"),
+                       (True, 1 << 20, 32, 512, 1, "cp.async"), (False, 1 << 20, 32, 512, 1, "cp.async"),
+                       (False, 70_001, 7, 4096, 0, "cp.async"), (True, 70_001, 7, 4096, 0, "cp.async")]
+
+
+def _stream_case(cols, n_slots, d, step, offset):
+    """(a call of one route case's stream, the float64 sum); x ``offset`` floats into its storage."""
+    from demuxalot_tpu_torch.experiments import dma_pattern as DP
+
+    x = offset_view(DP.stream_inputs(n_slots, d, seed=n_slots + step, cols=cols), offset)
+    run = lambda: (DP.stream_cols if cols else DP.stream_rows)(x, step)  # noqa: E731
+    return run, float((DP.stream_cols_plain if cols else DP.stream_rows_plain)(x.double(), step))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols, n_slots, d, step, offset, route", _STREAM_ROUTE_CASES)
+def test_gpu_streams_are_bit_equal_run_to_run(cols, n_slots, d, step, offset, route):
+    """Two runs give the same bits on every route (partials in a fixed order, no atomics)."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import dma_pattern as DP
+
+    run, exact = _stream_case(cols, n_slots, d, step, offset)
+    first = run()
+    assert (DP.stream_cols if cols else DP.stream_rows).last_plan.route == route
+    assert float(first) == pytest.approx(exact, rel=1e-6)
+    assert torch.equal(first, run())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols, n_slots, d, step, offset, route", _STREAM_ROUTE_CASES)
+def test_gpu_streams_on_a_side_stream_and_in_a_graph(cols, n_slots, d, step, offset, route):
+    """Each route goes on whatever stream is current, and a graph's replay launches with the tensor map it
+    captured: bit-equal to the eager call."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import dma_pattern as DP
+
+    run, exact = _stream_case(cols, n_slots, d, step, offset)
+    eager = run()
+    assert (DP.stream_cols if cols else DP.stream_rows).last_plan.route == route
+    on_side, replayed = side_stream_and_replay(run)
+    assert torch.equal(on_side, eager) and torch.equal(replayed, eager)
+    assert float(eager) == pytest.approx(exact, rel=1e-6)
+
+
+@pytest.mark.gpu
+def test_gpu_stream_refuses_a_route_its_tensor_cannot_take():
+    """The C entry checks TMA's rules again: a TMA plan on x one float off a 16-byte boundary is refused, and
+    nothing retries another route."""
+    _need_card()
+    from demuxalot_tpu_torch.experiments import dma_pattern as DP
+
+    aligned = DP.stream_inputs(1 << 16, 32, seed=3, cols=True)
+    plan = DP.stream_plan(aligned, 512, cols=True)
+    assert plan.route == "tma"
+    with pytest.raises(RuntimeError, match="demux_stream_sum"):
+        DP._launch(offset_view(aligned, 1), 512, True, plan)
 
 
 def _take_problem(axis, shape, out_rows, table_offset=0, idx_offset=0):

@@ -71,7 +71,8 @@ def refuse(*args, **kwargs):
 torch.cuda._lazy_init = refuse
 torch.cuda.init = refuse
 from demuxalot_tpu_torch.ops import _cuda
-from demuxalot_tpu_torch.experiments import folded_estep, gather_forms, gather_operand, inkernel_gather, kernel_gather
+from demuxalot_tpu_torch.experiments import dma_pattern, folded_estep, gather_forms, gather_operand, inkernel_gather
+from demuxalot_tpu_torch.experiments import kernel_gather
 from demuxalot_tpu_torch.ops import aggregate_kernel
 assert not torch.cuda.is_initialized()
 assert _cuda._library is None and _cuda._build is None
@@ -79,7 +80,7 @@ assert gather_forms._take_along_axis._fn is None and gather_operand._tiny._fn is
 assert folded_estep._folded._fn is None and kernel_gather._gather_sum._fn is None
 assert inkernel_gather._estep_banded._fn is None and inkernel_gather._mstep_banded._fn is None
 assert inkernel_gather._check_banded._fn is None and gather_forms._cluster_gather_sum._fn is None
-assert not gather_forms._CARD_PLANS
+assert not gather_forms._CARD_PLANS and dma_pattern._stream_sum._fn is None
 assert aggregate_kernel._aggregate._fn is None and aggregate_kernel._check_on_card._fn is None
 print("ok")
 """
@@ -145,7 +146,9 @@ def _stand_in(monkeypatch, status: int = 0) -> _Library:
                                                                 1, 1)),
                                         ("demux_cluster_gather_sum", (0x7F12_3456_7000, 8192, 32, 0x7F12_0000_1230,
                                                                       4_194_304, 8192, 5, 16, 0x7E00_0000_0040,
-                                                                      0x7E00_0080_0040))])
+                                                                      0x7E00_0080_0040)),
+                                        ("demux_stream_sum", (0x7F12_3456_7000, 32, 4_456_448, 1, 512, 128, 1, 256,
+                                                              6, 0x7E00_0000_0040, 8704, 0x7E00_0000_8840))])
 def test_entry_passes_its_arguments_then_the_device_and_the_stream(monkeypatch, name, args, index):
     lib = _stand_in(monkeypatch)
     entry = _cuda.Entry(name)
