@@ -33,7 +33,13 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    (5 iterations, doublet prior 0.35) then ``predict_posteriors_core``,
    with launch counters (each M-step one ``mstep_update`` launch), output
    checks and truth accuracy, then the same run through the plain versions
-   on the card for comparison;
+   on the card for comparison; then the learn again under
+   ``utils.profiling.device_trace`` (its bits equal to the untraced run's,
+   the program's spans among the trace's annotations, each E-step and M-step
+   kernel launched inside its ``em.estep`` or ``em.mstep`` span, the
+   profiler's device time), and the recorder's ``snapshot()`` so far
+   (``utils.tracing``: the import, the libraries' loads and builds, the
+   stages, the ops' host ns);
 5. timing with CUDA events: E-step (logits only), E-step with its fused
    softmax (``estep_softmax``, against the plain logits + ``torch.softmax``),
    the M-step addition, the fused M-step (``mstep_update``), the chain it
@@ -44,7 +50,13 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    without a mask); both M-step kernels at 1, 2, 4, 8 and 16 row reads in
    flight, in turns; ``torch.softmax`` alone on the bench logits (the
    epilogue's library call), and the fused E-step with its log fold through
-   ``logf`` against the default MUFU log2, in turns;
+   ``logf`` against the default MUFU log2, in turns; then what the recorder
+   costs: the host µs an EM iteration takes to issue (100 a window, no
+   synchronise, the median of 5 windows) and the EM iteration's CUDA-event
+   time, with no profiler, with one recording, and with one recording and
+   the program's spans off, in turns, and the host µs of each of its
+   pieces alone (an iteration span with no profiler, a stage span, an op's
+   host counter, the profiler check);
 6. the BAM path at the end-to-end shape of ``benchmarks/end_to_end.py``
    (32 donors, 65,536 barcodes x 20 reads, 8 chromosomes x 20,000 bp,
    mutation 0.003, 20% doublets, seed 0): ``sim.generate_bam_file``,
@@ -58,7 +70,8 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    bars). Host-clock seconds per stage;
 7. the aggregate-on-SNPs path and SNP discovery. (a) On phase 4's data,
    ``aggregate_on_snps = True``: ``learn_genotypes_core`` (5 iterations,
-   doublet prior 0, one ``STAGE_TIMINGS`` dict printed) then
+   doublet prior 0, one ``STAGE_TIMINGS`` dict printed beside the recorder's
+   ``snapshot()`` of the same run) then
    ``predict_posteriors_compact`` (prior 0.35), launch counts (every
    E-step one ``aggregated_logits`` launch), output checks, truth
    accuracy, the predict's device peak above what it held before (its
@@ -232,6 +245,10 @@ graph's input copies hold in ``graph_input_mb``);
 the line before it is nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
+``python3 chip_smoke.py --tracing`` runs only phases 1, 2 and 4 and the
+recorder's cost of phase 5; ``--trace-dir DIR`` keeps phase 4's
+``trace.json`` in ``DIR``.
+
 ``python3 chip_smoke.py --parent DIR`` runs only the comparison of this
 tree with the one under ``DIR`` (an unpacked older commit): phases 1-2,
 then each tree's E-step and softmax, M-step and EM iteration at the bench
@@ -384,7 +401,9 @@ def phase_build() -> None:
         seconds = {name: future.result() for name, future in futures.items()}
     result = _cuda.build()
     _cuda.library()
-    say("build", seconds=seconds, library=result.path.name)
+    from demuxalot_tpu_torch.utils import tracing
+
+    say("build", seconds=seconds, library=result.path.name, builds=tracing.snapshot()["counters"]["builds"])
     # C7519: ptxas put a warpgroup.arrive before a wgmma that reads registers (split.cu); counted, not printed
     for line in result.log.splitlines():
         if any(key in line for key in ("Compiling entry", "registers", "spill")) and "C7519" not in line:
@@ -831,8 +850,57 @@ def _run_main_path(genotypes, handler, packed):
     return learnt.genotypes, learnt.state, logits, probs, columns
 
 
-def phase_main(genotypes, handler, packed, truth) -> dict:
+def _device_microseconds(prof) -> float:
+    """The device time a profiler's ``key_averages()`` holds, µs (0 where it saw no device)."""
+    return sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages())
+
+
+def _traced_learn(genotypes, handler, packed, untraced_state, trace_dir) -> dict:
+    """Phase 4's learn under ``device_trace``: the same bits, the program's spans in the trace around its kernels."""
     from demuxalot_tpu_torch import Demultiplexer
+    from demuxalot_tpu_torch.utils import device_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        where = Path(trace_dir or tmp)
+        t0 = time.perf_counter()
+        with device_trace(str(where)) as prof:
+            learnt = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
+                                                        doublet_prior=DOUBLET_PRIOR)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = [e for e in json.loads((where / "trace.json").read_text())["traceEvents"] if e.get("ph") == "X"]
+    require(torch.equal(learnt.state.probs, untraced_state.probs), "the traced learn gives the untraced bits")
+    annotations = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            annotations[e["name"]] = annotations.get(e["name"], 0) + 1
+    spans = [(e["name"], e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] in ("em.estep", "em.mstep")]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    inside = {"estep_kernel": 0, "mstep_kernel": 0}
+    for e in events:
+        for kernel, span in (("estep_kernel", "em.estep"), ("mstep_kernel", "em.mstep")):
+            if e.get("cat") == "kernel" and kernel in e["name"]:
+                call = calls[e["args"]["correlation"]]
+                inner = (call["tid"], call["ts"], call["ts"] + call["dur"])
+                require(any(name == span and tid == inner[0] and start <= inner[1] <= inner[2] <= end
+                            for name, tid, start, end in spans), f"{kernel} launched outside {span}")
+                inside[kernel] += 1
+    require(inside == {"estep_kernel": N_ITERATIONS, "mstep_kernel": N_ITERATIONS - 1},
+            f"E-step and M-step kernels inside their spans: {inside}")
+    device_us = _device_microseconds(prof)
+    require(device_us > 0, "the profiler's key_averages() hold device time")
+    say("main", path="device_trace", wall_s=wall, kernels_inside_their_spans=inside, annotations=annotations,
+        key_averages_device_us=device_us, kernel_events=sum(e.get("cat") == "kernel" for e in events),
+        trace=str(where / "trace.json") if trace_dir else None)
+    return annotations
+
+
+def phase_main(genotypes, handler, packed, truth, trace_dir=None) -> dict:
+    from demuxalot_tpu_torch import Demultiplexer
+    from demuxalot_tpu_torch.utils import tracing
 
     Demultiplexer.device = "cuda"
     require(packed.reindex.windowed_max_per_snp > 0, "the bench shape's SNP runs take the fused M-step")
@@ -877,6 +945,8 @@ def phase_main(genotypes, handler, packed, truth) -> dict:
     argmax_same = float((probs.argmax(1) == probs_p.argmax(1)).float().mean())
     require(argmax_same == 1.0, f"argmax agrees on {argmax_same} of barcodes")
     say("main", path="plain vs kernels", max_abs_err=errors, argmax_agreement=argmax_same)
+    _traced_learn(genotypes, handler, packed, state, trace_dir)
+    say("main", path="tracing.snapshot()", **tracing.snapshot())
     return {"launches": launches, "learnt": learnt, "state": state}
 
 
@@ -950,6 +1020,75 @@ def _host_us(fn, calls: int = 200, windows: int = 5) -> float:
         samples.append((time.perf_counter() - t0) * 1e6 / calls)
     torch.cuda.synchronize()
     return float(np.median(samples))
+
+
+@contextlib.contextmanager
+def _spans_off():
+    """The recorder as where no profiler records: no iteration span and no annotation (comparison runs only)."""
+    from demuxalot_tpu_torch.utils import tracing
+
+    saved = tracing.profiling
+    tracing.profiling = lambda: False
+    try:
+        yield
+    finally:
+        tracing.profiling = saved
+
+
+def _piece_us(fn, calls: int = 100_000) -> float:
+    """Host µs a call of ``fn``, over ``calls`` calls in a row."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
+def phase_tracing_cost(genotypes, handler, packed, card: str) -> dict:
+    """What the recorder costs on the EM loop: with no profiler, with one recording, with one and no spans."""
+    from demuxalot_tpu_torch.models.demux import _EMRun
+    from demuxalot_tpu_torch.utils import tracing
+
+    run = _EMRun(packed, genotypes, handler, 1 << 62, 0.01, DOUBLET_PRIOR, None)
+    iterations = run.device_iterations()
+    pull = lambda: next(iterations)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def measure(setting: str) -> dict:
+        with contextlib.ExitStack() as stack:
+            if setting != "no_profiler":
+                stack.enter_context(torch.profiler.profile(activities=activities))
+            if setting == "profiler_spans_off":
+                stack.enter_context(_spans_off())
+            return {"host_us": _host_us(pull, calls=100), "em_iter_ms": _time_ms(pull, repeats=50)}
+
+    settings = ("no_profiler", "profiler", "profiler_spans_off")
+    samples = {s: [] for s in settings}
+    for setting in (*settings, *reversed(settings)):  # in turns
+        samples[setting].append(measure(setting))
+    loop = {s: {k: (a[k] + b[k]) / 2 for k in a} for s, (a, b) in samples.items()}
+
+    def iteration_span():
+        with tracing.step("em.estep"):
+            pass
+
+    def stage_span():
+        with tracing.span("chip_smoke.stage"):
+            pass
+
+    def noop():
+        pass
+
+    counted = tracing.timed_op(noop)
+    counted()
+    pieces = {"iteration_span_no_profiler_us": _piece_us(iteration_span), "stage_span_us": _piece_us(stage_span),
+              "op_counter_us": _piece_us(counted) - _piece_us(noop), "profiler_check_us": _piece_us(tracing.profiling)}
+    tracing._ops.remove(counted)
+    # an iteration with no profiler: two op counters and two iteration spans (the fused M-step)
+    pieces["per_iteration_no_profiler_us"] = 2 * (pieces["op_counter_us"] + pieces["iteration_span_no_profiler_us"])
+    say("tracing", card=card, loop=loop, samples=samples, pieces=pieces)
+    iterations.close()
+    return {"loop": loop, "pieces": pieces}
 
 
 def _sm_clock_mhz() -> float:
@@ -1332,6 +1471,7 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
     from demuxalot_tpu_torch import Demultiplexer
     from demuxalot_tpu_torch.models import demux
     from demuxalot_tpu_torch.ops.aggregate_kernel import aggregated_logits
+    from demuxalot_tpu_torch.utils import tracing
 
     Demultiplexer.device = "cuda"
     cuda = demux.resolve_device(Demultiplexer.device)  # the engine's device key, as its layout cache has it
@@ -1339,6 +1479,7 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
     try:
         torch.cuda.reset_peak_memory_stats()
         _zero_launches()
+        tracing.reset()
         demux.STAGE_TIMINGS = {}
         t0 = time.perf_counter()
         learnt = Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=N_ITERATIONS,
@@ -1347,6 +1488,7 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
         learn_s = time.perf_counter() - t0
         learn_launches = _launches()
         stage_timings, demux.STAGE_TIMINGS = demux.STAGE_TIMINGS, None
+        snapshot = tracing.snapshot()
         t0 = time.perf_counter()
         compact = Demultiplexer.predict_posteriors_compact(packed, learnt.genotypes, handler,
                                                            doublet_prior=DOUBLET_PRIOR, k=E2E_TOPK)
@@ -1370,6 +1512,7 @@ def phase_aggregate(genotypes, handler, packed, truth, gprob, card: str) -> dict
             n_molecule_calls=int(layout.vid.shape[0]), max_molecules_per_group=int(layout.group_ptr.diff().max()),
             max_memory_allocated=torch.cuda.max_memory_allocated())
         say("aggregate", stage="STAGE_TIMINGS of the learn run", card=card, **stage_timings)
+        say("aggregate", stage="tracing.snapshot() of the learn run", card=card, **snapshot)
 
         logits, probs, columns, predict_peak = _predict_peak(packed, learnt.genotypes, handler)
         n_barcodes, n_donors, n_pg = handler.n_barcodes, len(genotypes.genotype_names), len(columns)
@@ -3214,6 +3357,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, help="compare this tree's steps with the ones under this directory")
     parser.add_argument("--steps-ms", type=Path, help=argparse.SUPPRESS)  # a child of --parent
+    parser.add_argument("--tracing", action="store_true",
+                        help="run phases 1, 2 and 4 and the recorder's cost only")
+    parser.add_argument("--trace-dir", type=Path, help="keep phase 4's trace.json in this directory")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3227,6 +3373,12 @@ def main() -> int:
         compare_with_parent(args.parent, report["nvidia_smi"])
         return 0
     card = report["nvidia_smi"]
+    if args.tracing:
+        phase_build()
+        genotypes, handler, packed, truth = _bench_data()
+        phase_main(genotypes, handler, packed, truth, args.trace_dir)
+        phase_tracing_cost(genotypes, handler, packed, card)
+        return 0
     seconds, mark = {}, [time.perf_counter()]
 
     def lap(name: str) -> None:  # the host seconds of each phase since the last lap
@@ -3239,10 +3391,12 @@ def main() -> int:
     phase_kernels()
     lap("kernels")
     genotypes, handler, packed, truth = _bench_data()
-    main_result = phase_main(genotypes, handler, packed, truth)
+    main_result = phase_main(genotypes, handler, packed, truth, args.trace_dir)
     lap("main")
     timing = phase_timing(genotypes, handler, packed, main_result, card)
     lap("timing")
+    phase_tracing_cost(genotypes, handler, packed, card)
+    lap("tracing")
     with tempfile.TemporaryDirectory() as tmp:
         bam_result = phase_bam(card, Path(tmp))
         lap("bam")

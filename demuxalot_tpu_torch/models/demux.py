@@ -30,14 +30,22 @@ aggregation over (barcode, snp) groups of the molecule calls
 kernel of ``ops.aggregate_kernel.aggregated_logits``, its row softmax
 fused, with operands checked once per dataset, doublet prior and device
 (:meth:`PackedCalls.aggregate_operands`); every sum in order, so every run
-gives the same bits. The M-step stays the M-step kernel. Setting
-:data:`STAGE_TIMINGS` to a dict records per-stage wall seconds. Semantics
-are those of ``demuxalot_tpu.models.demux`` (reference:
+gives the same bits. The M-step stays the M-step kernel.
+
+Every entry point records its stages as spans of ``utils.tracing``: the
+``learn`` and ``predict`` calls, ``pack`` (with ``pack.join``,
+``pack.reindex``, ``pack.collapse``), ``betas_for``, ``em.setup`` (with
+``em.prior``, ``em.operands``, ``em.uploads``), ``em.loop``,
+``registry_addition``, ``predict.*``, ``compact_topk`` and
+``materialize``; each EM iteration's ``em.estep``, ``em.mstep`` and
+``em.normalise`` only while a profiler records. Setting
+:data:`STAGE_TIMINGS` to a dict also adds the stages' seconds into it.
+Semantics are those of ``demuxalot_tpu.models.demux`` (reference:
 demuxalot/demux.py:24-156).
 """
 from __future__ import annotations
 
-import time
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Iterable, List, NamedTuple, Optional, Tuple
 
@@ -51,6 +59,7 @@ from ..ops.aggregate_kernel import AggregateOperands, aggregate_operands, aggreg
 from ..ops.likelihood_kernel import estep_logits, estep_operands
 from ..ops.mstep_kernel import MStepOperands, mstep_addition, mstep_operands, mstep_update
 from ..utils.barcodes import BarcodeHandler
+from ..utils import tracing
 from ..utils.device import resolve_device
 from .genotypes import ProbabilisticGenotypes
 
@@ -63,16 +72,19 @@ from .genotypes import ProbabilisticGenotypes
 # d2h_logits_s/_bytes, d2h_addition_s/_bytes, d2h_compact_bytes). Only a
 # dict makes the entry points synchronise the device between stages; None
 # (the default) adds no synchronisation and no copy, and results are the
-# same bit for bit either way.
+# same bit for bit either way. Each key's seconds are those of the stage
+# spans that name it (_stage).
 STAGE_TIMINGS: Optional[dict] = None
 
 
-def _stage_mark(timings: Optional[dict], key: str, t0: float) -> float:
-    """Add now − t0 to ``timings[key]`` (when timings is a dict); return now."""
-    now = time.perf_counter()
+@contextmanager
+def _stage(name: str, key: str):
+    """The stage span ``name``; yields STAGE_TIMINGS, and where it is a dict adds the span's seconds into ``key``."""
+    timings = STAGE_TIMINGS
+    with tracing.span(name) as stage:
+        yield timings
     if timings is not None:
-        timings[key] = timings.get(key, 0.0) + (now - t0)
-    return now
+        timings[key] = timings.get(key, 0.0) + stage.seconds
 
 
 def _flush_device(tensors: Iterable[Optional[torch.Tensor]]) -> int:
@@ -185,9 +197,11 @@ class PackedCalls:
     :meth:`aggregate_operands` its E-step's checked operands.
     """
 
+    @tracing.within("pack")
     def __init__(self, chromosome2compressed_snp_calls, genotypes: ProbabilisticGenotypes):
         self.variant2snp = genotypes.get_snp_ids_for_variants()
-        self.molecule_calls = P.match_calls_to_variants(chromosome2compressed_snp_calls, genotypes)
+        with tracing.span("pack.join"):
+            self.molecule_calls = P.match_calls_to_variants(chromosome2compressed_snp_calls, genotypes)
         names, chrom_slots, positions, base_chars, base_slots = genotypes.variant_columns()
         self._registry_key = (
             tuple(names),
@@ -196,9 +210,11 @@ class PackedCalls:
             tuple(base_chars),
             np.array(base_slots, copy=True),
         )
-        self.reindex = P.VariantReindex.build(self.variant2snp)
+        with tracing.span("pack.reindex"):
+            self.reindex = P.VariantReindex.build(self.variant2snp)
         # (device vid, cb)-sorted: the M-step order with no further sort
-        self.calls_v = P.collapse_device_order(self.molecule_calls, self.reindex)
+        with tracing.span("pack.collapse"):
+            self.calls_v = P.collapse_device_order(self.molecule_calls, self.reindex)
         self._calls_b: Optional[tuple] = None
         self._barcode_calls: Optional[np.recarray] = None
         self._device_calls: dict = {}
@@ -267,6 +283,7 @@ class PackedCalls:
                 "but variants may not — re-pack with Demultiplexer.pack_dataset"
             )
 
+    @tracing.within("betas_for")
     def betas_for(self, genotypes: ProbabilisticGenotypes, add_data_prior: bool) -> np.ndarray:
         """Regularized prior betas for THIS genotypes object (recomputed, cheap)."""
         self.verify_registry(genotypes)
@@ -383,6 +400,7 @@ class _EMRun:
     per-iteration generator (demuxalot/demux.py:68-118).
     """
 
+    @tracing.within("em.setup")
     def __init__(
         self,
         chromosome2compressed_snp_calls,
@@ -401,11 +419,9 @@ class _EMRun:
                    " needs the whole trajectory to decide)" if damping == "auto" else "")
             )
         device = resolve_device(Demultiplexer.device)
-        timings = STAGE_TIMINGS
-        t_mark = time.perf_counter()
-        packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
-        self.prior_betas = packed.betas_for(genotypes, add_data_prior=True)
-        t_mark = _stage_mark(timings, "pack_s", t_mark)
+        with _stage("em.prior", "pack_s"):
+            packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
+            self.prior_betas = packed.betas_for(genotypes, add_data_prior=True)
         self.barcode_handler = barcode_handler
         self.n_iterations = n_iterations
         self.p_genotype_clip = p_genotype_clip
@@ -413,37 +429,38 @@ class _EMRun:
         self.n_snps = int(packed.variant2snp.max()) + 1 if self.n_variants else 0
         self.reindex = packed.reindex
         self.max_per_snp = self.reindex.windowed_max_per_snp
-        self.likelihood = _Likelihood(
-            packed, barcode_handler.n_barcodes, genotypes.genotype_names, doublet_prior, device
-        )
+        with _stage("em.operands", "layout_s"):
+            self.likelihood = _Likelihood(
+                packed, barcode_handler.n_barcodes, genotypes.genotype_names, doublet_prior, device
+            )
         self.column_names = self.likelihood.column_names
         if barcode_prior_logits is not None:
             assert barcode_prior_logits.shape == (
                 barcode_handler.n_barcodes, self.likelihood.n_options,
             ), "wrong shape of priors"
 
-        # the EM space uses SNP-sorted variant rows (windowed denominators);
-        # additions are mapped back to registry order on the host
-        self.variant2snp = _to_device(self.reindex.variant2snp, device)
-        self.prior_betas_dev = _to_device(self.reindex.permute_rows(self.prior_betas), device)
-        # damping="anchor": M-step additions apply only at variants whose
-        # GENOTYPE prior carries information (nonzero betas before the data
-        # prior); built from the packed betas the mask would be all ones
-        self.anchor_mask = None
-        if damping == "anchor":
-            registry_mask = (np.asarray(genotypes.get_betas()).sum(axis=1) > 0).astype(np.float32)
-            self.anchor_mask = _to_device(registry_mask[self.reindex.order][:, None], device)
-        self.prior_logits = (
-            _to_device(np.asarray(barcode_prior_logits, dtype=np.float32), device)
-            if barcode_prior_logits is not None else None
-        )
-        t_mark = _stage_mark(timings, "layout_s", t_mark)
+        with _stage("em.uploads", "layout_s") as timings:
+            # the EM space uses SNP-sorted variant rows (windowed denominators);
+            # additions are mapped back to registry order on the host
+            self.variant2snp = _to_device(self.reindex.variant2snp, device)
+            self.prior_betas_dev = _to_device(self.reindex.permute_rows(self.prior_betas), device)
+            # damping="anchor": M-step additions apply only at variants whose
+            # GENOTYPE prior carries information (nonzero betas before the data
+            # prior); built from the packed betas the mask would be all ones
+            self.anchor_mask = None
+            if damping == "anchor":
+                registry_mask = (np.asarray(genotypes.get_betas()).sum(axis=1) > 0).astype(np.float32)
+                self.anchor_mask = _to_device(registry_mask[self.reindex.order][:, None], device)
+            self.prior_logits = (
+                _to_device(np.asarray(barcode_prior_logits, dtype=np.float32), device)
+                if barcode_prior_logits is not None else None
+            )
         if timings is not None:
-            timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _flush_device([
-                self.variant2snp, self.prior_betas_dev, self.anchor_mask, self.prior_logits,
-                *self.likelihood.tensors(),
-            ])
-            _stage_mark(timings, "upload_flush_s", t_mark)
+            with _stage("em.flush", "upload_flush_s"):
+                timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _flush_device([
+                    self.variant2snp, self.prior_betas_dev, self.anchor_mask, self.prior_logits,
+                    *self.likelihood.tensors(),
+                ])
 
     def device_iterations(self):
         """Yield an :class:`EMState` per EM iteration (the last runs no M-step).
@@ -455,34 +472,36 @@ class _EMRun:
         """
         likelihood = self.likelihood
         addition = torch.zeros_like(self.prior_betas_dev)
-        genotype_prob = self._normalise(addition)
+        with tracing.step("em.normalise"):
+            genotype_prob = self._normalise(addition)
         for iteration in range(self.n_iterations):
-            logits, probs = likelihood.posteriors(genotype_prob, self.prior_logits if iteration == 0 else None)
+            with tracing.step("em.estep"):
+                logits, probs = likelihood.posteriors(genotype_prob, self.prior_logits if iteration == 0 else None)
             yield EMState(probs, logits, addition)
             if iteration == self.n_iterations - 1:
                 break
             if likelihood.mstep.snp_ptr is not None:
-                addition, genotype_prob = likelihood.update(
-                    probs, self.prior_betas_dev, self.anchor_mask, self.p_genotype_clip, self.n_genotypes)
+                with tracing.step("em.mstep"):
+                    addition, genotype_prob = likelihood.update(
+                        probs, self.prior_betas_dev, self.anchor_mask, self.p_genotype_clip, self.n_genotypes)
                 continue
-            addition = likelihood.addition(probs, self.n_genotypes)
-            if self.anchor_mask is not None:
-                addition = addition * self.anchor_mask
-            genotype_prob = self._normalise(addition)
+            with tracing.step("em.mstep"):
+                addition = likelihood.addition(probs, self.n_genotypes)
+                if self.anchor_mask is not None:
+                    addition = addition * self.anchor_mask
+            with tracing.step("em.normalise"):
+                genotype_prob = self._normalise(addition)
 
     def _normalise(self, addition: torch.Tensor) -> torch.Tensor:
         return L.probs_from_betas(self.prior_betas_dev + addition, self.variant2snp, self.n_snps,
                                   self.p_genotype_clip, max_per_snp=self.max_per_snp)
 
+    @tracing.within("registry_addition")
     def registry_addition(self, state: EMState) -> np.ndarray:
         """The state's beta addition on the host, in registry variant order."""
-        t0 = time.perf_counter()
-        addition = state.addition.cpu().numpy()
-        if STAGE_TIMINGS is not None:
-            _stage_mark(STAGE_TIMINGS, "d2h_addition_s", t0)
-            STAGE_TIMINGS["d2h_addition_bytes"] = int(addition.nbytes)
-        return self.reindex.unpermute_rows(addition)
+        return self.reindex.unpermute_rows(_addition_to_host(state.addition))
 
+    @tracing.within("materialize")
     def materialize(self, state: EMState):
         """One device state → (posterior probs df, debug dict) on the host."""
         debug_information = {
@@ -491,6 +510,15 @@ class _EMRun:
             "genotype_addition": self.registry_addition(state),
         }
         return _frame(state.probs.cpu().numpy(), self.barcode_handler, self.column_names), debug_information
+
+
+def _addition_to_host(addition: torch.Tensor) -> np.ndarray:
+    """The addition's device-to-host copy: the ``d2h.addition`` span (``d2h_addition_s``, ``d2h_addition_bytes``)."""
+    with _stage("d2h.addition", "d2h_addition_s") as timings:
+        addition = addition.cpu().numpy()
+    if timings is not None:
+        timings["d2h_addition_bytes"] = int(addition.nbytes)
+    return addition
 
 
 def _frame(values: np.ndarray, barcode_handler: BarcodeHandler, column_names, index_name=None):
@@ -669,6 +697,7 @@ class Demultiplexer:
 
     # -- array cores --------------------------------------------------------
     @staticmethod
+    @tracing.within("learn")
     def learn_genotypes_core(
         chromosome2compressed_snp_calls,
         genotypes: ProbabilisticGenotypes,
@@ -703,18 +732,16 @@ class Demultiplexer:
             n_iterations, p_genotype_clip, doublet_prior, barcode_prior_logits,
             damping=damping,
         )
-        timings = STAGE_TIMINGS
-        t_mark = time.perf_counter()
-        state = None
-        for state in run.device_iterations():
-            pass
-        if state is None:
-            raise ValueError("n_iterations must be >= 1")
-        if timings is not None:
-            _flush_device(state)
-        t_mark = _stage_mark(timings, "device_loop_s", t_mark)
-        learnt_genotypes = genotypes._with_betas(genotypes.get_betas() + run.registry_addition(state))
-        _stage_mark(timings, "materialize_s", t_mark)
+        with _stage("em.loop", "device_loop_s") as timings:
+            state = None
+            for state in run.device_iterations():
+                pass
+            if state is None:
+                raise ValueError("n_iterations must be >= 1")
+            if timings is not None:
+                _flush_device(state)
+        with _stage("materialize", "materialize_s"):
+            learnt_genotypes = genotypes._with_betas(genotypes.get_betas() + run.registry_addition(state))
         return LearnResult(learnt_genotypes, state, run.column_names)
 
     @staticmethod
@@ -728,34 +755,34 @@ class Demultiplexer:
     ) -> Tuple[object, List[str]]:
         """The posterior forward: (logits on the device, or (logits, probs) with ``softmax``; column names)."""
         device = resolve_device(Demultiplexer.device)
-        timings = STAGE_TIMINGS
-        t_mark = time.perf_counter()
-        packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
-        prior_betas = packed.betas_for(genotypes, add_data_prior=False)
-        t_mark = _stage_mark(timings, "pack_s", t_mark)
+        with _stage("predict.prior", "pack_s"):
+            packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
+            prior_betas = packed.betas_for(genotypes, add_data_prior=False)
         n_snps = int(packed.variant2snp.max()) + 1 if packed.n_variants else 0
-        likelihood = _Likelihood(
-            packed, barcode_handler.n_barcodes, genotypes.genotype_names, doublet_prior, device
-        )
-        # logits are invariant to the SNP-sorted renumbering: nothing maps back
-        reindex = packed.reindex
-        betas = _to_device(reindex.permute_rows(prior_betas), device)
-        variant2snp = _to_device(reindex.variant2snp, device)
-        t_mark = _stage_mark(timings, "layout_s", t_mark)
+        with _stage("predict.operands", "layout_s"):
+            likelihood = _Likelihood(
+                packed, barcode_handler.n_barcodes, genotypes.genotype_names, doublet_prior, device
+            )
+        with _stage("predict.uploads", "layout_s") as timings:
+            # logits are invariant to the SNP-sorted renumbering: nothing maps back
+            reindex = packed.reindex
+            betas = _to_device(reindex.permute_rows(prior_betas), device)
+            variant2snp = _to_device(reindex.variant2snp, device)
         if timings is not None:
-            timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _flush_device(
-                [betas, variant2snp, *likelihood.tensors()])
-            t_mark = _stage_mark(timings, "upload_flush_s", t_mark)
-        genotype_prob = L.probs_from_betas(
-            betas, variant2snp, n_snps, p_genotype_clip, max_per_snp=reindex.windowed_max_per_snp,
-        )
-        out = likelihood.posteriors(genotype_prob) if softmax else likelihood.logits(genotype_prob)
-        if timings is not None:
-            _flush_device(out if softmax else [out])
-        _stage_mark(timings, "forward_s", t_mark)
+            with _stage("predict.flush", "upload_flush_s"):
+                timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _flush_device(
+                    [betas, variant2snp, *likelihood.tensors()])
+        with _stage("predict.forward", "forward_s"):
+            genotype_prob = L.probs_from_betas(
+                betas, variant2snp, n_snps, p_genotype_clip, max_per_snp=reindex.windowed_max_per_snp,
+            )
+            out = likelihood.posteriors(genotype_prob) if softmax else likelihood.logits(genotype_prob)
+            if timings is not None:
+                _flush_device(out if softmax else [out])
         return out, likelihood.column_names
 
     @staticmethod
+    @tracing.within("predict")
     def predict_posteriors_core(
         chromosome2compressed_snp_calls,
         genotypes: ProbabilisticGenotypes,
@@ -772,6 +799,7 @@ class Demultiplexer:
 
     # -- public API ---------------------------------------------------------
     @staticmethod
+    @tracing.within("learn")
     def learn_genotypes(
         chromosome2compressed_snp_calls,
         genotypes: ProbabilisticGenotypes,
@@ -807,9 +835,8 @@ class Demultiplexer:
             chromosome2compressed_snp_calls, genotypes, barcode_handler, n_iterations,
             p_genotype_clip, doublet_prior, barcode_prior_logits, damping,
         )
-        t_mark = time.perf_counter()
-        probs = _frame(result.state.probs.cpu().numpy(), barcode_handler, result.column_names)
-        _stage_mark(STAGE_TIMINGS, "materialize_s", t_mark)
+        with _stage("materialize", "materialize_s"):
+            probs = _frame(result.state.probs.cpu().numpy(), barcode_handler, result.column_names)
         if damping == "auto":
             probs.attrs["damping_selected"] = result.damping_selected
             probs.attrs["anchored_disagreement"] = result.anchored_disagreement
@@ -842,6 +869,7 @@ class Demultiplexer:
             yield run.materialize(state)
 
     @staticmethod
+    @tracing.within("predict")
     def predict_posteriors(
         chromosome2compressed_snp_calls,
         genotypes: ProbabilisticGenotypes,
@@ -858,21 +886,19 @@ class Demultiplexer:
             chromosome2compressed_snp_calls, genotypes, barcode_handler,
             p_genotype_clip, doublet_prior,
         )
-        timings = STAGE_TIMINGS
-        t_mark = time.perf_counter()
-        logits = logits.cpu().numpy()
-        if timings is not None:
-            _stage_mark(timings, "d2h_logits_s", t_mark)
-            timings["d2h_logits_bytes"] = int(logits.nbytes)
-        probs = probs.cpu().numpy()
-        frames = (
-            _frame(logits, barcode_handler, column_names, index_name="BARCODE"),
-            _frame(probs, barcode_handler, column_names, index_name="BARCODE"),
-        )
-        _stage_mark(timings, "materialize_s", t_mark)
-        return frames
+        with _stage("materialize", "materialize_s"):
+            with _stage("d2h.logits", "d2h_logits_s") as timings:
+                logits = logits.cpu().numpy()
+            if timings is not None:
+                timings["d2h_logits_bytes"] = int(logits.nbytes)
+            probs = probs.cpu().numpy()
+            return (
+                _frame(logits, barcode_handler, column_names, index_name="BARCODE"),
+                _frame(probs, barcode_handler, column_names, index_name="BARCODE"),
+            )
 
     @staticmethod
+    @tracing.within("predict")
     def predict_posteriors_compact(
         chromosome2compressed_snp_calls,
         genotypes: ProbabilisticGenotypes,
@@ -897,17 +923,17 @@ class Demultiplexer:
         logits, column_names = Demultiplexer._predict_logits(
             chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip, doublet_prior,
         )
-        top_logits, top_index, logsumexp = compact_topk(logits, k)
+        with tracing.span("compact_topk"):
+            top_logits, top_index, logsumexp = compact_topk(logits, k)
         logits_bf16 = logits.to(torch.bfloat16) if include_logits else None
-        t_mark = time.perf_counter()
-        top_logits, top_index, logsumexp = (t.cpu().numpy() for t in (top_logits, top_index, logsumexp))
-        logits_bf16 = logits_bf16.cpu() if include_logits else None
-        bytes_moved = top_logits.nbytes + top_index.nbytes + logsumexp.nbytes + (
-            logits_bf16.numel() * logits_bf16.element_size() if logits_bf16 is not None else 0
-        )
-        if STAGE_TIMINGS is not None:
-            _stage_mark(STAGE_TIMINGS, "materialize_s", t_mark)
-            STAGE_TIMINGS["d2h_compact_bytes"] = int(bytes_moved)
+        with _stage("materialize", "materialize_s") as timings:
+            top_logits, top_index, logsumexp = (t.cpu().numpy() for t in (top_logits, top_index, logsumexp))
+            logits_bf16 = logits_bf16.cpu() if include_logits else None
+            bytes_moved = top_logits.nbytes + top_index.nbytes + logsumexp.nbytes + (
+                logits_bf16.numel() * logits_bf16.element_size() if logits_bf16 is not None else 0
+            )
+        if timings is not None:
+            timings["d2h_compact_bytes"] = int(bytes_moved)
         return CompactPosteriors(
             column_names=list(column_names),
             barcodes=list(barcode_handler.ordered_barcodes),

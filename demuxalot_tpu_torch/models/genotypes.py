@@ -30,6 +30,7 @@ from warnings import warn
 import numpy as np
 
 from ..native.hostops import stable_argsort
+from ..utils import tracing
 
 if TYPE_CHECKING:
     import pandas as pd
@@ -460,6 +461,7 @@ class ProbabilisticGenotypes:
     def clone(self) -> "ProbabilisticGenotypes":
         return deepcopy(self)
 
+    @tracing.within("_with_betas")
     def _with_betas(self, external_betas: np.ndarray) -> "ProbabilisticGenotypes":
         """Clone carrying replacement beta weights (exact-size rows)."""
         assert external_betas.shape == (self.n_variants, self.n_genotypes)

@@ -14,6 +14,9 @@ CUDA kernels.
 * the host ops (``-pthread``): radix argsort, hash joins and the fused
   collapse/sort passes of the packing layer (:mod:`.hostops`).
 
+:func:`load_host_library` is the ``load.hostops`` span of
+``utils.tracing``, and each build adds one to its ``builds`` counter.
+
 A failed build raises; the callers decide whether that is fatal (the
 ``native=True`` and ``chip_smoke.py`` paths) or means the numpy/Python path
 (``native=None``, the host ops), as in the JAX package.
@@ -28,6 +31,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict
+
+from ..utils import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = Path(__file__).resolve().parent
@@ -109,6 +114,7 @@ def build(source: Path, extra: tuple) -> Path:
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tracing.count("builds")
     # build beside the target and rename: concurrent builders never load a
     # half-written library
     fd, partial = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -139,7 +145,8 @@ def _load(name: str, extra: tuple, signatures: dict) -> ctypes.CDLL:
 
 def load_host_library() -> ctypes.CDLL:
     """Build (if needed) and load the host-ops library (sort/join)."""
-    return _load("hostops", ("-pthread",), HOST_SIGNATURES)
+    with tracing.span("load.hostops"):
+        return _load("hostops", ("-pthread",), HOST_SIGNATURES)
 
 
 def load_library() -> ctypes.CDLL:

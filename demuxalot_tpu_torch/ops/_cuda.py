@@ -7,7 +7,9 @@ into ``demuxalot_tpu_torch/_build/``, under a file name keyed by a hash of
 the sources, their shared headers (``csrc/*.cuh``) and the flags. The
 library has a plain C interface and is loaded with ``ctypes``;
 :class:`Entry` is the light launch path over it. A missing ``nvcc`` or a
-failed build raises: there is no fallback.
+failed build raises: there is no fallback. :func:`library` is the
+``load.kernels`` span of ``utils.tracing`` (the sources' hash, any build,
+the load), and a build adds one to its ``builds`` counter.
 
 Nothing here runs at import time, so the package loads where there is no
 CUDA toolchain.
@@ -20,12 +22,13 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..utils import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -148,7 +151,6 @@ _SIGNATURES = {
 @dataclass(frozen=True)
 class BuildResult:
     path: Path
-    seconds: float  # 0.0 when the library was already built
     log: str  # nvcc's output (ptxas resource usage), empty when cached
 
 
@@ -194,11 +196,11 @@ def build() -> BuildResult:
         return _build
     target = library_path()
     if target.exists():
-        _build = BuildResult(target, 0.0, "")
+        _build = BuildResult(target, "")
         return _build
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    start = time.perf_counter()
+    tracing.count("builds")
     # objects and the library are built in a scratch directory beside the
     # target and renamed: concurrent builds never load a half-written library
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as scratch:
@@ -217,7 +219,7 @@ def build() -> BuildResult:
         if linked.returncode != 0:
             raise RuntimeError(f"nvcc failed ({linked.returncode}):\n{' '.join(link)}\n{linked.stdout}{linked.stderr}")
         os.replace(partial, target)
-    _build = BuildResult(target, time.perf_counter() - start, "".join(logs) + linked.stdout + linked.stderr)
+    _build = BuildResult(target, "".join(logs) + linked.stdout + linked.stderr)
     return _build
 
 
@@ -225,11 +227,12 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first call)."""
     global _library
     if _library is None:
-        lib = ctypes.CDLL(str(build().path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+        with tracing.span("load.kernels"):
+            lib = ctypes.CDLL(str(build().path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
         _library = lib
     return _library
 

@@ -24,7 +24,8 @@ prior and device, and checks the indices on a card then. :func:`aggregated_logit
 launches the kernel for CUDA tensors and runs :func:`aggregated_logits_plain`
 (``ops.likelihood.snp_aggregated_logits``, the prior, ``torch.softmax``) for
 CPU tensors; anything else raises. ``aggregated_logits.launches`` counts
-launches.
+launches, and ``.host_ns`` and ``.host_calls`` its host time
+(``utils.tracing.timed_op``).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import _cuda
 from . import likelihood as L
 from .likelihood_kernel import _check
@@ -174,6 +176,7 @@ def aggregated_logits_plain(genotype_prob: torch.Tensor, operands: AggregateOper
     return (logits, torch.softmax(logits, dim=-1)) if softmax else logits
 
 
+@tracing.timed_op
 def aggregated_logits(genotype_prob: torch.Tensor, operands: AggregateOperands, *,
                       prior_logits: Optional[torch.Tensor] = None, softmax: bool = False):
     """Aggregated logits f32 [B, PG] from genotype_prob f32 [V, D], plus ``prior_logits`` [B, PG] where given.

@@ -18,7 +18,8 @@ source for the details.
 :func:`estep_logits` launches the kernel for CUDA tensors and runs
 :func:`estep_logits_plain` (``ops.likelihood.barcode_logits``, the prior,
 ``torch.softmax``) for CPU tensors; anything else raises.
-``estep_logits.launches`` counts launches.
+``estep_logits.launches`` counts launches, and ``.host_ns`` and
+``.host_calls`` its host time (``utils.tracing.timed_op``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import _cuda
 from . import likelihood as L
 
@@ -161,6 +163,7 @@ _OPERAND_TYPES = {
 }
 
 
+@tracing.timed_op
 def estep_logits(genotype_prob: torch.Tensor, operands: EStepOperands, *,
                  prior_logits: Optional[torch.Tensor] = None, softmax: bool = False):
     """Barcode logits f32 [B, PG] from genotype_prob f32 [V, D], plus ``prior_logits`` [B, PG] where given.

@@ -28,7 +28,8 @@ posterior row count they were checked against; the launches check nothing
 on the device. Each wrapper launches its kernel for CUDA tensors and runs
 its plain version (:func:`mstep_addition_plain`, :func:`mstep_update_plain`)
 for CPU tensors; anything else raises. ``mstep_addition.launches`` and
-``mstep_update.launches`` count launches.
+``mstep_update.launches`` count launches, and ``.host_ns`` and
+``.host_calls`` their host time (``utils.tracing.timed_op``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import _cuda
 from .likelihood import DENOMINATOR_FLOOR, genotype_addition_from_posteriors, probs_from_betas
 from .likelihood_kernel import _check
@@ -136,6 +138,7 @@ def mstep_addition_plain(posterior, operands: MStepOperands, n_genotypes: int, p
     return genotype_addition_from_posteriors(posterior, o.vid, o.cb, o.q, o.n_variants, n_genotypes, power)
 
 
+@tracing.timed_op
 def mstep_addition(
     posterior: torch.Tensor,  # f32 [B, PG]
     operands: MStepOperands,
@@ -179,6 +182,7 @@ def mstep_update_plain(posterior, operands: MStepOperands, prior_betas: torch.Te
     return addition, genotype_prob
 
 
+@tracing.timed_op
 def mstep_update(
     posterior: torch.Tensor,  # f32 [B, PG]
     operands: MStepOperands,

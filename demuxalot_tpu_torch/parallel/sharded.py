@@ -32,11 +32,12 @@ of a :class:`~..models.demux.PackedCalls` or :class:`ColumnDataset`), so a
 predict after a learn on one dataset lays out nothing again. Several
 processes each hold only their own shards' calls on their devices; they
 check that they see the same dataset dimensions, and results come back
-through :func:`~.mesh.to_host`.
+through :func:`~.mesh.to_host`. The stages are the single-device engine's
+spans of ``utils.tracing``, under the same names, and feed
+``models.demux.STAGE_TIMINGS`` the same keys.
 """
 from __future__ import annotations
 
-import time
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -49,6 +50,7 @@ from ..ops import likelihood as L
 from ..ops.likelihood_kernel import estep_logits, estep_operands
 from ..ops.mstep_kernel import mstep_addition, mstep_operands
 from ..ops.packing import CallColumns, csr_row_pointers
+from ..utils import tracing
 from .mesh import Mesh, allreduce_max_dims, local_shard_ids, make_mesh, to_host
 
 
@@ -183,38 +185,38 @@ class ShardedDemultiplexer:
         """Predict logits of this process's shards (padded rows included), or (logits, probs) per shard
         with ``softmax``, and column names."""
         _refuse_aggregate()
-        timings = _dm.STAGE_TIMINGS
-        t_mark = time.perf_counter()
-        packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
-        prior_betas = packed.betas_for(genotypes, add_data_prior=False)
-        t_mark = _dm._stage_mark(timings, "pack_s", t_mark)
-        n_barcodes, n_variants, n_donors = barcode_handler.n_barcodes, packed.n_variants, genotypes.n_genotypes
-        self._agree_on(n_barcodes=n_barcodes, n_variants=n_variants, n_donors=n_donors)
-        shards, _ = self._shard_layouts(packed, n_barcodes, n_donors, n_variants, build_mstep=False)
-        operands = [estep_operands(n_donors, doublet_prior, s.row_ptr, s.cb, s.vid, s.q) for s in shards]
-        # logits are invariant to the SNP-sorted renumbering: nothing maps back
-        reindex = packed.reindex
-        betas = self._replicate(reindex.permute_rows(prior_betas))
-        variant2snp = self._replicate(reindex.variant2snp)
-        t_mark = _dm._stage_mark(timings, "layout_s", t_mark)
+        with _dm._stage("predict.prior", "pack_s"):
+            packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
+            prior_betas = packed.betas_for(genotypes, add_data_prior=False)
+        with _dm._stage("predict.operands", "layout_s"):
+            n_barcodes, n_variants, n_donors = barcode_handler.n_barcodes, packed.n_variants, genotypes.n_genotypes
+            self._agree_on(n_barcodes=n_barcodes, n_variants=n_variants, n_donors=n_donors)
+            shards, _ = self._shard_layouts(packed, n_barcodes, n_donors, n_variants, build_mstep=False)
+            operands = [estep_operands(n_donors, doublet_prior, s.row_ptr, s.cb, s.vid, s.q) for s in shards]
+        with _dm._stage("predict.uploads", "layout_s") as timings:
+            # logits are invariant to the SNP-sorted renumbering: nothing maps back
+            reindex = packed.reindex
+            betas = self._replicate(reindex.permute_rows(prior_betas))
+            variant2snp = self._replicate(reindex.variant2snp)
         if timings is not None:
-            timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _dm._flush_device([
-                *betas.values(), *variant2snp.values(), *(t for s in shards for t in s[1:]),
-                *(t for o in operands for t in o[:3])])
-            t_mark = _dm._stage_mark(timings, "upload_flush_s", t_mark)
+            with _dm._stage("predict.flush", "upload_flush_s"):
+                timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _dm._flush_device([
+                    *betas.values(), *variant2snp.values(), *(t for s in shards for t in s[1:]),
+                    *(t for o in operands for t in o[:3])])
         n_snps = int(packed.variant2snp.max()) + 1 if n_variants else 0
-        genotype_prob = {
-            device: L.probs_from_betas(betas[device], variant2snp[device], n_snps, p_genotype_clip,
-                                       max_per_snp=reindex.windowed_max_per_snp)
-            for device in betas
-        }
-        out = [estep_logits(genotype_prob[s.device], o, softmax=softmax) for s, o in zip(shards, operands)]
-        if timings is not None:
-            _dm._flush_device([t for block in out for t in (block if softmax else [block])])
-        _dm._stage_mark(timings, "forward_s", t_mark)
+        with _dm._stage("predict.forward", "forward_s"):
+            genotype_prob = {
+                device: L.probs_from_betas(betas[device], variant2snp[device], n_snps, p_genotype_clip,
+                                           max_per_snp=reindex.windowed_max_per_snp)
+                for device in betas
+            }
+            out = [estep_logits(genotype_prob[s.device], o, softmax=softmax) for s, o in zip(shards, operands)]
+            if timings is not None:
+                _dm._flush_device([t for block in out for t in (block if softmax else [block])])
         return out, L.pseudogenotype_names(genotypes.genotype_names, doublet_prior)
 
     # -- public API ----------------------------------------------------------
+    @tracing.within("predict")
     def predict_posteriors(self, chromosome2compressed_snp_calls, genotypes, barcode_handler,
                            p_genotype_clip: float = 0.01, doublet_prior: float = 0.35):
         """(logits_df, probs_df) as ``Demultiplexer.predict_posteriors`` gives them."""
@@ -222,21 +224,19 @@ class ShardedDemultiplexer:
             chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip, doublet_prior,
             softmax=True)
         logits, probs = [block[0] for block in blocks], [block[1] for block in blocks]
-        timings = _dm.STAGE_TIMINGS
         n_barcodes = barcode_handler.n_barcodes
-        t_mark = time.perf_counter()
-        logits = to_host(logits, self.mesh)
-        if timings is not None:
-            _dm._stage_mark(timings, "d2h_logits_s", t_mark)
-            timings["d2h_logits_bytes"] = int(logits.numel() * logits.element_size())
-        probs = to_host(probs, self.mesh)
-        frames = (
-            _dm._frame(logits[:n_barcodes].numpy(), barcode_handler, column_names, index_name="BARCODE"),
-            _dm._frame(probs[:n_barcodes].numpy(), barcode_handler, column_names, index_name="BARCODE"),
-        )
-        _dm._stage_mark(timings, "materialize_s", t_mark)
-        return frames
+        with _dm._stage("materialize", "materialize_s"):
+            with _dm._stage("d2h.logits", "d2h_logits_s") as timings:
+                logits = to_host(logits, self.mesh)
+            if timings is not None:
+                timings["d2h_logits_bytes"] = int(logits.numel() * logits.element_size())
+            probs = to_host(probs, self.mesh)
+            return (
+                _dm._frame(logits[:n_barcodes].numpy(), barcode_handler, column_names, index_name="BARCODE"),
+                _dm._frame(probs[:n_barcodes].numpy(), barcode_handler, column_names, index_name="BARCODE"),
+            )
 
+    @tracing.within("predict")
     def predict_posteriors_compact(self, chromosome2compressed_snp_calls, genotypes, barcode_handler,
                                    p_genotype_clip: float = 0.01, doublet_prior: float = 0.35, k: int = 4,
                                    include_logits: bool = False) -> CompactPosteriors:
@@ -249,16 +249,16 @@ class ShardedDemultiplexer:
         k = _dm._validate_topk(k, n_columns)
         logits, column_names = self._forward(
             chromosome2compressed_snp_calls, genotypes, barcode_handler, p_genotype_clip, doublet_prior)
-        top = [compact_topk(block, k) for block in logits]
-        t_mark = time.perf_counter()
-        # padded rows included: bytes_moved counts what crossed
-        top_logits, top_index, logsumexp = (to_host([t[i] for t in top], self.mesh) for i in range(3))
-        logits_bf16 = to_host([b.to(torch.bfloat16) for b in logits], self.mesh) if include_logits else None
-        bytes_moved = sum(t.numel() * t.element_size()
-                          for t in (top_logits, top_index, logsumexp, logits_bf16) if t is not None)
-        if _dm.STAGE_TIMINGS is not None:
-            _dm._stage_mark(_dm.STAGE_TIMINGS, "materialize_s", t_mark)
-            _dm.STAGE_TIMINGS["d2h_compact_bytes"] = int(bytes_moved)
+        with tracing.span("compact_topk"):
+            top = [compact_topk(block, k) for block in logits]
+        with _dm._stage("materialize", "materialize_s") as timings:
+            # padded rows included: bytes_moved counts what crossed
+            top_logits, top_index, logsumexp = (to_host([t[i] for t in top], self.mesh) for i in range(3))
+            logits_bf16 = to_host([b.to(torch.bfloat16) for b in logits], self.mesh) if include_logits else None
+            bytes_moved = sum(t.numel() * t.element_size()
+                              for t in (top_logits, top_index, logsumexp, logits_bf16) if t is not None)
+        if timings is not None:
+            timings["d2h_compact_bytes"] = int(bytes_moved)
         n = barcode_handler.n_barcodes
         return CompactPosteriors(
             column_names=list(column_names),
@@ -288,21 +288,20 @@ class ShardedDemultiplexer:
         """(learnt genotypes, last EM posteriors f32 [B, PG] on the CPU, column names)."""
         run = _ShardedEM(self, chromosome2compressed_snp_calls, genotypes, barcode_handler, n_iterations,
                          p_genotype_clip, doublet_prior, barcode_prior_logits, damping)
-        timings = _dm.STAGE_TIMINGS
-        t_mark = time.perf_counter()
-        state = None
-        for state in run.device_iterations():
-            pass
-        if state is None:
-            raise ValueError("n_iterations must be >= 1")
-        if timings is not None:
-            _dm._flush_device([*state.probs, state.addition])
-        t_mark = _dm._stage_mark(timings, "device_loop_s", t_mark)
-        learnt = genotypes._with_betas(genotypes.get_betas() + run.registry_addition(state))
-        probs = to_host(state.probs, self.mesh)[: barcode_handler.n_barcodes]
-        _dm._stage_mark(timings, "materialize_s", t_mark)
+        with _dm._stage("em.loop", "device_loop_s") as timings:
+            state = None
+            for state in run.device_iterations():
+                pass
+            if state is None:
+                raise ValueError("n_iterations must be >= 1")
+            if timings is not None:
+                _dm._flush_device([*state.probs, state.addition])
+        with _dm._stage("materialize", "materialize_s"):
+            learnt = genotypes._with_betas(genotypes.get_betas() + run.registry_addition(state))
+            probs = to_host(state.probs, self.mesh)[: barcode_handler.n_barcodes]
         return learnt, probs, run.column_names
 
+    @tracing.within("learn")
     def learn_genotypes(self, chromosome2compressed_snp_calls, genotypes, barcode_handler, n_iterations: int = 5,
                         p_genotype_clip: float = 0.01, doublet_prior: float = 0.0,
                         barcode_prior_logits: Optional[np.ndarray] = None, damping: Optional[str] = None):
@@ -334,6 +333,7 @@ class ShardedDemultiplexer:
 class _ShardedEM:
     """Device state of one sharded EM run (the counterpart of ``models.demux._EMRun``)."""
 
+    @tracing.within("em.setup")
     def __init__(self, engine: ShardedDemultiplexer, chromosome2compressed_snp_calls, genotypes, barcode_handler,
                  n_iterations: int, p_genotype_clip: float, doublet_prior: float,
                  barcode_prior_logits: Optional[np.ndarray], damping: Optional[str]):
@@ -347,11 +347,9 @@ class _ShardedEM:
         _refuse_aggregate()
         self.engine = engine
         mesh = engine.mesh
-        timings = _dm.STAGE_TIMINGS
-        t_mark = time.perf_counter()
-        packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
-        self.prior_betas = packed.betas_for(genotypes, add_data_prior=True)
-        t_mark = _dm._stage_mark(timings, "pack_s", t_mark)
+        with _dm._stage("em.prior", "pack_s"):
+            packed = ensure_packed(chromosome2compressed_snp_calls, genotypes)
+            self.prior_betas = packed.betas_for(genotypes, add_data_prior=True)
         self.barcode_handler = barcode_handler
         self.n_iterations = n_iterations
         self.p_genotype_clip = p_genotype_clip
@@ -359,36 +357,37 @@ class _ShardedEM:
         self.n_snps = int(packed.variant2snp.max()) + 1 if self.n_variants else 0
         self.reindex = packed.reindex
         n_barcodes = barcode_handler.n_barcodes
-        engine._agree_on(n_barcodes=n_barcodes, n_variants=self.n_variants, n_donors=self.n_genotypes)
-        self.shards, self.mstep = engine._shard_layouts(packed, n_barcodes, self.n_genotypes, self.n_variants,
-                                                        build_mstep=True)
-        self.estep = [estep_operands(self.n_genotypes, doublet_prior, s.row_ptr, s.cb, s.vid, s.q)
-                      for s in self.shards]
+        with _dm._stage("em.operands", "layout_s"):
+            engine._agree_on(n_barcodes=n_barcodes, n_variants=self.n_variants, n_donors=self.n_genotypes)
+            self.shards, self.mstep = engine._shard_layouts(packed, n_barcodes, self.n_genotypes, self.n_variants,
+                                                            build_mstep=True)
+            self.estep = [estep_operands(self.n_genotypes, doublet_prior, s.row_ptr, s.cb, s.vid, s.q)
+                          for s in self.shards]
         self.column_names = L.pseudogenotype_names(genotypes.genotype_names, doublet_prior)
         self.devices = engine._devices()
-        self.prior_betas_dev = engine._replicate(self.reindex.permute_rows(self.prior_betas))
-        self.variant2snp = engine._replicate(self.reindex.variant2snp)
-        # damping="anchor": additions only at variants whose GENOTYPE prior
-        # carries information (nonzero betas before the data prior)
-        self.anchor_mask = None
-        if damping == "anchor":
-            registry_mask = (np.asarray(genotypes.get_betas()).sum(axis=1) > 0).astype(np.float32)
-            self.anchor_mask = _dm._to_device(registry_mask[self.reindex.order][:, None], self.devices[0])
-        self.prior_logits = None
-        if barcode_prior_logits is not None:
-            assert barcode_prior_logits.shape == (n_barcodes, len(self.column_names)), "wrong shape of priors"
-            per_shard = engine._barcodes_per_shard(n_barcodes)
-            padded = np.zeros((engine.n_shards * per_shard, len(self.column_names)), dtype=np.float32)
-            padded[:n_barcodes] = barcode_prior_logits
-            self.prior_logits = [_dm._to_device(padded[shard * per_shard:(shard + 1) * per_shard], device)
-                                 for shard, device in zip(local_shard_ids(mesh), mesh.devices)]
-        t_mark = _dm._stage_mark(timings, "layout_s", t_mark)
+        with _dm._stage("em.uploads", "layout_s") as timings:
+            self.prior_betas_dev = engine._replicate(self.reindex.permute_rows(self.prior_betas))
+            self.variant2snp = engine._replicate(self.reindex.variant2snp)
+            # damping="anchor": additions only at variants whose GENOTYPE prior
+            # carries information (nonzero betas before the data prior)
+            self.anchor_mask = None
+            if damping == "anchor":
+                registry_mask = (np.asarray(genotypes.get_betas()).sum(axis=1) > 0).astype(np.float32)
+                self.anchor_mask = _dm._to_device(registry_mask[self.reindex.order][:, None], self.devices[0])
+            self.prior_logits = None
+            if barcode_prior_logits is not None:
+                assert barcode_prior_logits.shape == (n_barcodes, len(self.column_names)), "wrong shape of priors"
+                per_shard = engine._barcodes_per_shard(n_barcodes)
+                padded = np.zeros((engine.n_shards * per_shard, len(self.column_names)), dtype=np.float32)
+                padded[:n_barcodes] = barcode_prior_logits
+                self.prior_logits = [_dm._to_device(padded[shard * per_shard:(shard + 1) * per_shard], device)
+                                     for shard, device in zip(local_shard_ids(mesh), mesh.devices)]
         if timings is not None:
-            timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _dm._flush_device([
-                *self.prior_betas_dev.values(), *self.variant2snp.values(), self.anchor_mask,
-                *(self.prior_logits or ()), *(t for s in self.shards for t in s[1:]),
-                *(t for o in self.mstep for t in o.tensors()), *(t for o in self.estep for t in o[:3])])
-            _dm._stage_mark(timings, "upload_flush_s", t_mark)
+            with _dm._stage("em.flush", "upload_flush_s"):
+                timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + _dm._flush_device([
+                    *self.prior_betas_dev.values(), *self.variant2snp.values(), self.anchor_mask,
+                    *(self.prior_logits or ()), *(t for s in self.shards for t in s[1:]),
+                    *(t for o in self.mstep for t in o.tensors()), *(t for o in self.estep for t in o[:3])])
 
     def _reduce(self, partials: List[torch.Tensor]) -> dict:
         """Sum of every shard's M-step partial, anchor-masked, on each shard device."""
@@ -407,33 +406,33 @@ class _ShardedEM:
         addition = {device: torch.zeros_like(betas) for device, betas in self.prior_betas_dev.items()}
         power = float(self.engine.contribution_power)
         for iteration in range(self.n_iterations):
-            genotype_prob = {
-                device: L.probs_from_betas(self.prior_betas_dev[device] + addition[device], self.variant2snp[device],
-                                           self.n_snps, self.p_genotype_clip,
-                                           max_per_snp=self.reindex.windowed_max_per_snp)
-                for device in self.devices
-            }
+            with tracing.step("em.normalise"):
+                genotype_prob = {
+                    device: L.probs_from_betas(self.prior_betas_dev[device] + addition[device],
+                                               self.variant2snp[device], self.n_snps, self.p_genotype_clip,
+                                               max_per_snp=self.reindex.windowed_max_per_snp)
+                    for device in self.devices
+                }
             priors = [None] * len(self.shards)
             if iteration == 0 and self.prior_logits is not None:
                 priors = self.prior_logits
-            blocks = [estep_logits(genotype_prob[s.device], o, prior_logits=prior, softmax=True)
-                      for s, o, prior in zip(self.shards, self.estep, priors)]
+            with tracing.step("em.estep"):
+                blocks = [estep_logits(genotype_prob[s.device], o, prior_logits=prior, softmax=True)
+                          for s, o, prior in zip(self.shards, self.estep, priors)]
             logits, probs = [block[0] for block in blocks], [block[1] for block in blocks]
             yield _ShardedState(probs, logits, addition[self.devices[0]])
             if iteration == self.n_iterations - 1:
                 break
-            addition = self._reduce([mstep_addition(p, o, self.n_genotypes, power)
-                                     for p, o in zip(probs, self.mstep)])
+            with tracing.step("em.mstep"):
+                addition = self._reduce([mstep_addition(p, o, self.n_genotypes, power)
+                                         for p, o in zip(probs, self.mstep)])
 
+    @tracing.within("registry_addition")
     def registry_addition(self, state: _ShardedState) -> np.ndarray:
         """The state's beta addition on the host, in registry variant order."""
-        t0 = time.perf_counter()
-        addition = state.addition.cpu().numpy()
-        if _dm.STAGE_TIMINGS is not None:
-            _dm._stage_mark(_dm.STAGE_TIMINGS, "d2h_addition_s", t0)
-            _dm.STAGE_TIMINGS["d2h_addition_bytes"] = int(addition.nbytes)
-        return self.reindex.unpermute_rows(addition)
+        return self.reindex.unpermute_rows(_dm._addition_to_host(state.addition))
 
+    @tracing.within("materialize")
     def materialize(self, state: _ShardedState):
         """One state → (posterior probs df, debug dict) on the host, every process alike."""
         n_barcodes = self.barcode_handler.n_barcodes

@@ -10,6 +10,7 @@ engine-level tests (compact output, damping="auto") run the same call
 through the kernels and through the plain versions.
 """
 import contextlib
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -424,6 +425,44 @@ def test_gpu_aggregate_em_matches_plain(engine_problem, monkeypatch):
     cpu = learn()
     np.testing.assert_allclose(result.state.probs.cpu().numpy(), cpu.state.probs.numpy(), atol=3e-5)
     assert bool((result.state.probs.sum(dim=1) - 1).abs().max() <= 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggregate", [False, True])
+def test_gpu_em_launches_lie_inside_the_iteration_spans(engine_problem, monkeypatch, tmp_path, aggregate):
+    """Under ``device_trace`` every E-step and M-step kernel of a learn is launched inside its iteration span.
+
+    A kernel event and its runtime call share the trace's correlation id; the
+    call must lie within an ``em.estep`` span (E-step kernels) or an
+    ``em.mstep`` span (M-step kernels) of the same thread.
+    """
+    _need_card()
+    from demuxalot_tpu_torch.utils import device_trace
+
+    packed, genotypes, handler = engine_problem
+    monkeypatch.setattr(Demultiplexer, "aggregate_on_snps", aggregate)
+    learn = lambda: Demultiplexer.learn_genotypes_core(packed, genotypes, handler, n_iterations=3, doublet_prior=0.35)
+    untraced = learn()
+    with device_trace(str(tmp_path)):
+        traced = learn()
+        torch.cuda.synchronize()
+    assert torch.equal(traced.state.probs, untraced.state.probs)
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = [(e["name"], e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] in ("em.estep", "em.mstep")]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    kernels = {"em.estep": ("aggregate_kernel" if aggregate else "estep_kernel"), "em.mstep": "mstep_kernel"}
+    launched = {span: 0 for span in kernels}
+    for e in events:
+        for span, kernel in kernels.items():
+            if e.get("cat") == "kernel" and kernel in e["name"]:
+                call = calls[e["args"]["correlation"]]
+                begin, finish = call["ts"], call["ts"] + call["dur"]
+                assert any(name == span and tid == call["tid"] and start <= begin <= finish <= end
+                           for name, tid, start, end in spans), (e["name"], call["name"])
+                launched[span] += 1
+    assert launched == {"em.estep": 3, "em.mstep": 2}
 
 
 @pytest.mark.gpu

@@ -52,6 +52,7 @@ MODULES = [
     "demuxalot_tpu_torch.utils.profiling",
     "demuxalot_tpu_torch.utils.summary",
     "demuxalot_tpu_torch.utils.timing",
+    "demuxalot_tpu_torch.utils.tracing",
 ]
 
 
