@@ -24,7 +24,8 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    staged tiles of calls (also against ``tests/oracle.py``, float64
    accumulation), both M-step entry points (``mstep_addition``,
    ``mstep_update``) at SNP runs of 1, 2 and 6 variants (7: addition
-   only), p = 1, 2 and 0.5, with and without an anchor mask, against their
+   only; and beside variants of C − 1 to 100,000 calls, which the plan
+   splits into chunks), p = 1, 2 and 0.5, with and without an anchor mask, against their
    plain versions and bit for bit against the in-order reference
    (``tests/torch_problems.py``) and ``probs_from_betas``, and the oracle
    at a small shape;
@@ -48,7 +49,9 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    after both M-step entry points are held bit for bit to the in-order
    reference and ``probs_from_betas`` on the main path's inputs (with and
    without a mask); both M-step kernels at 1, 2, 4, 8 and 16 row reads in
-   flight, in turns; ``torch.softmax`` alone on the bench logits (the
+   flight, in turns; the same M-step checks and times on a second pool in
+   the bench cells' shape (``SKEWED``, drawn from ``--seed``), whose work
+   plan has chunk units where the flat pool has none; ``torch.softmax`` alone on the bench logits (the
    epilogue's library call), and the fused E-step with its log fold through
    ``logf`` against the default MUFU log2, in turns; then what the recorder
    costs: the host µs an EM iteration takes to issue (100 a window, no
@@ -293,6 +296,10 @@ if "--steps-ms" in sys.argv[1:-1]:  # a child of --parent imports the package un
     sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--steps-ms") + 1]).resolve()))
 
 BENCH = dict(n_barcodes=65_536, n_donors=32, n_snps=65_536, calls_per_barcode=64)
+# phase 5's second pool: BENCH's sizes in the bench cells' shape (bench_h100/configs/pbmc32_65k.json): calls a
+# barcode log-normal at log-scale 0.2, the SNP of rank r drawing 1 / r of the calls, the most expressed SNPs every
+# 64th position
+SKEWED = dict(calls_per_barcode_sigma=0.2, snp_zipf=1.0, snp_rank_stride=64)
 DOUBLET_PRIOR = 0.35
 N_ITERATIONS = 5
 # tolerances: logits as the JAX tests hold the Pallas kernel to the oracle;
@@ -732,17 +739,19 @@ def phase_kernels() -> None:
 
 def phase_mstep_update_kernel() -> None:
     """Both M-step kernels at the card tests' shapes: SNP runs of 1, 2 and 6 variants (7: addition only),
-    p = 1, 2 and 0.5, with and without an anchor mask. Against the plain versions at the addition bar and
-    1e-6, and bit for bit: the addition against the in-order reference, ``genotype_prob`` against
-    ``probs_from_betas`` on the kernel's own addition."""
+    and runs of 1, 2 and 6 beside variants of C − 1 to 100,000 calls (``update_problem(heavy=True)``: chunk
+    units), p = 1, 2 and 0.5, with and without an anchor mask. Against the plain versions at the addition bar
+    and 1e-6, and bit for bit: the addition against the in-order reference (chunked past C calls),
+    ``genotype_prob`` against ``probs_from_betas`` on the kernel's own addition."""
     from demuxalot_tpu_torch.ops import likelihood as L
     from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_update, mstep_update_plain
-    from torch_problems import in_order_addition, mstep_operands, t, update_problem
+    from torch_problems import float64_update, in_order_addition, mstep_operands, t, update_problem
 
     cuda = torch.device("cuda")
     for n_donors in (1, 32, 65):
-        for runs in ((1,), (2,), (6,), (1, 2, 6), (7,)):
-            p = update_problem(seed=n_donors + len(runs), n_donors=n_donors, runs=runs)
+        for runs, heavy in (((1,), False), ((2,), False), ((6,), False), ((1, 2, 6), False), ((7,), False),
+                            ((1, 2, 6), True)):
+            p = update_problem(seed=n_donors + len(runs), n_donors=n_donors, runs=runs, heavy=heavy)
             windowed = max(runs) <= 6
             ops = mstep_operands(p["vid"], p["cb"], p["q"], p["n_variants"], len(p["post"]), cuda,
                                  snp_ptr=p["snp_ptr"] if windowed else None)
@@ -761,16 +770,20 @@ def phase_mstep_update_kernel() -> None:
                     require(mstep_update.launches == launches + 1, f"mstep_update {what}: one launch")
                     plain_addition, plain_gprob = mstep_update_plain(post, ops, prior, mask, 0.01, n_donors, power)
                     masked = "mask" if mask is not None else "no mask"
+                    # beside a 100,000-call variant, genotype_prob at 1e-6 against a float64 addition's: the float32
+                    # plain path's own rounding there exceeds the bar
+                    want_gprob = float64_update(p, ops, mask, power, cuda).float() if heavy else plain_gprob
                     errors[f"p={power} {masked}"] = [
                         compare(f"mstep_update addition {what} {masked}", addition, plain_addition, **ADDITION_TOL),
-                        compare(f"mstep_update genotype_prob {what} {masked}", gprob, plain_gprob, 0.0, 1e-6)]
+                        compare(f"mstep_update genotype_prob {what} {masked}", gprob, want_gprob, 0.0, 1e-6)]
                     require(torch.equal(addition, want if mask is None else want * mask),
                             f"mstep_update {what} {masked}: addition bit-equal to the in-order reference")
                     require(torch.equal(gprob, L.probs_from_betas(prior + addition, v2s, p["n_snps"], 0.01,
                                                                   p["max_per_snp"])),
                             f"mstep_update {what} {masked}: genotype_prob bit-equal to probs_from_betas")
             say("kernels", kernel="mstep_update" if windowed else "mstep_addition", n_donors=n_donors, runs=runs,
-                n_variants=p["n_variants"], bit_equal=True, max_abs_err=errors)
+                heavy=heavy, chunks=ops.plan.n_chunks, n_variants=p["n_variants"], bit_equal=True,
+                max_abs_err=errors)
 
 
 # ---------------------------------------------------------------------------
@@ -1171,6 +1184,7 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
     old_chain = lambda addition: L.probs_from_betas(prior + addition(*mstep_args), variant2snp, n_snps, 0.01,  # noqa
                                                     window)
 
+    require(lik.mstep.plan.n_chunks == 0, "the flat bench pool: no variant past CHUNK_CALLS calls")
     # kernel vs plain on the main path's own inputs at the bench shape
     logits_k = estep_logits(*estep_args)
     logits_p = estep_logits_plain(*estep_args)
@@ -1180,8 +1194,8 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
     mstep_err = compare("bench-shape mstep", mstep_addition(*mstep_args),
                         mstep_addition_plain(*mstep_args), **ADDITION_TOL)
     # both M-step entry points bit for bit: the addition against the in-order reference (each sum one
-    # chain in call order, every multiply and add its own op), genotype_prob against probs_from_betas
-    # on the kernel's own addition
+    # chain in call order, chunked past CHUNK_CALLS calls, every multiply and add its own op), genotype_prob
+    # against probs_from_betas on the kernel's own addition
     in_order = in_order_addition(*mstep_args)
     require(torch.equal(mstep_addition(*mstep_args), in_order), "bench-shape mstep_addition: bit-equal in order")
     update_err = {}
@@ -1299,6 +1313,146 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
             share_of_bound=bound.speed_of_light_s() * 1e3 / timings[name]["kernel_ms_mean"])
     return {"timings": timings, "estep_err": estep_err, "mstep_err": mstep_err, "bounds": bounds, "gprob": gprob,
             "fused_errors": fused_errors, "update_err": update_err}
+
+
+def _skewed_data(seed: int, n_barcodes: int = BENCH["n_barcodes"], n_donors: int = BENCH["n_donors"],
+                 n_snps: int = BENCH["n_snps"], calls_per_barcode: int = BENCH["calls_per_barcode"]):
+    """(genotypes, handler, packed) of a pool in the bench cells' shape (``SKEWED``), drawn with numpy from
+    ``seed``: ``sim.synthesize_compressed_calls``' model (two alleles a SNP, 20% doublets, 2% flips, Phred 20-40)
+    with each barcode's calls the log-normal's quantiles in the seed's order and each SNP's calls its Zipf share
+    (largest remainders to the top ranks). Its most expressed SNPs hold variants of tens of thousands of calls,
+    past ``CHUNK_CALLS``, where BENCH's flat pool holds none."""
+    from statistics import NormalDist
+
+    from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer
+    from demuxalot_tpu_torch.frontend.snp_counter import MOLECULE_DTYPE, SNP_CALL_DTYPE, CompressedSNPCalls
+    from demuxalot_tpu_torch.models.genotypes import ProbabilisticGenotypes
+
+    sigma, stride = SKEWED["calls_per_barcode_sigma"], SKEWED["snp_rank_stride"]
+    rng = np.random.RandomState([seed & 0xFFFFFFFF, seed >> 32])
+    donor_allele = rng.randint(0, 2, size=(n_snps, n_donors))
+    genotypes = ProbabilisticGenotypes([f"Donor{i + 1:02}" for i in range(n_donors)])
+    for pos in range(n_snps):
+        for base in ("A", "C"):
+            genotypes.get_variant_id("chr1", pos, base)
+    betas = np.full((2 * n_snps, n_donors), 0.5, dtype=np.float32)
+    betas[np.arange(n_snps)[:, None] * 2 + donor_allele, np.arange(n_donors)] = 100.0
+    genotypes = genotypes._with_betas(betas)
+
+    z = np.array([NormalDist().inv_cdf((i + 0.5) / n_barcodes) for i in range(n_barcodes)])
+    sizes = np.maximum(1, np.rint(calls_per_barcode * np.exp(sigma * z - sigma * sigma / 2))).astype(np.int64)
+    cb = np.repeat(np.arange(n_barcodes, dtype=np.int32), sizes[rng.permutation(n_barcodes)])
+    n_calls = len(cb)
+    primary = rng.randint(0, n_donors, size=n_barcodes)
+    secondary = (primary + 1 + rng.randint(0, n_donors - 1, size=n_barcodes)) % n_donors
+    doublet = rng.rand(n_barcodes) < 0.2
+    donor = np.where(doublet[cb] & (rng.rand(n_calls) < 0.5), secondary[cb], primary[cb])
+    weight = 1.0 / np.arange(1, n_snps + 1, dtype=np.float64) ** SKEWED["snp_zipf"]
+    share = n_calls * weight / weight.sum()
+    by_rank = np.floor(share).astype(np.int64)
+    by_rank[:n_calls - int(by_rank.sum())] += 1
+    rank, per = np.arange(n_snps), n_snps // stride
+    per_snp = np.empty(n_snps, dtype=np.int64)
+    per_snp[(rank % per) * stride + rank // per] = by_rank
+    snp = np.repeat(np.arange(n_snps, dtype=np.int32), per_snp)[rng.permutation(n_calls)]
+    allele = donor_allele[snp, donor]
+    allele = np.where(rng.rand(n_calls) < 0.02, 1 - allele, allele)
+    q = (0.1 ** (0.1 * rng.randint(20, 41, size=n_calls))).astype(np.float32)
+
+    molecules = np.empty(n_calls, dtype=MOLECULE_DTYPE)
+    molecules["compressed_cb"] = cb
+    molecules["compressed_ub"] = np.arange(n_calls, dtype=np.int32)
+    molecules["p_group_misaligned"] = 0.01
+    snp_calls = np.empty(n_calls, dtype=SNP_CALL_DTYPE)
+    snp_calls["molecule_index"] = np.arange(n_calls, dtype=np.int32)
+    snp_calls["snp_position"] = snp
+    snp_calls["base_index"] = allele.astype(np.uint8)  # A = 0, C = 1
+    snp_calls["p_base_wrong"] = q
+    calls = CompressedSNPCalls()
+    calls.molecules = molecules
+    calls.snp_calls = snp_calls
+    calls._finalized = True
+    handler = BarcodeHandler([f"BC{b:06d}" for b in range(n_barcodes)])
+    return genotypes, handler, Demultiplexer.pack_dataset({"chr1": calls}, genotypes)
+
+
+def phase_skewed_mstep(card: str, seed: int) -> dict:
+    """Phase 5's M-step on the bench cells' pool shape (``_skewed_data``), where the plan holds chunk units: both
+    entry points bit for bit against the in-order reference (chunked past ``CHUNK_CALLS`` calls) and
+    ``probs_from_betas`` on the kernel's own addition, against their plain versions at the addition bar and
+    ``genotype_prob`` at 1e-6, and ``genotype_prob`` at 1e-6 against ``probs_from_betas`` on a float64 addition
+    too, with and without a mask; then both kernels' times, their bounds and an EM iteration, as phase 5 gives
+    them for the flat pool."""
+    from demuxalot_tpu_torch import Demultiplexer
+    from demuxalot_tpu_torch.models.demux import _Likelihood
+    from demuxalot_tpu_torch.ops import likelihood as L
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
+    from demuxalot_tpu_torch.ops.mstep_kernel import (
+        mstep_addition, mstep_addition_plain, mstep_update, mstep_update_plain)
+    from demuxalot_tpu_torch.utils.profiling import MStepRoofline
+    from torch_problems import in_order_addition
+
+    t0 = time.perf_counter()
+    genotypes, handler, packed = _skewed_data(seed)
+    cuda = torch.device("cuda")
+    lik = _Likelihood(packed, handler.n_barcodes, genotypes.genotype_names, DOUBLET_PRIOR, cuda)
+    o = lik.mstep
+    require(o.snp_ptr is not None and o.plan.n_chunks > 0, "skewed pool: SNP runs, and chunk units in the plan")
+    reindex = packed.reindex
+    variant2snp = torch.from_numpy(reindex.variant2snp).to(cuda)
+    n_snps, window = int(packed.variant2snp.max()) + 1, reindex.windowed_max_per_snp
+    betas = torch.from_numpy(reindex.permute_rows(packed.betas_for(genotypes, False))).to(cuda)
+    _logits, probs = estep_logits(L.probs_from_betas(betas, variant2snp, n_snps, 0.01, window), lik.estep,
+                                  softmax=True)
+    prior = torch.from_numpy(reindex.permute_rows(packed.betas_for(genotypes, True))).to(cuda)
+    anchor = (torch.arange(packed.n_variants, device=cuda) % 3 != 0).to(torch.float32)[:, None]
+    n_genotypes, power = len(genotypes.genotype_names), float(Demultiplexer.contribution_power)
+    args = (probs, o, n_genotypes, power)
+
+    in_order = in_order_addition(*args)
+    require(torch.equal(mstep_addition(*args), in_order), "skewed mstep_addition: bit-equal in order")
+    errors = {"addition": compare("skewed mstep_addition", mstep_addition(*args), mstep_addition_plain(*args),
+                                  **ADDITION_TOL)}
+    q = o.q.double().unsqueeze(1)
+    terms = torch.where(q >= 1, 0.0, (probs.double()[o.cb.long(), :n_genotypes] * (1 - q)) ** power)
+    float64_addition = torch.zeros((o.n_variants, n_genotypes), dtype=torch.float64, device=cuda).index_add_(
+        0, o.vid.long(), terms)
+    del q, terms
+    for mask in (None, anchor):
+        masked = "mask" if mask is not None else "no mask"
+        addition, gprob = mstep_update(probs, o, prior, mask, 0.01, n_genotypes, power)
+        require(torch.equal(addition, in_order if mask is None else in_order * mask),
+                f"skewed mstep_update ({masked}): addition bit-equal in order")
+        require(torch.equal(gprob, L.probs_from_betas(prior + addition, variant2snp, n_snps, 0.01, window)),
+                f"skewed mstep_update ({masked}): genotype_prob bit-equal to probs_from_betas")
+        plain_addition, plain_gprob = mstep_update_plain(probs, o, prior, mask, 0.01, n_genotypes, power)
+        wide = float64_addition if mask is None else float64_addition * mask.double()
+        want_gprob = L.probs_from_betas(prior.double() + wide, variant2snp, n_snps, 0.01, window).float()
+        errors[masked] = {
+            "addition": compare(f"skewed mstep_update addition ({masked})", addition, plain_addition, **ADDITION_TOL),
+            "genotype_prob": compare(f"skewed mstep_update genotype_prob ({masked})", gprob, want_gprob, 0.0, 1e-6),
+            "genotype_prob_plain": compare(f"skewed mstep_update genotype_prob vs plain ({masked})", gprob,
+                                           plain_gprob, 0.0, 1e-6)}
+
+    update_args = (probs, o, prior, None, 0.01, n_genotypes, power)
+    ms = {"mstep": [_time_ms(lambda: mstep_addition(*args)) for _ in range(2)],
+          "mstep_update": [_time_ms(lambda: mstep_update(*update_args)) for _ in range(2)],
+          "em_iteration": [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)]}
+    run_lengths = np.diff(reindex.snp_pointers())
+    shape = dict(n_calls=int(o.cb.shape[0]), n_donors=n_genotypes, n_barcodes=handler.n_barcodes,
+                 n_variants=packed.n_variants)
+    bounds = {"mstep": MStepRoofline(**shape),
+              "mstep_update": MStepRoofline(**shape, n_runs=len(run_lengths),
+                                            neighbour_adds=int((run_lengths * (run_lengths - 1)).sum()))}
+    counts = np.diff(o.var_ptr.cpu().numpy())
+    result = {name: {"ms": sum(ms[name]) / 2, "bound_ms": bound.speed_of_light_s() * 1e3,
+                     "share_of_bound": bound.speed_of_light_s() * 1e3 / (sum(ms[name]) / 2)}
+              for name, bound in bounds.items()}
+    summary = dict(seed=seed, n_calls=shape["n_calls"], longest_variant=int(counts.max()),
+                   split_calls=o.plan.split_calls, split_units=o.plan.n_chunks,
+                   em_iteration_ms=sum(ms["em_iteration"]) / 2, max_abs_err=errors, bit_equal_in_order=True)
+    say("timing", step="skewed_mstep", card=card, ms=ms, **summary, **result, seconds=time.perf_counter() - t0)
+    return {**result, **summary}
 
 
 # ---------------------------------------------------------------------------
@@ -3157,10 +3311,14 @@ def steps_ms() -> dict:
     bits = {"estep_logits": _digest(estep_logits(gprob, lik.estep)), "estep_probs": _digest(logits_probs[-1]),
             "mstep_addition": _digest(mstep_addition(state.probs, run.likelihood.mstep, run.n_genotypes, 2.0)),
             "m_step": _digest(*(m_out if isinstance(m_out, tuple) else (m_out,)))}
+    # the M-step plan's split counters (a tree without them: None); 0 on this flat pool
+    from demuxalot_tpu_torch.utils import tracing
+    counters = tracing.snapshot()["counters"]
+    split = {name: counters.get(f"mstep.{name}") for name in ("split_calls", "split_units")}
     banded, launch_bound = _banded_steps(cuda), _launch_bound_ms(cuda)
     aggregate = _aggregate_steps(packed, handler, gprob, cuda)
     streams = _stream_steps(cuda)
-    return {"package": str(Path(inspect.getfile(estep_logits)).parents[2]), "fused": fused,
+    return {"package": str(Path(inspect.getfile(estep_logits)).parents[2]), "fused": fused, "mstep": split,
             "bits": {**bits, **banded.pop("bits"), **launch_bound.pop("bits"), **aggregate.pop("bits"),
                      **streams.pop("bits")}, **banded, **aggregate, **streams,
             "estep_softmax_ms": [_time_ms(step) for _ in range(3)],
@@ -3360,6 +3518,7 @@ def main() -> int:
     parser.add_argument("--tracing", action="store_true",
                         help="run phases 1, 2 and 4 and the recorder's cost only")
     parser.add_argument("--trace-dir", type=Path, help="keep phase 4's trace.json in this directory")
+    parser.add_argument("--seed", type=int, default=0, help="the seed of phase 5's skewed pool (default 0)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3394,6 +3553,7 @@ def main() -> int:
     main_result = phase_main(genotypes, handler, packed, truth, args.trace_dir)
     lap("main")
     timing = phase_timing(genotypes, handler, packed, main_result, card)
+    skewed = phase_skewed_mstep(card, args.seed)
     lap("timing")
     phase_tracing_cost(genotypes, handler, packed, card)
     lap("tracing")
@@ -3458,7 +3618,8 @@ def main() -> int:
          "max_abs_err": timing["mstep_err"],
          "ms": t["mstep"]["kernel_ms_mean"], "plain_ms": t["mstep"]["plain_ms_mean"], **bound("mstep"),
          "share_of_bound": bound("mstep")["bound_ms"] / t["mstep"]["kernel_ms_mean"], "library_ms": None,
-         "in_flight_ms": t["in_flight_ms"]["mstep"], "index_checks_ms": t["checks_ms"]},
+         "in_flight_ms": t["in_flight_ms"]["mstep"], "index_checks_ms": t["checks_ms"],
+         "skewed_pool": skewed["mstep"]},
         # the same kernel source with the next iteration's probs_from_betas in its epilogue; the old chain
         # (addition kernel, then probs_from_betas) beside it
         {"name": "mstep_update", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/mstep.cu",
@@ -3468,7 +3629,10 @@ def main() -> int:
          **bound("mstep_update"),
          "share_of_bound": bound("mstep_update")["bound_ms"] / t["mstep_update"]["kernel_ms_mean"],
          "library_ms": None, "old_chain_ms": t["old_chain"]["kernel_ms_mean"],
-         "in_flight_ms": t["in_flight_ms"]["mstep_update"]},
+         "in_flight_ms": t["in_flight_ms"]["mstep_update"],
+         "skewed_pool": {**skewed["mstep_update"], "em_iteration_ms": skewed["em_iteration_ms"],
+                         "split_calls": skewed["split_calls"], "split_units": skewed["split_units"],
+                         "max_abs_err": skewed["max_abs_err"]}},
     ]
     # the aggregate E-step: an XLA op of the JAX package, its hand kernel on the aggregate EM and predict; ms at
     # the predict's 528 columns (fused softmax), the learn run's 32 and 64 donors beside it

@@ -318,9 +318,11 @@ class PackedCalls:
         if cached is None:
             c = self.device_calls(n_barcodes, device)
             windowed = self.reindex.windowed_max_per_snp > 0  # else the EM normalises on the segment path
-            snp_ptr = _to_device(self.reindex.snp_pointers(), device) if windowed else None
-            cached = self._mstep_operands[key] = mstep_operands(c.var_ptr, c.vid_v, c.cb_v, c.q_v, n_barcodes,
-                                                                snp_ptr=snp_ptr)
+            snp_ptr = self.reindex.snp_pointers() if windowed else None
+            host_ptrs = (P.csr_row_pointers(self.calls_v.vid, self.n_variants), snp_ptr)  # the plan's, on the host
+            cached = self._mstep_operands[key] = mstep_operands(
+                c.var_ptr, c.vid_v, c.cb_v, c.q_v, n_barcodes,
+                snp_ptr=None if snp_ptr is None else _to_device(snp_ptr, device), host_ptrs=host_ptrs)
         return cached
 
 
@@ -347,6 +349,7 @@ class _Likelihood:
         self.calls = c = packed.device_calls(n_barcodes, device)
         self.estep = estep_operands(len(genotype_names), doublet_prior, c.row_ptr, c.cb_b, c.vid_b, c.q_b)
         self.mstep = packed.mstep_operands(n_barcodes, device)
+        self.mstep.slots(len(genotype_names))  # the M-step's partial sums, made here and not on a launch
         self.snp_groups = (packed.aggregate_operands(n_barcodes, len(genotype_names), doublet_prior, device)
                            if Demultiplexer.aggregate_on_snps else None)
 
@@ -358,7 +361,8 @@ class _Likelihood:
         """Every device tensor the E-step and M-step read."""
         groups = self.snp_groups.tensors() if self.snp_groups is not None else ()
         runs = [self.mstep.snp_ptr] if self.mstep.snp_ptr is not None else []
-        return [*self.calls, *runs, self.estep.penalties, self.estep.schedule, self.estep.mixing, *groups]
+        plan = [*self.mstep.plan.tensors(), *self.mstep.partials.values()]
+        return [*self.calls, *runs, *plan, self.estep.penalties, self.estep.schedule, self.estep.mixing, *groups]
 
     def logits(self, genotype_prob: torch.Tensor) -> torch.Tensor:
         if self.snp_groups is not None:

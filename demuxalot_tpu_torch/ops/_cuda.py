@@ -58,12 +58,14 @@ _SIGNATURES = {
     ),
     "demux_mstep_addition": (
         _vp, _i32, _i32,  # posterior, n_pg, n_donors
-        _vp, _vp, _vp, _i64,  # var_ptr, cb, q, n_variants
+        _vp, _vp, _vp, _vp,  # var_ptr, cb, q, snp_ptr (or null)
+        _vp, _i64, _vp, _vp, _vp, _vp,  # the plan: units, n_units, chunks, split, tickets, partials
         _f32, _i32, _vp, _vp,  # power, depth, addition, stream
     ),
     "demux_mstep_update": (
         _vp, _i32, _i32,  # posterior, n_pg, n_donors
-        _vp, _vp, _vp, _vp, _i64,  # var_ptr, cb, q, snp_ptr, n_runs
+        _vp, _vp, _vp, _vp,  # var_ptr, cb, q, snp_ptr
+        _vp, _i64, _vp, _vp, _vp, _vp,  # the plan: units, n_units, chunks, split, tickets, partials
         _f32, _vp, _vp,  # power, prior, mask (or null)
         _f32, _f32, _f32, _i32,  # floor, lo, hi, depth
         _vp, _vp, _vp,  # addition, genotype_prob, stream

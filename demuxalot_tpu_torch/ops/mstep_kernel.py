@@ -7,11 +7,24 @@ M-step) and the posterior gather the JAX package ran before it. Kernel:
     addition[v, d] = Σ_{calls c of v, in (vid, cb) order} (post[cb_c, d]·(1−q_c))^p
 
 over calls in variant CSR form (the (vid, cb)-sorted call list); calls with
-q ≥ 1 add exactly 0. Each (v, d) sum is one chain in call order with every
-multiply and add rounded on its own. On the H100 it is bound by the L2
-reads of the posterior rows, one 4·D-byte slice per call: a warp walks its
-calls in tiles of 32 with several row reads in flight, lanes over donors.
-See the source.
+q ≥ 1 add exactly 0. The summation contract, with C = :data:`CHUNK_CALLS`
+(``csrc/mstep.cu``'s ``kChunkCalls``), every multiply and add rounded on its
+own:
+
+- a variant of at most C calls: each (v, d) sum is one chain in call order
+  from +0;
+- a variant of more than C calls: its calls are cut in call order into
+  chunks of C (the last holds the rest), each chunk summed as one such
+  chain, and the chunk sums chained in chunk order from +0.
+
+An output depends only on the data and C, never on the launch.
+``tests/torch_problems.py:in_order_addition`` gives the bits in PyTorch.
+On the H100 the kernel is bound by the L2 reads of the posterior rows, one
+4·D-byte slice per call: a warp walks its unit's calls in tiles of 32 with
+several row reads in flight, lanes over donors. A warp's unit, from the
+work plan (:func:`mstep_plan`), is a whole SNP run, or a chunk of a run that
+holds a variant of more than C calls, so no warp walks more than a run of
+short variants or one chunk. See the source.
 
 Two entry points, one kernel source:
 
@@ -23,11 +36,19 @@ Two entry points, one kernel source:
   branch, bit for bit). It needs operands built with ``snp_ptr``.
 
 Operands come only from :func:`mstep_operands`, which checks the indices
-once per dataset (``csrc/checks.cu``'s kernels, on a card) and records the
-posterior row count they were checked against; the launches check nothing
-on the device. Each wrapper launches its kernel for CUDA tensors and runs
-its plain version (:func:`mstep_addition_plain`, :func:`mstep_update_plain`)
-for CPU tensors; anything else raises. ``mstep_addition.launches`` and
+once per dataset (``csrc/checks.cu``'s kernels, on a card), records the
+posterior row count they were checked against and builds the work plan
+(its tables, one int32 ticket per split run); the chunks' f32 slots for a
+donor count come from :meth:`MStepOperands.slots`, which the EM loop and the
+sharded engine call in their set-up. The launches check nothing on the
+device. Launches over one operands' plan must be ordered by their stream
+(its tickets and slots are shared): a graph's replays, or a side stream
+that waits for the launch before it, are. It records the counters
+``mstep.split_calls`` (calls in variants of more than C calls) and
+``mstep.split_units`` (chunk units) in ``utils.tracing``. Each wrapper
+launches its kernel for CUDA tensors and runs its plain version
+(:func:`mstep_addition_plain`, :func:`mstep_update_plain`) for CPU tensors;
+anything else raises. ``mstep_addition.launches`` and
 ``mstep_update.launches`` count launches, and ``.host_ns`` and
 ``.host_calls`` their host time (``utils.tracing.timed_op``).
 """
@@ -35,6 +56,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import tracing
@@ -48,8 +70,75 @@ from .packing import MAX_WINDOWED_RUN
 # only by chip_smoke's ablation
 IN_FLIGHT = 16
 
+# calls a chunk (csrc/mstep.cu's kChunkCalls): variants of more calls are summed in chunks of this many, across
+# warps. Of 256, 512, 1,024 and 2,048, 1,024 ran the bench pool's EM iteration fastest on an H100 (PERF.md)
+CHUNK_CALLS = 1024
+
 _BUILT = object()  # marks operands that mstep_operands built and checked
 _CALL_TYPES = (("var_ptr", torch.int64), ("vid", torch.int32), ("cb", torch.int32), ("q", torch.float32))
+
+
+class MStepPlan(NamedTuple):
+    """The M-step kernel's work units for one dataset (:func:`mstep_plan`), on the operands' device.
+
+    A run is a SNP run where the operands have ``snp_ptr``, else one
+    variant. A run none of whose variants has more than ``CHUNK_CALLS``
+    calls is one unit; the others are split: each variant cut into chunks
+    of ``CHUNK_CALLS`` calls in call order (an empty or short variant is one
+    chunk), a unit each, summed into its slot, and the run's last chunk to
+    finish chains its slots and writes the run.
+    """
+
+    units: torch.Tensor  # i32 [U] heaviest first: r >= 0 the whole run r, -1 - c chunk c
+    chunks: torch.Tensor  # i32 [K, 3] (variant, chunk of the variant, split run), by run, variant and chunk
+    split_runs: torch.Tensor  # i32 [S, 3] (run, first chunk, chunks)
+    tickets: torch.Tensor  # i32 [S] zeros: the kernel counts a run's chunks and puts them back to 0
+    split_calls: int  # calls in variants of more than CHUNK_CALLS calls
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunks.shape[0]
+
+    def tensors(self) -> list:
+        return [self.units, self.chunks, self.split_runs, self.tickets]
+
+
+def mstep_plan(var_ptr: np.ndarray,
+               snp_ptr: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """``(units, chunks, split_runs, split_calls)`` of :class:`MStepPlan` as numpy arrays.
+
+    Runs are ``snp_ptr``'s (each variant its own run without it). A unit
+    weighs its calls; units are ordered heaviest first (ties: whole runs in
+    run order, then chunks in slot order), so the longest walks start
+    first, wherever the runs lie.
+    """
+    chunk = CHUNK_CALLS
+    var_ptr = np.asarray(var_ptr, dtype=np.int64)
+    counts = np.diff(var_ptr)
+    n_variants = counts.shape[0]
+    run_ptr = np.arange(n_variants + 1, dtype=np.int64) if snp_ptr is None else np.asarray(snp_ptr, np.int64)
+    n_runs = run_ptr.shape[0] - 1
+    run_of_variant = np.repeat(np.arange(n_runs), np.diff(run_ptr))
+    long = counts > chunk
+    split = np.zeros(n_runs, dtype=bool)
+    split[run_of_variant[long]] = True
+    whole = np.flatnonzero(~split)
+    split_runs = np.flatnonzero(split)
+    # every variant of a split run: its chunks, in variant and chunk order
+    variants = np.flatnonzero(split[run_of_variant])
+    per_variant = np.maximum(1, -(-counts[variants] // chunk))
+    n_chunks = int(per_variant.sum())
+    chunk_variant = np.repeat(variants, per_variant)
+    chunk_k = np.arange(n_chunks) - np.repeat(np.cumsum(per_variant) - per_variant, per_variant)
+    chunk_split = np.repeat(np.searchsorted(split_runs, run_of_variant[variants]), per_variant)
+    per_run = np.bincount(chunk_split, minlength=split_runs.shape[0])
+    chunks = np.stack([chunk_variant, chunk_k, chunk_split], axis=1).astype(np.int32).reshape(-1, 3)
+    table = np.stack([split_runs, np.cumsum(per_run) - per_run, per_run], axis=1).astype(np.int32).reshape(-1, 3)
+    weights = np.concatenate([var_ptr[run_ptr[whole + 1]] - var_ptr[run_ptr[whole]],
+                              np.minimum(chunk, counts[chunk_variant] - chunk_k * chunk)])
+    ids = np.concatenate([whole, -1 - np.arange(n_chunks)])
+    units = ids[np.argsort(-weights, kind="stable")].astype(np.int32)
+    return units, chunks, table, int(counts[long].sum())
 
 
 class MStepOperands(NamedTuple):
@@ -67,6 +156,8 @@ class MStepOperands(NamedTuple):
     snp_ptr: Optional[torch.Tensor] = None  # i64 [R + 1] SNP runs over the variant rows (kernel)
     variant_run: Optional[torch.Tensor] = None  # i32 [V] run of every variant (plain)
     max_per_snp: int = 0  # longest run
+    plan: Optional[MStepPlan] = None  # the kernel's work units
+    partials: Optional[dict] = None  # the chunks' f32 [K, D] slots by D (:meth:`slots`)
     built: object = None  # _BUILT when mstep_operands made these
 
     @property
@@ -75,11 +166,29 @@ class MStepOperands(NamedTuple):
 
     def tensors(self) -> list:
         return [t for t in (self.var_ptr, self.vid, self.cb, self.q, self.snp_ptr, self.variant_run)
-                if t is not None]
+                if t is not None] + (self.plan.tensors() if self.plan is not None else [])
+
+    def slots(self, n_genotypes: int) -> torch.Tensor:
+        """The chunks' partial sums at ``n_genotypes`` donors, f32 [K, D]; made at the first call, so call it in
+        set-up."""
+        slots = self.partials.get(n_genotypes)
+        if slots is None:
+            slots = self.partials[n_genotypes] = torch.empty((self.plan.n_chunks, n_genotypes), dtype=torch.float32,
+                                                             device=self.var_ptr.device)
+        return slots
+
+    def plan_pointers(self, n_genotypes: int) -> tuple:
+        """The launch's snp_ptr and plan arguments: snp_ptr (or None), units, n_units, chunks, split runs, tickets,
+        slots."""
+        plan = self.plan
+        return (None if self.snp_ptr is None else self.snp_ptr.data_ptr(), plan.units.data_ptr(),
+                plan.units.shape[0], plan.chunks.data_ptr(), plan.split_runs.data_ptr(), plan.tickets.data_ptr(),
+                self.slots(n_genotypes).data_ptr())
 
 
 def mstep_operands(var_ptr: torch.Tensor, vid: torch.Tensor, cb: torch.Tensor, q: torch.Tensor, n_barcodes: int,
-                   snp_ptr: Optional[torch.Tensor] = None) -> MStepOperands:
+                   snp_ptr: Optional[torch.Tensor] = None,
+                   host_ptrs: Optional[Tuple[np.ndarray, Optional[np.ndarray]]] = None) -> MStepOperands:
     """Checked M-step operands; build them once per dataset.
 
     ``snp_ptr`` (i64 [R + 1]) cuts the variant rows into SNP runs of 1 to
@@ -87,7 +196,10 @@ def mstep_operands(var_ptr: torch.Tensor, vid: torch.Tensor, cb: torch.Tensor, q
     :class:`ops.packing.VariantReindex`); :func:`mstep_update` needs it.
     On a card, ``var_ptr`` must be a CSR over the calls and every ``cb``
     lie in ``[0, n_barcodes)``, or the check kernels trap before any kernel
-    reads through them.
+    reads through them. The work plan (:func:`mstep_plan`) is built over
+    the SNP runs, or over the variants without them, on the host: from
+    ``host_ptrs``, the same ``(var_ptr, snp_ptr)`` as numpy arrays where the
+    caller holds them, else from copies of the tensors.
     """
     device = var_ptr.device
     for (name, dtype), tensor in zip(_CALL_TYPES, (var_ptr, vid, cb, q)):
@@ -95,22 +207,34 @@ def mstep_operands(var_ptr: torch.Tensor, vid: torch.Tensor, cb: torch.Tensor, q
     n_variants = var_ptr.shape[0] - 1
     if not vid.shape == cb.shape == q.shape or n_variants < 0:
         raise ValueError("vid, cb and q must align, var_ptr needs at least one entry")
-    variant_run, max_per_snp = None, 0
     if snp_ptr is not None:
         _check("snp_ptr", snp_ptr, torch.int64, 1, device)
-        runs = snp_ptr.diff()
-        if (snp_ptr.shape[0] < 1 or int(snp_ptr[0]) != 0 or int(snp_ptr[-1]) != n_variants
-                or (runs.numel() and not bool(((runs >= 1) & (runs <= MAX_WINDOWED_RUN)).all()))):
+    if host_ptrs is None:
+        host_ptrs = (var_ptr.cpu().numpy(), None if snp_ptr is None else snp_ptr.cpu().numpy())
+    host_var_ptr, host_snp_ptr = (None if a is None else np.asarray(a, dtype=np.int64) for a in host_ptrs)
+    if host_var_ptr.shape != (n_variants + 1,) or (host_snp_ptr is None) != (snp_ptr is None):
+        raise ValueError("host_ptrs must hold var_ptr and snp_ptr as the tensors do")
+    variant_run, max_per_snp = None, 0
+    if snp_ptr is not None:
+        runs = np.diff(host_snp_ptr)
+        if (host_snp_ptr.shape != tuple(snp_ptr.shape) or host_snp_ptr.shape[0] < 1 or host_snp_ptr[0] != 0
+                or host_snp_ptr[-1] != n_variants or not ((runs >= 1) & (runs <= MAX_WINDOWED_RUN)).all()):
             raise ValueError(f"snp_ptr must cut [0, {n_variants}) into runs of 1 to {MAX_WINDOWED_RUN} variants")
-        variant_run = torch.repeat_interleave(torch.arange(runs.numel(), dtype=torch.int32, device=device), runs)
-        max_per_snp = int(runs.max()) if runs.numel() else 0
+        variant_run = torch.from_numpy(np.repeat(np.arange(runs.shape[0], dtype=np.int32), runs)).to(device)
+        max_per_snp = int(runs.max()) if runs.shape[0] else 0
     if device.type == "cuda" and n_variants > 0:
         lib = _cuda.library()
         with torch.cuda.device(device):
             status = lib.demux_mstep_check(var_ptr.data_ptr(), n_variants, cb.shape[0], cb.data_ptr(), n_barcodes,
                                            torch.cuda.current_stream(device).cuda_stream)
         _cuda.check_launch("mstep_operands", status)
-    return MStepOperands(var_ptr, vid, cb, q, n_barcodes, snp_ptr, variant_run, max_per_snp, _BUILT)
+    units, chunks, split_runs, split_calls = mstep_plan(host_var_ptr, host_snp_ptr)
+    tracing.count("mstep.split_calls", split_calls)
+    tracing.count("mstep.split_units", chunks.shape[0])
+    upload = lambda array: torch.from_numpy(array).to(device)  # noqa: E731
+    plan = MStepPlan(upload(units), upload(chunks), upload(split_runs),
+                     torch.zeros(split_runs.shape[0], dtype=torch.int32, device=device), split_calls)
+    return MStepOperands(var_ptr, vid, cb, q, n_barcodes, snp_ptr, variant_run, max_per_snp, plan, {}, _BUILT)
 
 
 def _check_inputs(name: str, posterior: torch.Tensor, operands: MStepOperands, n_genotypes: int) -> None:
@@ -157,7 +281,7 @@ def mstep_addition(
     with torch.cuda.device(posterior.device):
         status = lib.demux_mstep_addition(
             posterior.data_ptr(), posterior.shape[1], n_genotypes,
-            o.var_ptr.data_ptr(), o.cb.data_ptr(), o.q.data_ptr(), o.n_variants,
+            o.var_ptr.data_ptr(), o.cb.data_ptr(), o.q.data_ptr(), *o.plan_pointers(n_genotypes),
             float(power), IN_FLIGHT, addition.data_ptr(), torch.cuda.current_stream(posterior.device).cuda_stream,
         )
     _cuda.check_launch("mstep_addition", status)
@@ -213,14 +337,13 @@ def mstep_update(
         return mstep_update_plain(posterior, o, prior_betas, anchor_mask, p_genotype_clip, n_genotypes, power)
     addition = torch.empty((o.n_variants, n_genotypes), dtype=torch.float32, device=device)
     genotype_prob = torch.empty_like(addition)
-    n_runs = o.snp_ptr.shape[0] - 1
-    if n_runs == 0:
+    if o.snp_ptr.shape[0] == 1:
         return addition, genotype_prob
     lib = _cuda.library()
     with torch.cuda.device(device):
         status = lib.demux_mstep_update(
             posterior.data_ptr(), posterior.shape[1], n_genotypes,
-            o.var_ptr.data_ptr(), o.cb.data_ptr(), o.q.data_ptr(), o.snp_ptr.data_ptr(), n_runs,
+            o.var_ptr.data_ptr(), o.cb.data_ptr(), o.q.data_ptr(), *o.plan_pointers(n_genotypes),
             float(power), prior_betas.data_ptr(),
             anchor_mask.data_ptr() if anchor_mask is not None else None,
             DENOMINATOR_FLOOR, p_genotype_clip, 1 - p_genotype_clip, IN_FLIGHT,

@@ -171,11 +171,13 @@ class ShardedDemultiplexer:
             for shard, device in my_shards:
                 mine = shard_of_call == shard  # a mask keeps the (vid, cb) order: no re-sort
                 vid = calls_v.vid[mine]
+                var_ptr = csr_row_pointers(vid, n_variants)
                 entry_m.append(mstep_operands(
-                    _dm._to_device(csr_row_pointers(vid, n_variants), device), _dm._to_device(vid, device),
+                    _dm._to_device(var_ptr, device), _dm._to_device(vid, device),
                     _dm._to_device((calls_v.cb[mine] - shard * per_shard).astype(np.int32), device),
-                    _dm._to_device(calls_v.q[mine], device), per_shard,
+                    _dm._to_device(calls_v.q[mine], device), per_shard, host_ptrs=(var_ptr, None),
                 ))
+                entry_m[-1].slots(n_donors)  # the partial sums, made here and not on a launch
             cache[key_m] = entry_m
         return entry_e, entry_m
 

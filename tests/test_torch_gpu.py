@@ -28,8 +28,9 @@ from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits
 from demuxalot_tpu_torch.ops import likelihood as L
 from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain, mstep_update, mstep_update_plain
 from oracle import oracle_barcode_logits
-from torch_problems import (aggregate_args, aggregate_problem, estep_args, estep_problem, in_order_addition,
-                            mstep_operands, mstep_problem, offset_view, side_stream_and_replay, t, update_problem)
+from torch_problems import (aggregate_args, aggregate_problem, estep_args, estep_problem, float64_update,
+                            in_order_addition, mstep_operands, mstep_problem, offset_view, side_stream_and_replay, t,
+                            update_problem)
 
 
 # the most rows an on-chip gather-sum slice holds at width 64 on an H100
@@ -189,14 +190,18 @@ def test_gpu_mstep_kernel_matches_plain(n_donors, power):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heavy", [False, True])
 @pytest.mark.parametrize("n_donors", [1, 32, 65])
 @pytest.mark.parametrize("power", [1.0, 2.0, 0.5])
 @pytest.mark.parametrize("runs", [(1,), (2,), (6,), (1, 2, 6), (7,)])
-def test_gpu_mstep_addition_is_bit_equal_in_order(n_donors, power, runs):
-    """Each (variant, donor) sum is one chain in call order: the kernel gives the in-order reference's bits."""
+def test_gpu_mstep_addition_is_bit_equal_in_order(n_donors, power, runs, heavy):
+    """Each (variant, donor) sum is one chain in call order up to CHUNK_CALLS calls, else the chain of its chunks'
+    chains: the kernel gives the in-order reference's bits. ``heavy`` adds variants of C − 1, C, C + 1, 2C + 1
+    and 100,000 calls, in runs of 1, 2 and 6."""
     _need_card()
-    p = update_problem(seed=n_donors, n_donors=n_donors, runs=runs)
+    p = update_problem(seed=n_donors, n_donors=n_donors, runs=runs, heavy=heavy)
     operands = mstep_operands(p["vid"], p["cb"], p["q"], p["n_variants"], len(p["post"]), "cuda")
+    assert (operands.plan.n_chunks > 0) == heavy
     post = t(p["post"], "cuda")
     got = mstep_addition(post, operands, n_donors, power)
     assert torch.equal(got, in_order_addition(post, operands, n_donors, power))
@@ -204,16 +209,20 @@ def test_gpu_mstep_addition_is_bit_equal_in_order(n_donors, power, runs):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heavy", [False, True])
 @pytest.mark.parametrize("n_donors", [1, 32, 65])
 @pytest.mark.parametrize("power", [1.0, 2.0, 0.5])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("runs", [(1,), (2,), (6,), (1, 2, 6)])
-def test_gpu_mstep_update_matches_plain(n_donors, power, masked, runs):
-    """One launch: the masked addition in order, and probs_from_betas' bits on it."""
+def test_gpu_mstep_update_matches_plain(n_donors, power, masked, runs, heavy):
+    """One launch: the masked addition in order (chunked past CHUNK_CALLS calls), and probs_from_betas' bits on
+    it. Beside a 100,000-call variant (``heavy``) the float32 plain path's own rounding moves genotype_prob by
+    more than 1e-6, so there genotype_prob is held at 1e-6 to probs_from_betas on the float64 addition."""
     _need_card()
-    p = update_problem(seed=n_donors + 7, n_donors=n_donors, runs=runs)
+    p = update_problem(seed=n_donors + 7, n_donors=n_donors, runs=runs, heavy=heavy)
     operands = mstep_operands(p["vid"], p["cb"], p["q"], p["n_variants"], len(p["post"]), "cuda",
                               snp_ptr=p["snp_ptr"])
+    assert (operands.plan.n_chunks > 0) == heavy
     mask = t(p["mask"], "cuda") if masked else None
     args = (t(p["post"], "cuda"), operands, t(p["prior"], "cuda"), mask, 0.01, n_donors, power)
     launches = mstep_update.launches
@@ -221,7 +230,8 @@ def test_gpu_mstep_update_matches_plain(n_donors, power, masked, runs):
     assert mstep_update.launches == launches + 1
     plain_addition, plain_gprob = mstep_update_plain(*args)
     np.testing.assert_allclose(addition.cpu().numpy(), plain_addition.cpu().numpy(), rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(gprob.cpu().numpy(), plain_gprob.cpu().numpy(), rtol=0, atol=1e-6)
+    want_gprob = float64_update(p, operands, mask, power, "cuda") if heavy else plain_gprob
+    np.testing.assert_allclose(gprob.cpu().numpy(), want_gprob.float().cpu().numpy(), rtol=0, atol=1e-6)
     in_order = in_order_addition(args[0], operands, n_donors, power)
     assert torch.equal(addition, in_order if mask is None else in_order * mask)
     betas = args[2] + addition
@@ -229,6 +239,30 @@ def test_gpu_mstep_update_matches_plain(n_donors, power, masked, runs):
                                                  p["max_per_snp"]))
     again = mstep_update(*args)
     assert torch.equal(again[0], addition) and torch.equal(again[1], gprob)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_donors", [1, 32, 65])
+@pytest.mark.parametrize("entry", ["addition", "update"])
+def test_gpu_mstep_chunk_tickets_reset_themselves(entry, n_donors):
+    """Split runs' tickets go back to 0 at the end of each launch: repeated launches, one on a side stream, and a
+    CUDA graph's replay give the first launch's bits."""
+    _need_card()
+    p = update_problem(seed=n_donors + 3, n_donors=n_donors, heavy=True)
+    operands = mstep_operands(p["vid"], p["cb"], p["q"], p["n_variants"], len(p["post"]), "cuda",
+                              snp_ptr=p["snp_ptr"])
+    post, prior, mask = t(p["post"], "cuda"), t(p["prior"], "cuda"), t(p["mask"], "cuda")
+    if entry == "addition":
+        launch = lambda: mstep_addition(post, operands, n_donors, 2.0)  # noqa: E731
+    else:
+        launch = lambda: torch.stack(mstep_update(post, operands, prior, mask, 0.01, n_donors, 2.0))  # noqa: E731
+    first = launch()
+    assert all(torch.equal(launch(), first) for _ in range(3))
+    on_side, replayed = side_stream_and_replay(launch)
+    assert torch.equal(on_side, first) and torch.equal(replayed, first)
+    assert not operands.plan.tickets.any()
+    want = in_order_addition(post, operands, n_donors, 2.0)
+    assert torch.equal(first if entry == "addition" else first[0], want if entry == "addition" else want * mask)
 
 
 _TRAP_SCRIPT = """

@@ -3,6 +3,7 @@ import numpy as np
 import torch
 
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_operands
+from demuxalot_tpu_torch.ops.mstep_kernel import CHUNK_CALLS
 from demuxalot_tpu_torch.ops.mstep_kernel import mstep_operands as build_mstep_operands
 from demuxalot_tpu_torch.ops.packing import csr_row_pointers
 from oracle import oracle_probs_from_betas
@@ -73,19 +74,38 @@ def mstep_problem(seed=13, n_variants=300, n_donors=6, n_barcodes=150, n_calls=2
     return post, vid[order], cb[order], q[order], n_variants, n_donors
 
 
-def update_problem(seed=17, n_donors=6, runs=(1, 2, 6), n_snps=60, n_barcodes=150, n_calls=20000):
+# calls of the first 10 variants of update_problem(heavy=True) (-1: drawn; variant 3, the 7th's, has none)
+HEAVY_CALLS = np.array([CHUNK_CALLS - 1, CHUNK_CALLS + 1, 100_000, 0, CHUNK_CALLS, 2 * CHUNK_CALLS + 1, -1, -1,
+                        CHUNK_CALLS, CHUNK_CALLS + 1])
+
+
+def update_problem(seed=17, n_donors=6, runs=(1, 2, 6), n_snps=60, n_barcodes=150, n_calls=20000, heavy=False):
     """An EM step's M-step inputs with SNP runs whose lengths are drawn from ``runs``.
 
     Every 7th variant has no calls, every 53rd call is padding (q = 1), every
     5th variant's prior is 0 and 3 variants in 10 are off the anchor mask.
     Calls are (vid, cb)-sorted; ``snp_ptr`` cuts the variant rows into runs.
+    With ``heavy``, four runs come first that hold variants of around
+    C = ``CHUNK_CALLS`` calls and more (``HEAVY_CALLS``), the drawn runs after
+    them: a run of 2 (C − 1 and C + 1 calls), a run of 6 (100,000 calls, an
+    empty variant, C and 2C + 1 calls, two drawn ones) and runs of 1 of C
+    and of C + 1 calls.
     """
     rng = np.random.RandomState(seed)
     lengths = rng.choice(np.asarray(runs), n_snps)
+    if heavy:
+        lengths = np.concatenate([[2, 6, 1, 1], lengths])
+        n_snps += 4
     variant2snp = np.repeat(np.arange(n_snps, dtype=np.int32), lengths)
     n_variants = len(variant2snp)
     vid = rng.randint(0, n_variants, n_calls).astype(np.int32)
     cb = rng.randint(0, n_barcodes, n_calls).astype(np.int32)
+    if heavy:
+        exact = np.flatnonzero(HEAVY_CALLS >= 0)
+        keep = ~np.isin(vid, exact)
+        extra = np.repeat(exact, HEAVY_CALLS[exact]).astype(np.int32)
+        vid = np.concatenate([vid[keep], extra])
+        cb = np.concatenate([cb[keep], rng.randint(0, n_barcodes, len(extra)).astype(np.int32)])
     keep = vid % 7 != 3
     vid, cb = vid[keep], cb[keep]
     q = (rng.rand(len(vid)) * 0.7).astype(np.float32)
@@ -108,25 +128,56 @@ def mstep_operands(vid, cb, q, n_variants, n_barcodes, device="cpu", snp_ptr=Non
                                 t(q, device), n_barcodes, snp_ptr=None if snp_ptr is None else t(snp_ptr, device))
 
 
-def in_order_addition(posterior, operands, n_genotypes, power):
-    """The M-step addition as the kernels define it, in PyTorch: each (v, d) sum one chain in call order.
+def in_order_addition(posterior, operands, n_genotypes, power, chunk=CHUNK_CALLS):
+    """The M-step addition as the kernels define it, in PyTorch: a variant's calls cut in call order into chunks
+    of ``chunk`` (None: one chunk a variant), each chunk's sum one chain in call order from +0, and the chunk
+    sums one chain in chunk order from +0. A variant of at most ``chunk`` calls is one chain in call order.
 
-    Step k adds every variant's k-th call: ``w = post·(1 − q)``, the term
+    Step k adds the k-th call of every chunk: ``w = post·(1 − q)``, the term
     ``w ** power`` (0 where q ≥ 1) and ``acc + term``, each its own op, so
-    every multiply and add is rounded on its own, as in ``csrc/mstep.cu``.
+    every multiply and add is rounded on its own, as in ``csrc/mstep.cu``;
+    then step j adds every variant's j-th chunk sum.
     """
     o = operands
     counts = o.var_ptr.diff()
+    longest = int(counts.max()) if counts.numel() else 0
+    size = max(1, longest) if chunk is None else chunk
     rank = torch.arange(o.cb.shape[0], device=o.cb.device) - o.var_ptr[o.vid.long()]
-    acc = posterior.new_zeros((o.n_variants, n_genotypes))
-    for k in range(int(counts.max()) if counts.numel() else 0):
-        calls = torch.nonzero(rank == k).squeeze(1)
+    per_variant = (counts + size - 1) // size
+    first = per_variant.cumsum(0) - per_variant  # the variant's first chunk
+    slot = first[o.vid.long()] + rank // size
+    position = rank % size
+    sums = posterior.new_zeros((int(per_variant.sum()), n_genotypes))
+    for k in range(min(size, longest)):
+        calls = torch.nonzero(position == k).squeeze(1)
         q = o.q[calls].unsqueeze(1)
         w = posterior[o.cb[calls].long(), :n_genotypes] * (1 - q)
         term = torch.where(q >= 1, 0.0, w ** power)
-        rows = o.vid[calls].long()
-        acc[rows] = acc[rows] + term
+        rows = slot[calls]
+        sums[rows] = sums[rows] + term
+    acc = posterior.new_zeros((o.n_variants, n_genotypes))
+    for j in range(int(per_variant.max()) if per_variant.numel() else 0):
+        variants = torch.nonzero(per_variant > j).squeeze(1)
+        acc[variants] = acc[variants] + sums[first[variants] + j]
     return acc
+
+
+def float64_update(p, operands, mask, power, device="cpu"):
+    """probs_from_betas(prior + addition·mask) with the addition summed in float64 (index_add_): where a variant has
+    100,000 calls (``update_problem(heavy=True)``) the float32 plain path's own rounding moves genotype_prob by more
+    than 1e-6, so that bar is held against this."""
+    from demuxalot_tpu_torch.ops.likelihood import probs_from_betas
+
+    o, n_donors = operands, p["n_donors"]
+    q = o.q.double().unsqueeze(1)
+    w = t(p["post"], device).double()[o.cb.long(), :n_donors] * (1 - q)
+    terms = torch.where(q >= 1, 0.0, w ** power)
+    addition = torch.zeros((o.n_variants, n_donors), dtype=torch.float64, device=device).index_add_(
+        0, o.vid.long(), terms)
+    if mask is not None:
+        addition = addition * mask.double()
+    return probs_from_betas(t(p["prior"], device).double() + addition, t(p["variant2snp"], device), p["n_snps"], 0.01,
+                            p["max_per_snp"])
 
 
 # the edge barcodes of aggregate_problem(edges=True): each a list of group sizes (calls of one SNP a group). One
