@@ -51,7 +51,12 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    without a mask); both M-step kernels at 1, 2, 4, 8 and 16 row reads in
    flight, in turns; the same M-step checks and times on a second pool in
    the bench cells' shape (``SKEWED``, drawn from ``--seed``), whose work
-   plan has chunk units where the flat pool has none; ``torch.softmax`` alone on the bench logits (the
+   plan has chunk units where the flat pool has none; that pool again at 64 donors, 2,080 columns (the
+   ``pbmc64_65k`` cells' paths): the fused E-step in its 4 schedule passes and the fused aggregate kernel with
+   its row split over a block's warps against their plain versions (the aggregate's in blocks of barcodes), the
+   fused M-step in 2 donor blocks bit for bit against the in-order reference and against its plain version, and
+   each one's launches, time and bound with an EM iteration through either likelihood;
+   ``torch.softmax`` alone on the bench logits (the
    epilogue's library call), and the fused E-step with its log fold through
    ``logf`` against the default MUFU log2, in turns; then what the recorder
    costs: the host µs an EM iteration takes to issue (100 a window, no
@@ -225,7 +230,8 @@ of them in ``ab_launches``; ``mstep_update`` stands beside
 depth in flight; ``aggregated_logits``'s ``ms`` is its fused call at
 528 columns, 32 columns and 64 donors in ``by_columns`` and ``d64``, groups
 of 8 molecules in ``many_molecules``, each instantiation by width in
-``by_instantiation``, the wrapper's ``host_us``; the
+``by_instantiation``, the wrapper's ``host_us``; the E-step's, ``mstep_update``'s and
+``aggregated_logits``' ``pool64``, their ``ms``, ``bound_ms`` and launches on phase 5's 64-donor pool; the
 experiments' kernels' runs in 9b-d, 10b and 11b-d;
 ``bound_ms`` is the least time the card could take for the call that
 ``ms`` times, from ``utils.profiling``, the banded kernels' that of the
@@ -249,8 +255,9 @@ the line before it is nvidia-smi's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --tracing`` runs only phases 1, 2 and 4 and the
-recorder's cost of phase 5; ``--trace-dir DIR`` keeps phase 4's
-``trace.json`` in ``DIR``.
+recorder's cost of phase 5; ``--pool64`` only phases 1, 2 and phase 5's
+64-donor pool; ``--trace-dir DIR`` keeps phase 4's ``trace.json`` in
+``DIR``.
 
 ``python3 chip_smoke.py --parent DIR`` runs only the comparison of this
 tree with the one under ``DIR`` (an unpacked older commit): phases 1-2,
@@ -1318,62 +1325,13 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
 def _skewed_data(seed: int, n_barcodes: int = BENCH["n_barcodes"], n_donors: int = BENCH["n_donors"],
                  n_snps: int = BENCH["n_snps"], calls_per_barcode: int = BENCH["calls_per_barcode"]):
     """(genotypes, handler, packed) of a pool in the bench cells' shape (``SKEWED``), drawn with numpy from
-    ``seed``: ``sim.synthesize_compressed_calls``' model (two alleles a SNP, 20% doublets, 2% flips, Phred 20-40)
-    with each barcode's calls the log-normal's quantiles in the seed's order and each SNP's calls its Zipf share
-    (largest remainders to the top ranks). Its most expressed SNPs hold variants of tens of thousands of calls,
-    past ``CHUNK_CALLS``, where BENCH's flat pool holds none."""
-    from statistics import NormalDist
+    ``seed`` (``tests/torch_problems.py:skewed_pool``). Its most expressed SNPs hold variants of tens of thousands
+    of calls, past ``CHUNK_CALLS``, where BENCH's flat pool holds none."""
+    from torch_problems import skewed_pool
 
-    from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer
-    from demuxalot_tpu_torch.frontend.snp_counter import MOLECULE_DTYPE, SNP_CALL_DTYPE, CompressedSNPCalls
-    from demuxalot_tpu_torch.models.genotypes import ProbabilisticGenotypes
-
-    sigma, stride = SKEWED["calls_per_barcode_sigma"], SKEWED["snp_rank_stride"]
-    rng = np.random.RandomState([seed & 0xFFFFFFFF, seed >> 32])
-    donor_allele = rng.randint(0, 2, size=(n_snps, n_donors))
-    genotypes = ProbabilisticGenotypes([f"Donor{i + 1:02}" for i in range(n_donors)])
-    for pos in range(n_snps):
-        for base in ("A", "C"):
-            genotypes.get_variant_id("chr1", pos, base)
-    betas = np.full((2 * n_snps, n_donors), 0.5, dtype=np.float32)
-    betas[np.arange(n_snps)[:, None] * 2 + donor_allele, np.arange(n_donors)] = 100.0
-    genotypes = genotypes._with_betas(betas)
-
-    z = np.array([NormalDist().inv_cdf((i + 0.5) / n_barcodes) for i in range(n_barcodes)])
-    sizes = np.maximum(1, np.rint(calls_per_barcode * np.exp(sigma * z - sigma * sigma / 2))).astype(np.int64)
-    cb = np.repeat(np.arange(n_barcodes, dtype=np.int32), sizes[rng.permutation(n_barcodes)])
-    n_calls = len(cb)
-    primary = rng.randint(0, n_donors, size=n_barcodes)
-    secondary = (primary + 1 + rng.randint(0, n_donors - 1, size=n_barcodes)) % n_donors
-    doublet = rng.rand(n_barcodes) < 0.2
-    donor = np.where(doublet[cb] & (rng.rand(n_calls) < 0.5), secondary[cb], primary[cb])
-    weight = 1.0 / np.arange(1, n_snps + 1, dtype=np.float64) ** SKEWED["snp_zipf"]
-    share = n_calls * weight / weight.sum()
-    by_rank = np.floor(share).astype(np.int64)
-    by_rank[:n_calls - int(by_rank.sum())] += 1
-    rank, per = np.arange(n_snps), n_snps // stride
-    per_snp = np.empty(n_snps, dtype=np.int64)
-    per_snp[(rank % per) * stride + rank // per] = by_rank
-    snp = np.repeat(np.arange(n_snps, dtype=np.int32), per_snp)[rng.permutation(n_calls)]
-    allele = donor_allele[snp, donor]
-    allele = np.where(rng.rand(n_calls) < 0.02, 1 - allele, allele)
-    q = (0.1 ** (0.1 * rng.randint(20, 41, size=n_calls))).astype(np.float32)
-
-    molecules = np.empty(n_calls, dtype=MOLECULE_DTYPE)
-    molecules["compressed_cb"] = cb
-    molecules["compressed_ub"] = np.arange(n_calls, dtype=np.int32)
-    molecules["p_group_misaligned"] = 0.01
-    snp_calls = np.empty(n_calls, dtype=SNP_CALL_DTYPE)
-    snp_calls["molecule_index"] = np.arange(n_calls, dtype=np.int32)
-    snp_calls["snp_position"] = snp
-    snp_calls["base_index"] = allele.astype(np.uint8)  # A = 0, C = 1
-    snp_calls["p_base_wrong"] = q
-    calls = CompressedSNPCalls()
-    calls.molecules = molecules
-    calls.snp_calls = snp_calls
-    calls._finalized = True
-    handler = BarcodeHandler([f"BC{b:06d}" for b in range(n_barcodes)])
-    return genotypes, handler, Demultiplexer.pack_dataset({"chr1": calls}, genotypes)
+    return skewed_pool(seed, n_barcodes, n_donors, n_snps, calls_per_barcode,
+                       sigma=SKEWED["calls_per_barcode_sigma"], zipf=SKEWED["snp_zipf"],
+                       stride=SKEWED["snp_rank_stride"])
 
 
 def phase_skewed_mstep(card: str, seed: int) -> dict:
@@ -1452,6 +1410,169 @@ def phase_skewed_mstep(card: str, seed: int) -> dict:
                    split_calls=o.plan.split_calls, split_units=o.plan.n_chunks,
                    em_iteration_ms=sum(ms["em_iteration"]) / 2, max_abs_err=errors, bit_equal_in_order=True)
     say("timing", step="skewed_mstep", card=card, ms=ms, **summary, **result, seconds=time.perf_counter() - t0)
+    return {**result, **summary}
+
+
+# phase 5's 64-donor pool: BENCH's sizes in the bench cells' shape (SKEWED) at bench_h100/configs/pbmc64_65k.json's
+# 64 donors, 2,080 columns at DOUBLET_PRIOR
+POOL64_DONORS = 64
+# barcodes a block of the aggregate kernel's plain comparison there: the plain chain's [groups, 2,080] f32
+# temporaries over the whole pool (3.5M groups, 29 GB each) would not fit the card together
+POOL64_PLAIN_BARCODES = 8_192
+
+
+def _aggregate_block(operands, b0: int, b1: int):
+    """``operands``' barcodes [b0, b1), with their groups and calls, as operands of their own
+    (``aggregate_operands``)."""
+    from demuxalot_tpu_torch.ops.aggregate_kernel import aggregate_operands
+
+    o = operands
+    g0, g1 = int(o.barcode_ptr[b0]), int(o.barcode_ptr[b1])
+    c0, c1 = int(o.group_ptr[g0]), int(o.group_ptr[g1])
+    return aggregate_operands(o.pairs.cpu().numpy(), o.n_donors, o.vid[c0:c1], o.q[c0:c1],
+                              o.group_ptr[g0:g1 + 1] - c0, o.barcode_ptr[b0:b1 + 1] - g0, o.n_variants,
+                              o.compensation, o.p_bad_snp)
+
+
+def phase_pool64(card: str, seed: int) -> dict:
+    """Phase 5 at 64 donors, the paths of ``pbmc64_65k``'s cells at their scale: BENCH's sizes in the bench cells'
+    shape (``_skewed_data``) with 64 donors, 2,080 columns at ``DOUBLET_PRIOR``. The fused E-step (its schedule in
+    4 passes) and the fused aggregate kernel (the row split over a block's warps) against their plain versions at
+    the logits and posterior bars, the aggregate's plain version in blocks of ``POOL64_PLAIN_BARCODES`` barcodes;
+    the fused M-step (2 blocks of 32 donors, variants past ``CHUNK_CALLS`` in chunks), with and without a mask, bit
+    for bit against the in-order reference and ``probs_from_betas`` on its own addition, and against its plain
+    version; then each kernel's launches in this phase, its time (kernel and plain in turns; the aggregate kernel
+    alone, its plain version does not fit whole), its bound, and an EM iteration through either likelihood."""
+    from demuxalot_tpu_torch import Demultiplexer
+    from demuxalot_tpu_torch.models.demux import _Likelihood
+    from demuxalot_tpu_torch.ops import aggregate_kernel as AK
+    from demuxalot_tpu_torch.ops import likelihood as L
+    from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
+    from demuxalot_tpu_torch.ops.mstep_kernel import mstep_update, mstep_update_plain
+    from demuxalot_tpu_torch.utils.profiling import AggregateRoofline, MStepRoofline, Roofline
+    from torch_problems import in_order_addition
+
+    t0 = time.perf_counter()
+    launches_before = _launches()
+    torch.cuda.reset_peak_memory_stats()
+    genotypes, handler, packed = _skewed_data(seed, n_donors=POOL64_DONORS)
+    cuda = torch.device("cuda")
+    n_barcodes, n_genotypes = handler.n_barcodes, POOL64_DONORS
+    lik = _Likelihood(packed, n_barcodes, genotypes.genotype_names, DOUBLET_PRIOR, cuda)
+    groups = packed.aggregate_operands(n_barcodes, n_genotypes, DOUBLET_PRIOR, cuda)
+    o = lik.mstep
+    n_pg, passes, plan = lik.n_options, int(lik.estep.schedule.shape[0]), AK.aggregate_plan(lik.n_options)
+    require(n_pg == 2080 and passes == 4, f"64 donors: 2,080 columns in 4 E-step passes, got {n_pg} in {passes}")
+    require(plan[0] == 0, f"2,080 columns: the aggregate row split over a block's warps, got plan {plan}")
+    require(o.snp_ptr is not None and o.plan.n_chunks > 0, "64-donor pool: SNP runs, and chunk units in the plan")
+    reindex = packed.reindex
+    variant2snp = torch.from_numpy(reindex.variant2snp).to(cuda)
+    n_snps, window = int(packed.variant2snp.max()) + 1, reindex.windowed_max_per_snp
+    betas = torch.from_numpy(reindex.permute_rows(packed.betas_for(genotypes, False))).to(cuda)
+    gprob = L.probs_from_betas(betas, variant2snp, n_snps, 0.01, window)
+
+    # the E-step: its fused call against the plain logits + torch.softmax
+    estep = lambda: estep_logits(gprob, lik.estep, softmax=True)  # noqa: E731
+    estep_plain = lambda: estep_logits_plain(gprob, lik.estep, softmax=True)  # noqa: E731
+    logits, probs = estep()
+    want_logits, want_probs = estep_plain()
+    errors = {"estep_softmax": {
+        "logits": compare("64-donor estep logits", logits, want_logits, **LOGITS_TOL),
+        "posteriors": compare("64-donor estep posteriors", probs, want_probs, 0.0, POSTERIOR_ATOL),
+        "argmax_agreement": float((probs.argmax(1) == want_probs.argmax(1)).float().mean())}}
+    row_err = float((probs.sum(dim=1) - 1).abs().max())
+    require(row_err <= 1e-5, f"64-donor estep: rows sum to 1 within {row_err}")
+    del logits, want_logits, want_probs
+
+    # the aggregate kernel: two runs bit-equal, then block by block against its plain version
+    aggregate = lambda: AK.aggregated_logits(gprob, groups, softmax=True)  # noqa: E731
+    a_logits, a_probs = aggregate()
+    again = aggregate()
+    require(torch.equal(a_logits, again[0]) and torch.equal(a_probs, again[1]),
+            "64-donor aggregate: two runs bit-equal")
+    del again
+    a_errors, agree = {"logits": 0.0, "posteriors": 0.0}, 0
+    for b0 in range(0, n_barcodes, POOL64_PLAIN_BARCODES):
+        b1 = min(n_barcodes, b0 + POOL64_PLAIN_BARCODES)
+        want_logits, want_probs = AK.aggregated_logits_plain(gprob, _aggregate_block(groups, b0, b1), softmax=True)
+        a_errors["logits"] = max(a_errors["logits"], compare(f"64-donor aggregate logits, barcodes {b0}-{b1}",
+                                                             a_logits[b0:b1], want_logits, **LOGITS_TOL))
+        a_errors["posteriors"] = max(a_errors["posteriors"], compare(
+            f"64-donor aggregate posteriors, barcodes {b0}-{b1}", a_probs[b0:b1], want_probs, 0.0, POSTERIOR_ATOL))
+        agree += int((a_probs[b0:b1].argmax(1) == want_probs.argmax(1)).sum())
+        del want_logits, want_probs
+    errors["aggregated_logits"] = {**a_errors, "argmax_agreement": agree / n_barcodes}
+    del a_logits, a_probs
+
+    # the M-step on the E-step's posteriors, with and without a mask
+    power = float(Demultiplexer.contribution_power)
+    prior = torch.from_numpy(reindex.permute_rows(packed.betas_for(genotypes, True))).to(cuda)
+    anchor = (torch.arange(packed.n_variants, device=cuda) % 3 != 0).to(torch.float32)[:, None]
+    in_order = in_order_addition(probs, o, n_genotypes, power)
+    errors["mstep_update"] = {}
+    for mask in (None, anchor):
+        masked = "mask" if mask is not None else "no mask"
+        addition, update_gprob = mstep_update(probs, o, prior, mask, 0.01, n_genotypes, power)
+        require(torch.equal(addition, in_order if mask is None else in_order * mask),
+                f"64-donor mstep_update ({masked}): addition bit-equal in order")
+        require(torch.equal(update_gprob, L.probs_from_betas(prior + addition, variant2snp, n_snps, 0.01, window)),
+                f"64-donor mstep_update ({masked}): genotype_prob bit-equal to probs_from_betas")
+        plain_addition, plain_gprob = mstep_update_plain(probs, o, prior, mask, 0.01, n_genotypes, power)
+        errors["mstep_update"][masked] = {
+            "addition": compare(f"64-donor mstep_update addition ({masked})", addition, plain_addition,
+                                **ADDITION_TOL),
+            "genotype_prob": compare(f"64-donor mstep_update genotype_prob ({masked})", update_gprob, plain_gprob,
+                                     0.0, 1e-6)}
+    del in_order, addition, update_gprob, plain_addition, plain_gprob
+
+    update_args = (probs, o, prior, None, 0.01, n_genotypes, power)
+    runs = {"estep_softmax": (estep, estep_plain),
+            "mstep_update": (lambda: mstep_update(*update_args), lambda: mstep_update_plain(*update_args))}
+    samples = {name: {"plain": [], "kernel": []} for name in runs}
+    for name, (kernel, plain) in runs.items():
+        for which in ("plain", "kernel", "kernel", "plain"):
+            samples[name][which].append(_time_ms(plain if which == "plain" else kernel, repeats=5))
+    samples["aggregated_logits"] = {"kernel": [_time_ms(aggregate, repeats=5) for _ in range(2)], "plain": []}
+    del probs
+    em_ms = {"estep_softmax": [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)]}
+    saved = Demultiplexer.aggregate_on_snps
+    Demultiplexer.aggregate_on_snps = True
+    try:
+        em_ms["aggregated_logits"] = [_em_iteration_ms(genotypes, handler, packed) for _ in range(2)]
+    finally:
+        Demultiplexer.aggregate_on_snps = saved
+
+    n_variants = packed.n_variants
+    run_lengths = np.diff(reindex.snp_pointers())
+    bounds = {
+        "estep_softmax": Roofline(n_calls=int(lik.calls.q_b.shape[0]), n_donors=n_genotypes, n_pseudogenotypes=n_pg,
+                                  n_barcodes=n_barcodes, n_variants=n_variants, softmax=True),
+        "mstep_update": MStepRoofline(n_calls=int(o.cb.shape[0]), n_donors=n_genotypes, n_barcodes=n_barcodes,
+                                      n_variants=n_variants, n_runs=len(run_lengths),
+                                      neighbour_adds=int((run_lengths * (run_lengths - 1)).sum())),
+        "aggregated_logits": AggregateRoofline(n_calls=int(groups.vid.shape[0]), n_groups=groups.n_groups,
+                                               n_barcodes=n_barcodes, n_variants=n_variants, n_donors=n_genotypes,
+                                               n_pseudogenotypes=n_pg, softmax=True)}
+    launches = {name: count - launches_before[name] for name, count in _launches().items()}
+    wrappers = {"estep_softmax": "estep_logits", "mstep_update": "mstep_update",
+                "aggregated_logits": "aggregated_logits"}
+    result = {}
+    for name, bound in bounds.items():
+        kernel_ms = sum(samples[name]["kernel"]) / 2
+        plain = samples[name]["plain"]
+        result[name] = {"ms": kernel_ms, "plain_ms": sum(plain) / 2 if plain else None,
+                        "bound_ms": bound.speed_of_light_s() * 1e3, "bound_by": bound.bound_by(),
+                        "share_of_bound": bound.speed_of_light_s() * 1e3 / kernel_ms,
+                        "launches": launches[wrappers[name]], "max_abs_err": errors[name]}
+        if name in em_ms:
+            result[name]["em_iteration_ms"] = sum(em_ms[name]) / 2
+    counts = np.diff(o.var_ptr.cpu().numpy())
+    summary = dict(seed=seed, n_donors=n_genotypes, n_columns=n_pg, estep_passes=passes, aggregate_plan=list(plan),
+                   n_calls=int(o.cb.shape[0]), n_groups=groups.n_groups, longest_variant=int(counts.max()),
+                   split_calls=o.plan.split_calls, split_units=o.plan.n_chunks, mstep_bit_equal_in_order=True,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+    say("timing", step="pool64", card=card, samples_ms=samples, em_iteration_samples_ms=em_ms, **summary, **result,
+        seconds=time.perf_counter() - t0)
     return {**result, **summary}
 
 
@@ -3518,7 +3639,8 @@ def main() -> int:
     parser.add_argument("--tracing", action="store_true",
                         help="run phases 1, 2 and 4 and the recorder's cost only")
     parser.add_argument("--trace-dir", type=Path, help="keep phase 4's trace.json in this directory")
-    parser.add_argument("--seed", type=int, default=0, help="the seed of phase 5's skewed pool (default 0)")
+    parser.add_argument("--seed", type=int, default=0, help="the seed of phase 5's skewed pools (default 0)")
+    parser.add_argument("--pool64", action="store_true", help="run phases 1 and 2 and phase 5's 64-donor pool only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3538,6 +3660,10 @@ def main() -> int:
         phase_main(genotypes, handler, packed, truth, args.trace_dir)
         phase_tracing_cost(genotypes, handler, packed, card)
         return 0
+    if args.pool64:
+        phase_build()
+        phase_pool64(card, args.seed)
+        return 0
     seconds, mark = {}, [time.perf_counter()]
 
     def lap(name: str) -> None:  # the host seconds of each phase since the last lap
@@ -3554,6 +3680,7 @@ def main() -> int:
     lap("main")
     timing = phase_timing(genotypes, handler, packed, main_result, card)
     skewed = phase_skewed_mstep(card, args.seed)
+    pool64 = phase_pool64(card, args.seed)
     lap("timing")
     phase_tracing_cost(genotypes, handler, packed, card)
     lap("tracing")
@@ -3612,7 +3739,7 @@ def main() -> int:
          "ms": fused, "plain_ms": t["estep_softmax"]["plain_ms_mean"], **bound("estep_softmax"),
          "share_of_bound": bound("estep_softmax")["bound_ms"] / fused, "library_ms": None,
          "logits_only_ms": t["estep"]["kernel_ms_mean"], "logf_ms": t["log_fold_ms"]["logf"],
-         "softmax_library_ms": t["torch_softmax_ms"]},
+         "softmax_library_ms": t["torch_softmax_ms"], "pool64": pool64["estep_softmax"]},
         {"name": "mstep_addition", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/mstep.cu",
          "replaces": "demuxalot_tpu/ops/pallas_mstep.py:56", **launches("mstep_addition"),
          "max_abs_err": timing["mstep_err"],
@@ -3632,7 +3759,9 @@ def main() -> int:
          "in_flight_ms": t["in_flight_ms"]["mstep_update"],
          "skewed_pool": {**skewed["mstep_update"], "em_iteration_ms": skewed["em_iteration_ms"],
                          "split_calls": skewed["split_calls"], "split_units": skewed["split_units"],
-                         "max_abs_err": skewed["max_abs_err"]}},
+                         "max_abs_err": skewed["max_abs_err"]},
+         "pool64": {**pool64["mstep_update"], "split_calls": pool64["split_calls"],
+                    "split_units": pool64["split_units"]}},
     ]
     # the aggregate E-step: an XLA op of the JAX package, its hand kernel on the aggregate EM and predict; ms at
     # the predict's 528 columns (fused softmax), the learn run's 32 and 64 donors beside it
@@ -3649,6 +3778,7 @@ def main() -> int:
         "by_columns": {str(n): {k: case[k] for k in case_keys} for n, case in aggregate["widths"].items()},
         "d64": {k: aggregate["d64"][k] for k in case_keys},
         "many_molecules": {k: aggregate["many"][k] for k in case_keys}, "by_instantiation": aggregate["sweep"],
+        "pool64": {**pool64["aggregated_logits"], "n_groups": pool64["n_groups"], "plan": pool64["aggregate_plan"]},
         "host_us": aggregate["host_us"], "predict_peak_bytes": aggregate["predict_peak"], "plain_predict_peak_bytes": aggregate["plain_predict_peak"],
         "em_iteration_ms": aggregate["em_ms"], "plain_em_iteration_ms": aggregate["plain_em_ms"],
         "predict_s": aggregate["predict_s"], "plain_predict_s": aggregate["plain_predict_s"]})

@@ -29,8 +29,8 @@ from demuxalot_tpu_torch.ops import likelihood as L
 from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain, mstep_update, mstep_update_plain
 from oracle import oracle_barcode_logits
 from torch_problems import (aggregate_args, aggregate_problem, estep_args, estep_problem, float64_update,
-                            in_order_addition, mstep_operands, mstep_problem, offset_view, side_stream_and_replay, t,
-                            update_problem)
+                            in_order_addition, mstep_operands, mstep_problem, offset_view, side_stream_and_replay,
+                            skewed_pool, t, update_problem)
 
 
 # the most rows an on-chip gather-sum slice holds at width 64 on an H100
@@ -459,6 +459,45 @@ def test_gpu_aggregate_em_matches_plain(engine_problem, monkeypatch):
     cpu = learn()
     np.testing.assert_allclose(result.state.probs.cpu().numpy(), cpu.state.probs.numpy(), atol=3e-5)
     assert bool((result.state.probs.sum(dim=1) - 1).abs().max() <= 1e-5)
+
+
+@pytest.fixture
+def pool_64(monkeypatch):
+    """A 64-donor pool (2,080 columns at prior 0.35) in the benchmark cells' shape, 4,000 barcodes over 512 SNPs
+    (``skewed_pool``), whose SNPs fall by Zipf rank, so that its top variants hold several CHUNK_CALLS of calls, on
+    the card's engine."""
+    _need_card()
+    monkeypatch.setattr(Demultiplexer, "device", "cuda")
+    monkeypatch.setattr(Demultiplexer, "aggregate_on_snps", Demultiplexer.aggregate_on_snps)
+    genotypes, handler, packed = skewed_pool(2_160_484_777, n_barcodes=4000, n_donors=64, n_snps=512,
+                                             calls_per_barcode=24)
+    return packed, genotypes, handler
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggregate", [False, True])
+def test_gpu_em_at_64_donors_adds_in_order_and_matches_plain(pool_64, monkeypatch, aggregate):
+    """``_EMRun`` at 64 donors through either likelihood: every M-step (two blocks of 32 donors, variants past
+    CHUNK_CALLS in chunks) gives the in-order addition's bits, and the iterations lie within the E-step's bars of
+    the plain versions' run."""
+    _need_card()
+    packed, genotypes, handler = pool_64
+    monkeypatch.setattr(Demultiplexer, "aggregate_on_snps", aggregate)
+
+    def iterations():
+        run = demux._EMRun(packed, genotypes, handler, 3, 0.01, 0.35, None)
+        return run, list(run.device_iterations())
+
+    run, states = iterations()
+    mstep = run.likelihood.mstep
+    assert run.likelihood.n_options == 2080 and mstep.plan.n_chunks > 0
+    for before, after in zip(states, states[1:]):
+        assert torch.equal(after.addition, in_order_addition(before.probs, mstep, 64, 2.0))
+    with _plain_versions():
+        _, plain = iterations()
+    for got, want in zip(states, plain):
+        np.testing.assert_allclose(got.logits.cpu().numpy(), want.logits.cpu().numpy(), rtol=1e-4, atol=5e-3)
+        np.testing.assert_allclose(got.probs.cpu().numpy(), want.probs.cpu().numpy(), atol=3e-5)
 
 
 @pytest.mark.gpu

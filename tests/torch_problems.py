@@ -237,3 +237,63 @@ def aggregate_args(problem, device="cpu", n_pg=None):
         assert pairs.shape[1] == n_pg, f"{n_donors} donors have fewer than {n_pg} columns"
     layout = _SnpAggregationLayout.build(problem["calls"], torch.device(device))
     return t(gprob, device), layout.operands(problem["n_barcodes"], pairs, n_donors, gprob.shape[0])
+
+
+def skewed_pool(seed, n_barcodes, n_donors, n_snps, calls_per_barcode, sigma=0.2, zipf=1.0, stride=64):
+    """(genotypes, handler, packed) of a pool in the benchmark cells' shape, drawn with numpy from ``seed``:
+    ``sim.synthesize_compressed_calls``' model (two alleles a SNP, 20% doublets, 2% flips, Phred 20-40) with each
+    barcode's calls the log-normal's quantiles (mean ``calls_per_barcode``, log-scale ``sigma``) in the seed's
+    order and each SNP's calls its Zipf share (1 / rank ** ``zipf``, largest remainders to the top ranks), the most
+    expressed SNPs every ``stride``-th position. Its most expressed SNPs hold variants of many calls, past
+    ``CHUNK_CALLS`` at a few thousand barcodes; ``n_snps`` is a multiple of ``stride``."""
+    from statistics import NormalDist
+
+    from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer
+    from demuxalot_tpu_torch.frontend.snp_counter import MOLECULE_DTYPE, SNP_CALL_DTYPE, CompressedSNPCalls
+    from demuxalot_tpu_torch.models.genotypes import ProbabilisticGenotypes
+
+    rng = np.random.RandomState([seed & 0xFFFFFFFF, seed >> 32])
+    donor_allele = rng.randint(0, 2, size=(n_snps, n_donors))
+    genotypes = ProbabilisticGenotypes([f"Donor{i + 1:02}" for i in range(n_donors)])
+    for pos in range(n_snps):
+        for base in ("A", "C"):
+            genotypes.get_variant_id("chr1", pos, base)
+    betas = np.full((2 * n_snps, n_donors), 0.5, dtype=np.float32)
+    betas[np.arange(n_snps)[:, None] * 2 + donor_allele, np.arange(n_donors)] = 100.0
+    genotypes = genotypes._with_betas(betas)
+
+    z = np.array([NormalDist().inv_cdf((i + 0.5) / n_barcodes) for i in range(n_barcodes)])
+    sizes = np.maximum(1, np.rint(calls_per_barcode * np.exp(sigma * z - sigma * sigma / 2))).astype(np.int64)
+    cb = np.repeat(np.arange(n_barcodes, dtype=np.int32), sizes[rng.permutation(n_barcodes)])
+    n_calls = len(cb)
+    primary = rng.randint(0, n_donors, size=n_barcodes)
+    secondary = (primary + 1 + rng.randint(0, n_donors - 1, size=n_barcodes)) % n_donors
+    doublet = rng.rand(n_barcodes) < 0.2
+    donor = np.where(doublet[cb] & (rng.rand(n_calls) < 0.5), secondary[cb], primary[cb])
+    weight = 1.0 / np.arange(1, n_snps + 1, dtype=np.float64) ** zipf
+    share = n_calls * weight / weight.sum()
+    by_rank = np.floor(share).astype(np.int64)
+    by_rank[:n_calls - int(by_rank.sum())] += 1
+    rank, per = np.arange(n_snps), n_snps // stride
+    per_snp = np.empty(n_snps, dtype=np.int64)
+    per_snp[(rank % per) * stride + rank // per] = by_rank
+    snp = np.repeat(np.arange(n_snps, dtype=np.int32), per_snp)[rng.permutation(n_calls)]
+    allele = donor_allele[snp, donor]
+    allele = np.where(rng.rand(n_calls) < 0.02, 1 - allele, allele)
+    q = (0.1 ** (0.1 * rng.randint(20, 41, size=n_calls))).astype(np.float32)
+
+    molecules = np.empty(n_calls, dtype=MOLECULE_DTYPE)
+    molecules["compressed_cb"] = cb
+    molecules["compressed_ub"] = np.arange(n_calls, dtype=np.int32)
+    molecules["p_group_misaligned"] = 0.01
+    snp_calls = np.empty(n_calls, dtype=SNP_CALL_DTYPE)
+    snp_calls["molecule_index"] = np.arange(n_calls, dtype=np.int32)
+    snp_calls["snp_position"] = snp
+    snp_calls["base_index"] = allele.astype(np.uint8)  # A = 0, C = 1
+    snp_calls["p_base_wrong"] = q
+    calls = CompressedSNPCalls()
+    calls.molecules = molecules
+    calls.snp_calls = snp_calls
+    calls._finalized = True
+    handler = BarcodeHandler([f"BC{b:06d}" for b in range(n_barcodes)])
+    return genotypes, handler, Demultiplexer.pack_dataset({"chr1": calls}, genotypes)
