@@ -268,8 +268,8 @@ cluster_gather_sum at [8192, 32] (4,194,304), eagerly
 (100 calls) and in a CUDA graph's replay, its split E-step at (2,2)
 and (0,0), group E-step at G 4 with 2 words and folded E-step at phase
 10b's shape, its banded E-step and M-step at phase 9b's shape, and its
-aggregate kernel's fused call at 32 and 528 columns and at 64 donors with
-the wrapper's host µs at 32 (a tree without the kernel has none), both
+aggregate kernel's fused call at 32 and 528 columns, at 64 donors and on
+the 32-column calls regrouped 8 a group, with the wrapper's host µs at 32 (a tree without the kernel has none), both
 streams at the harness's shape at all 8 steps with each step's route, in its
 own process, in turns (parent, this tree, this tree, parent). Then
 whether each output is bit-equal to the parent's on the same inputs: the
@@ -1550,7 +1550,9 @@ def phase_pool64(card: str, seed: int) -> dict:
         "mstep_update": MStepRoofline(n_calls=int(o.cb.shape[0]), n_donors=n_genotypes, n_barcodes=n_barcodes,
                                       n_variants=n_variants, n_runs=len(run_lengths),
                                       neighbour_adds=int((run_lengths * (run_lengths - 1)).sum())),
-        "aggregated_logits": AggregateRoofline(n_calls=int(groups.vid.shape[0]), n_groups=groups.n_groups,
+        # the longer groups alone: a group of one call takes one log a column (as in _aggregate_case)
+        "aggregated_logits": AggregateRoofline(n_calls=int(groups.vid.shape[0]),
+                                               n_groups=groups.n_groups - int((groups.group_ptr.diff() == 1).sum()),
                                                n_barcodes=n_barcodes, n_variants=n_variants, n_donors=n_genotypes,
                                                n_pseudogenotypes=n_pg, softmax=True)}
     launches = {name: count - launches_before[name] for name, count in _launches().items()}
@@ -2063,11 +2065,15 @@ def _aggregate_case(gprob, operands, what: str) -> dict:
     kernel_ms, plain_ms = sum(samples["kernel"]) / 2, sum(samples["plain"]) / 2
     n_variants, n_donors = gprob.shape
     n_pg = int(operands.pairs.shape[1])
-    bound = AggregateRoofline(n_calls=int(operands.vid.shape[0]), n_groups=operands.n_groups,
+    # the kernel closes a group of one call with one log a column, a longer group with an exp and a log: counted
+    # as the longer groups alone, AggregateRoofline's (calls + 2 x groups) x columns is exactly that work
+    n_groups_of_one = int((operands.group_ptr.diff() == 1).sum())
+    bound = AggregateRoofline(n_calls=int(operands.vid.shape[0]), n_groups=operands.n_groups - n_groups_of_one,
                               n_barcodes=operands.n_barcodes, n_variants=n_variants, n_donors=n_donors,
                               n_pseudogenotypes=n_pg, softmax=True)
     bound_ms = bound.speed_of_light_s() * 1e3
     return {"n_pg": n_pg, "n_groups": operands.n_groups, "n_calls": int(operands.vid.shape[0]),
+            "n_groups_of_one": n_groups_of_one,
             "n_barcodes": operands.n_barcodes, "errors": errors, "float64_errors": float64, "bit_equal_runs": True,
             "ms": kernel_ms, "plain_ms": plain_ms, "samples_ms": samples,
             "logits_only_ms": _time_ms(lambda: aggregated_logits(gprob, operands), repeats=5),
@@ -3453,7 +3459,8 @@ def steps_ms() -> dict:
 
 def _aggregate_steps(packed, handler, gprob, cuda) -> dict:
     """The aggregate kernel's fused call of the package on sys.path at 32 and 528 columns (the bench shape's EM and
-    predict operands) and at 64 donors (phase 7a's case): three samples each, the wrapper's host µs a call at 32
+    predict operands), at 64 donors and on the calls at 32 columns regrouped ``AGGREGATE_GROUP_CALLS`` a group
+    (phase 7a's cases): three samples each, the wrapper's host µs a call at 32
     columns, its outputs' bits; where ``CHIP_SMOKE_SAVE`` gives a path prefix, the logits and probs stacked into
     ``<prefix>_<case>.npy`` for the drift between trees. Nothing for a package without the kernel."""
     import os
@@ -3466,6 +3473,7 @@ def _aggregate_steps(packed, handler, gprob, cuda) -> dict:
     cases = {str(prior_pg): (gprob, packed.aggregate_operands(n_barcodes, n_donors, prior, cuda))
              for prior, prior_pg in ((0.0, 32), (DOUBLET_PRIOR, 528))}
     cases["d64"] = _aggregate_d64_inputs(cuda)
+    cases["many"] = (gprob, _regrouped(cases["32"][1], AGGREGATE_GROUP_CALLS))
     result, bits = {}, {}
     save = os.environ.get("CHIP_SMOKE_SAVE")
     for name, (g, operands) in cases.items():
@@ -3602,6 +3610,7 @@ def compare_with_parent(parent: Path, card: str) -> None:
         "take_along_axis_graph_ms", "tiny_ms", "tiny_graph_ms", "split_22_ms", "split_00_ms", "group_G4_ms",
         "folded_ms", "gather_sum_ms", "gather_sum_graph_ms", "cluster_gather_sum_ms", "cluster_gather_sum_graph_ms",
         "banded_estep_ms", "banded_mstep_ms", "aggregate_32_ms", "aggregate_528_ms", "aggregate_d64_ms",
+        "aggregate_many_ms",
         "aggregate_host_us", *(f"stream_{layout}_{step}_ms" for layout in ("cols", "rows")
                                for step in (512, 2048, 8192, 32768)))})
     # bit for bit: each output of this tree against the parent's on the same inputs, every run alike
@@ -3609,7 +3618,7 @@ def compare_with_parent(parent: Path, card: str) -> None:
             else "differs" for key in samples["this"][0]["bits"]}
     # the aggregate kernel's outputs, this tree's against the parent's (the runs of each tree are bit-equal)
     drift = {}
-    for case in ("32", "528", "d64"):
+    for case in ("32", "528", "d64", "many"):
         ours, theirs = (Path(f"{saved.name}/{which}_{case}.npy") for which in ("this", "parent"))
         if ours.is_file() and theirs.is_file():
             a, b = np.load(ours), np.load(theirs)

@@ -144,10 +144,14 @@ class _SnpAggregationLayout(NamedTuple):
         sorted_key = key[by_group]
         first = P._group_boundaries(sorted_key)
         groups_per_barcode = np.bincount(sorted_key[first] // snp_span)
+        group_ptr = np.append(first, len(key)).astype(np.int64)
+        # the groups of one call (the aggregate kernel closes them in the probability domain) among all of them
+        tracing.count("aggregate.groups", len(first))
+        tracing.count("aggregate.single_groups", int(np.count_nonzero(np.diff(group_ptr) == 1)))
         return cls(
             vid=_to_device(molecule_calls.variant_id[by_group].astype(np.int32), device),
             q=_to_device(molecule_calls.p_base_wrong[by_group].astype(np.float32), device),
-            group_ptr=_to_device(np.append(first, len(key)).astype(np.int64), device),
+            group_ptr=_to_device(group_ptr, device),
             barcode_ptr=_to_device(np.append(0, np.cumsum(groups_per_barcode)).astype(np.int64), device),
         )
 

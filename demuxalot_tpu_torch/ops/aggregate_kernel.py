@@ -11,8 +11,11 @@ column g, a group being the molecule calls of one (barcode, SNP):
     logits[b] = Σ_{groups of b, in group order} z[grp, :]              (+ prior[b])
     probs[b]  = softmax(logits[b])                                      (softmax=True)
 
-with no doublet penalty. On the H100 it is bound by the MUFU unit (a log
-per call and column, an exp and a log per group and column). One launch,
+with no doublet penalty. A group of one call is closed in the probability
+domain (z = log(t / Σ_k t_k + escape) − log(1 + PG·escape), t = p + q: one
+log per column); a longer group in the log domain. On the H100 it is bound by
+the MUFU unit (a log per call and column and an exp and a log per column in
+groups of two calls or more, a log per column in a group of one). One launch,
 its instantiation picked by :func:`aggregate_plan` from the row's width: at
 narrow rows a team of lanes a group, several groups a warp; up to 544
 columns a warp a group; wider rows split over the warps of a block; the

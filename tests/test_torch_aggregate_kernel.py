@@ -11,8 +11,12 @@ genotype rows of 0. Covered here:
 - the CPU path gives the engine's previous logits (+ prior, ``torch.softmax``)
   bit for bit;
 - a float32 torch transcription of the kernel's scheme (``csrc/aggregate.cu``:
-  log2 units, one log per call term, the second normaliser as log(1 +
-  p_bad_snp)) against JAX's ``snp_aggregated_logits`` and the float64 oracle.
+  a group of one call in the probability domain, its terms over their sum
+  and one log; longer groups in log2 units, one log per call term; the
+  second normaliser as log(1 + p_bad_snp)) against JAX's
+  ``snp_aggregated_logits`` and the float64 oracle, also on pools of groups of
+  one only and of none;
+- the layout's counters of groups and groups of one.
 
 Tolerances: logits rtol 1e-4 / atol 5e-3, posteriors atol 3e-5, the same
 argmax.
@@ -176,19 +180,22 @@ def _barcode_sums(z, barcode_ptr):
 
 def kernel_scheme_logits(gprob, operands, plan=None):
     """csrc/aggregate.cu's scheme in float32 torch at the instantiation ``plan`` (lanes a group, columns a lane;
-    ``aggregate_plan``'s by default): call terms as log2(½(G_i + G_j) + q), one log each, summed per group in
-    call order and scaled by 1 / n^compensation; e = 2^(x - max), S = Σ e in the kernel's order; z = ln 2 ·
+    ``aggregate_plan``'s by default): call terms t = ½(G_i + G_j) + q; a group of one call's e its terms t; a
+    longer group's x the log2(t) of its calls, one log each, summed in call order and scaled by 1 /
+    n^compensation, e = 2^(x - max); S = Σ e in the kernel's order (T = Σ t for a group of one); z = ln 2 ·
     log2(e / S + escape) − log(1 + PG · escape) (Σ_k e^{y_k} = 1); logits = the groups' z summed per barcode in
     group order."""
     o = operands
     n_pg = o.pairs.shape[1]
     team, cols = plan or A.aggregate_plan(n_pg)
     g = gprob[o.vid.long()]
-    terms = torch.log2((g[:, o.pairs[0].long()] + g[:, o.pairs[1].long()]) * 0.5 + o.q[:, None])
+    terms = (g[:, o.pairs[0].long()] + g[:, o.pairs[1].long()]) * 0.5 + o.q[:, None]
     calls = o.group_ptr.diff()
-    x = torch.segment_reduce(terms, "sum", lengths=calls, unsafe=True)
+    x = torch.segment_reduce(torch.log2(terms), "sum", lengths=calls, unsafe=True)
     x = x * (1.0 / calls.to(torch.float32).clamp(min=1.0) ** o.compensation)[:, None]
     e = torch.exp2(x - x.max(dim=1, keepdim=True).values)
+    one = calls == 1  # the probability domain: e^{x - m} / S = t / T
+    e[one] = terms[o.group_ptr[:-1][one]]
     escape = torch.tensor(o.p_bad_snp / n_pg, dtype=torch.float32)
     s = _row_sums(e, team, cols)
     z = torch.log2(e * (1.0 / s)[:, None] + escape) * math.log(2) - math.log1p(n_pg * float(escape))
@@ -249,6 +256,47 @@ def test_kernel_scheme_at_every_team_matches_jax_and_oracle(n_donors, doublet_pr
     assert empty.sum() >= 3 and (got[empty] == 0).all()
     if plan == A.aggregate_plan(operands.n_columns):  # the default plan: the scheme's own bits
         assert torch.equal(torch.from_numpy(got), kernel_scheme_logits(gprob, operands))
+
+
+# pools of one kind: every group of one call, or none (2-6 calls a group)
+POOLS = {"groups_of_one": (1, 1), "no_group_of_one": (2, 6)}
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("n_donors, doublet_prior", SHAPES)
+def test_kernel_scheme_on_pools_of_one_kind_matches_jax_and_oracle(n_donors, doublet_prior, pool):
+    """The scheme at every instantiation that holds the row on a pool whose groups all hold one call (the
+    probability domain alone) and on one where none does (the log domain alone), with the edge barcodes that fit."""
+    lo, hi = POOLS[pool]
+    problem = aggregate_problem(seed=30 + n_donors, n_donors=n_donors, doublet_prior=doublet_prior, n_calls=1500,
+                                edges=True, group_sizes=(lo, hi))
+    gprob, operands = aggregate_args(problem)
+    calls = operands.group_ptr.diff()
+    assert int(calls.min()) == lo and int(calls.max()) == hi
+    references = _references(problem)
+    empty = np.diff(operands.barcode_ptr.numpy()) == 0
+    for plan in A.instantiations(operands.n_columns):
+        got = kernel_scheme_logits(gprob, operands, plan).numpy()
+        _held_to(got, references)
+        assert empty.sum() >= 3 and (got[empty] == 0).all()
+
+
+def test_layout_counts_groups_and_groups_of_one():
+    """``aggregate.groups`` and ``aggregate.single_groups`` grow by the layout's groups and its groups of one call."""
+    from demuxalot_tpu_torch.utils import tracing
+
+    shares = []
+    for problem in (aggregate_problem(seed=3, edges=True), aggregate_problem(seed=4, group_sizes=(1, 1)),
+                    aggregate_problem(seed=5, group_sizes=(2, 6))):
+        before = tracing.snapshot()["counters"]
+        layout = demux._SnpAggregationLayout.build(problem["calls"], torch.device("cpu"))
+        after = tracing.snapshot()["counters"]
+        calls = np.diff(layout.group_ptr.numpy())
+        grew = {name: after.get(name, 0) - before.get(name, 0) for name in ("aggregate.groups",
+                                                                           "aggregate.single_groups")}
+        assert grew == {"aggregate.groups": len(calls), "aggregate.single_groups": int((calls == 1).sum())}
+        shares.append(grew["aggregate.single_groups"] / grew["aggregate.groups"])
+    assert 0 < shares[0] < 1 and shares[1:] == [1, 0]
 
 
 def test_engine_paths_go_through_the_wrapper(monkeypatch):

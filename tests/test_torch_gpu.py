@@ -569,9 +569,12 @@ def test_gpu_aggregated_logits_are_deterministic(engine_problem, doublet_prior):
     np.testing.assert_allclose(got, logits["cpu"].numpy(), rtol=1e-4, atol=5e-3)
 
 
-# (donors, doublet prior): teams of lanes at 1, 10 and 32 columns (the aggregate EM's width at 32 donors), a warp
-# a group at 528 (predict's), the row split over a block's warps at 561 and 2,080 (64 donors)
-AGGREGATE_SHAPES = [(1, 0.0), (4, 0.35), (32, 0.0), (32, 0.35), (33, 0.35), (64, 0.35)]
+# (donors, doublet prior, calls a group): teams of lanes at 1, 10 and 32 columns (the aggregate EM's width at 32
+# donors), a warp a group at 528 (predict's), the row split over a block's warps at 561 and 2,080 (64 donors); the
+# mixed pool (None: groups of one and of many), and at 528 and 2,080 columns pools of groups of one only (1, 1) and
+# of none (2, 6)
+AGGREGATE_SHAPES = [(1, 0.0, None), (4, 0.35, None), (32, 0.0, None), (32, 0.35, None), (33, 0.35, None),
+                    (64, 0.35, None), (32, 0.35, (1, 1)), (64, 0.35, (1, 1)), (32, 0.35, (2, 6)), (64, 0.35, (2, 6))]
 
 
 def _aggregate_held_to_plain(gprob, operands, seed):
@@ -595,15 +598,15 @@ def _aggregate_held_to_plain(gprob, operands, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_donors, doublet_prior", AGGREGATE_SHAPES)
-def test_gpu_aggregated_logits_match_plain(n_donors, doublet_prior):
+@pytest.mark.parametrize("n_donors, doublet_prior, group_sizes", AGGREGATE_SHAPES)
+def test_gpu_aggregated_logits_match_plain(n_donors, doublet_prior, group_sizes):
     """The aggregate kernel against its plain version, with and without prior logits: groups of one molecule and
-    of many, empty barcodes, q down to 1e-7 and genotype rows of 0, and the edge barcodes of
+    of many (or of one kind only), empty barcodes, q down to 1e-7 and genotype rows of 0, and the edge barcodes of
     ``AGGREGATE_EDGE_GROUPS`` (one group, fewer groups than teams, 31-33 and 62-65 groups, long groups beside
     groups of one). One launch a call; the logits-only call gives the fused call's logits bit for bit."""
     _need_card()
-    gprob, operands = aggregate_args(aggregate_problem(seed=n_donors, n_donors=n_donors,
-                                                       doublet_prior=doublet_prior, edges=True), "cuda")
+    gprob, operands = aggregate_args(aggregate_problem(seed=n_donors, n_donors=n_donors, doublet_prior=doublet_prior,
+                                                       edges=True, group_sizes=group_sizes), "cuda")
     _aggregate_held_to_plain(gprob, operands, n_donors)
 
 
@@ -629,23 +632,27 @@ def test_gpu_aggregated_logits_at_plan_switches(n_pg):
     _aggregate_held_to_plain(*aggregate_args(problem, "cuda", n_pg=n_pg), n_pg)
 
 
-def _every_instantiation(widths=(4, 10, 32, 64, 136, 528, 561, 2080)):
+def _every_instantiation(widths=(4, 10, 32, 64, 136, 528, 561, 2080), pools=(528, 2080)):
+    """(n_pg, lanes a group, columns a lane, calls a group) for every instantiation at each width on the mixed pool
+    (None), and at the widths ``pools`` on pools of groups of one only (1, 1) and of none (2, 6)."""
     from demuxalot_tpu_torch.ops.aggregate_kernel import instantiations
 
-    return [(n_pg, *plan) for n_pg in widths for plan in instantiations(n_pg)]
+    return [(n_pg, *plan, sizes) for n_pg in widths for plan in instantiations(n_pg)
+            for sizes in ((None, (1, 1), (2, 6)) if n_pg in pools else (None,))]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_pg, team, cols", _every_instantiation())
-def test_gpu_aggregated_logits_every_instantiation(n_pg, team, cols, monkeypatch):
-    """Each instantiation that holds the row, forced (``aggregate_kernel.PLAN``), on the edge barcodes; up to 544
-    columns every one but the split row gives the first design's bits (a warp a group, 17 columns a lane)."""
+@pytest.mark.parametrize("n_pg, team, cols, group_sizes", _every_instantiation())
+def test_gpu_aggregated_logits_every_instantiation(n_pg, team, cols, group_sizes, monkeypatch):
+    """Each instantiation that holds the row, forced (``aggregate_kernel.PLAN``), on the edge barcodes of the pool;
+    two runs give the same bits; up to 544 columns every one but the split row gives the first design's bits (a
+    warp a group, 17 columns a lane)."""
     _need_card()
     from demuxalot_tpu_torch.ops import aggregate_kernel
 
     monkeypatch.setattr(aggregate_kernel, "PLAN", (team, cols))
     problem = aggregate_problem(seed=n_pg + team, n_donors=_donors_for(n_pg), n_calls=1500, n_barcodes=40,
-                                edges=True)
+                                edges=True, group_sizes=group_sizes)
     gprob, operands = aggregate_args(problem, "cuda", n_pg=n_pg)
     _aggregate_held_to_plain(gprob, operands, n_pg)
     first = aggregated_logits(gprob, operands, softmax=True)
@@ -655,6 +662,47 @@ def test_gpu_aggregated_logits_every_instantiation(n_pg, team, cols, monkeypatch
         monkeypatch.setattr(aggregate_kernel, "PLAN", (32, 17))
         warp = aggregated_logits(gprob, operands, softmax=True)
         assert torch.equal(first[0], warp[0]) and torch.equal(first[1], warp[1])
+
+
+def _float64_aggregated_logits(gprob, operands):
+    """The plain aggregate chain in float64."""
+    from demuxalot_tpu_torch.ops import likelihood as L
+
+    o = operands
+    pairs = o.pairs.cpu().numpy()
+    mixing = torch.from_numpy(L.mixing_from_pairs(pairs[0], pairs[1], o.n_donors)).to(gprob.device)
+    return L.snp_aggregated_logits(gprob.double(), mixing.double(), o.vid, o.q.double(), o.group_ptr.cpu().numpy(),
+                                   o.group_ptr.diff(), o.barcode_ptr.diff(), compensation=o.compensation,
+                                   p_bad_snp=o.p_bad_snp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pg, cols", [(561, 9), (561, 17), (2080, 9), (2080, 17)])
+def test_gpu_aggregated_split_row_on_long_runs_of_groups_of_one(n_pg, cols, monkeypatch):
+    """The split row (a group's sum across a block's warps at a barrier) on barcodes of about 190 groups of one call
+    back to back, each group's sum one barrier, the sums' two slots in turns: logits against the plain version and
+    the same argmax, posteriors as close to the float64 chain as the plain version's (1.5x; over ~190 groups a
+    barcode both float32 chains stray past the 3e-5 posterior bar), and five runs bit-equal. A warp that wrote a
+    sum over one not yet read would move a group's row by far more."""
+    _need_card()
+    from demuxalot_tpu_torch.ops import aggregate_kernel
+
+    monkeypatch.setattr(aggregate_kernel, "PLAN", (0, cols))
+    problem = aggregate_problem(seed=n_pg + cols, n_donors=_donors_for(n_pg), n_barcodes=30, n_calls=4000,
+                                group_sizes=(1, 1))
+    gprob, operands = aggregate_args(problem, "cuda", n_pg=n_pg)
+    groups = operands.barcode_ptr.diff()
+    assert int(groups.max()) >= 150 and int((groups >= 64).sum()) >= 10
+    logits, probs = aggregated_logits(gprob, operands, softmax=True)
+    want_logits, want_probs = aggregated_logits_plain(gprob, operands, softmax=True)
+    np.testing.assert_allclose(logits.cpu().numpy(), want_logits.cpu().numpy(), rtol=1e-4, atol=5e-3)
+    assert torch.equal(probs.argmax(1), want_probs.argmax(1))
+    exact = torch.softmax(_float64_aggregated_logits(gprob, operands), dim=-1)
+    error, plain_error = ((p.double() - exact).abs().max().item() for p in (probs, want_probs))
+    assert error <= 1.5 * plain_error, (error, plain_error)
+    for _ in range(4):
+        again = aggregated_logits(gprob, operands, softmax=True)
+        assert torch.equal(logits, again[0]) and torch.equal(probs, again[1])
 
 
 @pytest.mark.gpu

@@ -189,27 +189,46 @@ AGGREGATE_EDGE_GROUPS = ([1], [1] * 3, [1] * 31, [1] * 32, [1] * 33, [1] * 62, [
 
 
 def aggregate_problem(seed=0, n_donors=4, doublet_prior=0.35, n_barcodes=60, n_snps=2000, n_calls=3000, q_low=1e-7,
-                      zero_rows=0.1, edges=False):
+                      zero_rows=0.1, edges=False, group_sizes=None):
     """Molecule calls for the aggregate E-step: barcodes b % 3 == 0 call 4 SNPs only (groups of many molecules),
     the others any of ``n_snps`` (groups of one, mostly); barcodes b % 7 == 3 and the last 5 have no call; q
     down to ``q_low``; a ``zero_rows`` share of the genotype rows is 0 (an unclipped table, p = 0). With
-    ``edges``, one barcode for each entry of ``AGGREGATE_EDGE_GROUPS`` follows the random ones, then 3 more
-    without a call."""
+    ``group_sizes`` (lo, hi), every group instead holds lo to hi calls (uniform), about ``n_calls`` in all, each
+    group on its own SNP of a random barcode: (1, 1) gives a pool of groups of one only, lo >= 2 one without them.
+    With ``edges``, one barcode for each entry of ``AGGREGATE_EDGE_GROUPS`` (those whose groups all hold lo to hi
+    calls, with ``group_sizes``) follows the random ones, then 3 more without a call."""
     from demuxalot_tpu_torch.ops.packing import MoleculeCalls
 
     rng = np.random.RandomState(seed)
     barcodes = np.array([b for b in range(n_barcodes - 5) if b % 7 != 3])
-    cb = rng.choice(barcodes, n_calls)
-    snp = np.where(cb % 3 == 0, rng.randint(0, 4, n_calls), rng.randint(0, n_snps, n_calls))
+    edge_groups = AGGREGATE_EDGE_GROUPS
+    if group_sizes is None:
+        cb = rng.choice(barcodes, n_calls)
+        snp = np.where(cb % 3 == 0, rng.randint(0, 4, n_calls), rng.randint(0, n_snps, n_calls))
+    else:
+        lo, hi = group_sizes
+        sizes = rng.randint(lo, hi + 1, n_calls)
+        sizes = sizes[:np.searchsorted(np.cumsum(sizes), n_calls) + 1]
+        group_cb = rng.choice(barcodes, len(sizes))
+        rank = np.empty(len(sizes), dtype=np.int64)  # each group's rank among its barcode's groups: its own SNP
+        by_cb = np.argsort(group_cb, kind="stable")
+        starts = np.searchsorted(group_cb[by_cb], group_cb[by_cb])
+        rank[by_cb] = np.arange(len(sizes)) - starts
+        assert rank.max() < n_snps, "more groups in a barcode than SNPs"
+        group_snp = rng.permutation(n_snps)[(group_cb * 7919 + rank) % n_snps]
+        order = rng.permutation(int(sizes.sum()))
+        cb, snp = np.repeat(group_cb, sizes)[order], np.repeat(group_snp, sizes)[order]
+        n_calls = len(cb)
+        edge_groups = [g for g in AGGREGATE_EDGE_GROUPS if lo <= min(g) and max(g) <= hi]
     if edges:
         extra_cb, extra_snp = [], []
-        for i, sizes in enumerate(AGGREGATE_EDGE_GROUPS):
+        for i, sizes in enumerate(edge_groups):
             snps = rng.choice(n_snps, len(sizes), replace=False)
             extra_cb += [n_barcodes + i] * sum(sizes)
             extra_snp += [s for s, size in zip(snps, sizes) for _ in range(size)]
         cb = np.concatenate([cb, extra_cb])
         snp = np.concatenate([snp, extra_snp])
-        n_barcodes += len(AGGREGATE_EDGE_GROUPS) + 3
+        n_barcodes += len(edge_groups) + 3
         n_calls = len(cb)
     vid = 2 * snp + rng.randint(0, 2, n_calls)
     q = np.exp(rng.uniform(np.log(q_low), np.log(0.3), n_calls))
