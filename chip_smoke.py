@@ -48,8 +48,8 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    iteration, kernel and plain in turns (plain, kernel, kernel, plain),
    after both M-step entry points are held bit for bit to the in-order
    reference and ``probs_from_betas`` on the main path's inputs (with and
-   without a mask); both M-step kernels at 1, 2, 4, 8 and 16 row reads in
-   flight, in turns; the same M-step checks and times on a second pool in
+   without a mask); the E-step's and M-step's index checks, which run once
+   when their operands are built; the same M-step checks and times on a second pool in
    the bench cells' shape (``SKEWED``, drawn from ``--seed``), whose work
    plan has chunk units where the flat pool has none; that pool again at 64 donors, 2,080 columns (the
    ``pbmc64_65k`` cells' paths): the fused E-step in its 4 schedule passes and the fused aggregate kernel with
@@ -57,8 +57,7 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    fused M-step in 2 donor blocks bit for bit against the in-order reference and against its plain version, and
    each one's launches, time and bound with an EM iteration through either likelihood;
    ``torch.softmax`` alone on the bench logits (the
-   epilogue's library call), and the fused E-step with its log fold through
-   ``logf`` against the default MUFU log2, in turns; then what the recorder
+   epilogue's library call); then what the recorder
    costs: the host µs an EM iteration takes to issue (100 a window, no
    synchronise, the median of 5 windows) and the EM iteration's CUDA-event
    time, with no profiler, with one recording, and with one recording and
@@ -216,18 +215,19 @@ pyarrow (for the CLI runs of phases 6 and 8), and no jax. Phases, one line each
    time); ``host_us``, the host clock over 200 calls with no synchronise
    inside (below the launch queue's depth), the median of 5 such windows,
    the host's enqueue time. Beside them the host µs of each piece of a
-   launch's host path (the old idiom's device guard, stream object and
-   library lookup, and the whole old idiom's launch; the raw stream handle;
+   launch's host path (a device guard, a stream object and a library
+   lookup, which ``_cuda.Entry`` spares a launch; the raw stream handle;
    the output's allocation by ``torch.empty`` and ``torch.empty_like``; the
-   light launch alone, and on an empty output, where the C entry returns
+   ``Entry`` launch alone, and on an empty output, where the C entry returns
    before it launches; the whole wrapper).
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the mainline kernels' runs on the package paths, phases 4,
 6, 7 and 8a, which ``launches_by_path`` keeps apart, with the A/B's runs
 of them in ``ab_launches``; ``mstep_update`` stands beside
-``mstep_addition`` with the old chain's time and both kernels' times by
-depth in flight; ``aggregated_logits``'s ``ms`` is its fused call at
+``mstep_addition`` with the old chain's time; ``estep_logits`` and
+``mstep_addition`` carry their operands' one index check's time
+(``index_checks_ms``); ``aggregated_logits``'s ``ms`` is its fused call at
 528 columns, 32 columns and 64 donors in ``by_columns`` and ``d64``, groups
 of 8 molecules in ``many_molecules``, each instantiation by width in
 ``by_instantiation``, the wrapper's ``host_us``; the E-step's, ``mstep_update``'s and
@@ -448,7 +448,7 @@ def phase_build() -> None:
     steps = ({name: k["registers"] for name, k in kernels.items() if name.startswith(("estep", "mstep"))}
              or _library_registers(result.path))  # a library built earlier has no ptxas log
     banded_estep = {name: r for name, r in steps.items() if name.startswith("estep") and name.endswith(",1>")}
-    require(len(banded_estep) == 4 and max(banded_estep.values()) <= 128,
+    require(len(banded_estep) == 2 and max(banded_estep.values()) <= 128,
             f"the banded E-step must fit 128 registers (4 blocks per SM): {banded_estep}")
     shared = 4 * (2 * 32 * 32 + 528 + 32 * 5) * 4
     blocks = min(65_536 // (128 * 128), 233_472 // (shared + 1024))
@@ -468,7 +468,7 @@ def _ptxas_kernels(log: str) -> dict:
     the E-step's and M-step's kernels, from ptxas' report: split.cu's (exp_words, sc_words, MMA steps), the
     register-tile kernels of group.cu and folded.cu (words, mode, fold, chunked, vec; folded's are the ragged
     ones), gather.cu's gather-sums (the L2 path's floats per load; the on-chip path's floats per row read,
-    16-byte index loads), forms.cu's cluster gather-sum (floats per row read), likelihood.cu's (fast_log, chunk,
+    16-byte index loads), forms.cu's cluster gather-sum (floats per row read), likelihood.cu's (chunk,
     banded), mstep.cu's (power, depth, update) and banded.cu's (power, depth)."""
     import re
 
@@ -562,7 +562,7 @@ def _estep_hot_loops(sass: str) -> dict:
 
     found = {}
     for function in re.split(r"\n\s+Function : ", sass)[1:]:
-        args = re.search(r"estep_kernelILb(\d)ELi(\d+)ELb(\d)E", function.splitlines()[0])
+        args = re.search(r"estep_kernelILi(\d+)ELb(\d)E", function.splitlines()[0])
         if args is None:
             continue
         lines = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", function)
@@ -580,7 +580,7 @@ def _estep_hot_loops(sass: str) -> dict:
             if best is None or min(kinds["FADD"], kinds["FMUL"]) > min(best["FADD"], best["FMUL"]):
                 best = kinds
         if best is not None:
-            found[f"fast_log={bool(int(args.group(1)))} chunk={args.group(2)} banded={bool(int(args.group(3)))}"] = {
+            found[f"chunk={args.group(1)} banded={bool(int(args.group(2)))}"] = {
                 "instructions": sum(best.values()), **{k: best[k] for k in ("FADD", "FMUL", "FFMA", "LDS", "MUFU")}}
     return found
 
@@ -616,7 +616,7 @@ def _estep_tensors(p: dict, device):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     gprob = L.probs_from_betas(t(p["betas"]), t(p["variant2snp"]), len(p["variant2snp"]) // 2, 0.01, 2)
     operands = estep_operands(p["n_donors"], p["doublet_prior"], t(_csr(p["cb"], p["n_barcodes"])),
-                              t(p["cb"]), t(p["vid"]), t(p["q"]))
+                              t(p["cb"]), t(p["vid"]), t(p["q"]), len(p["betas"]))
     return gprob, operands
 
 
@@ -1125,17 +1125,6 @@ def _in_turns(first, second, measure) -> tuple:
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-@contextlib.contextmanager
-def _log_fold(likelihood_kernel, fast: bool):
-    """The E-step kernel's log fold on the MUFU unit (fast, the default) or through logf."""
-    saved = likelihood_kernel.FAST_LOG
-    likelihood_kernel.FAST_LOG = fast
-    try:
-        yield
-    finally:
-        likelihood_kernel.FAST_LOG = saved
-
-
 def _em_iteration_ms(genotypes, handler, packed, repeats: int = 5, sharded=None,
                      doublet_prior: float = DOUBLET_PRIOR) -> float:
     """Per-iteration time of the EM generator in steady state (M + E step), or of ``sharded``'s."""
@@ -1163,9 +1152,8 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
     from demuxalot_tpu_torch import Demultiplexer
     from demuxalot_tpu_torch.models.demux import _Likelihood
     from demuxalot_tpu_torch.ops import likelihood as L
-    from demuxalot_tpu_torch.ops import likelihood_kernel
+    from demuxalot_tpu_torch.ops import likelihood_kernel, mstep_kernel
     from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
-    from demuxalot_tpu_torch.ops import _cuda, mstep_kernel
     from demuxalot_tpu_torch.ops.mstep_kernel import (
         mstep_addition, mstep_addition_plain, mstep_update, mstep_update_plain)
     from demuxalot_tpu_torch.utils.profiling import MStepRoofline, Roofline
@@ -1220,22 +1208,16 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
             "genotype_prob": compare(f"bench-shape mstep_update genotype_prob ({masked})", update_gprob,
                                      plain_gprob, 0.0, 1e-6)}
     # the fused E-step (the EM loop's and predict's call) against the plain
-    # logits + torch.softmax, with its log fold on the MUFU unit (the
-    # default) and through logf
+    # logits + torch.softmax
     probs_p = torch.softmax(logits_p, -1)
-    fused_errors = {}
-    for fast_log in (True, False):
-        with _log_fold(likelihood_kernel, fast_log):
-            fused_logits, fused_probs = estep_logits(*estep_args, softmax=True)
-        name = "fast_log" if fast_log else "logf"
-        fused_errors[name] = {
-            "logits": compare(f"bench-shape fused estep logits ({name})", fused_logits, logits_p, **LOGITS_TOL),
-            "posteriors": compare(f"bench-shape fused estep posteriors ({name})", fused_probs, probs_p, 0.0,
-                                  POSTERIOR_ATOL),
-        }
-        require(torch.equal(fused_probs.argmax(1), probs_p.argmax(1)), f"fused estep ({name}): same argmax")
-        row_err = float((fused_probs.sum(dim=1) - 1).abs().max())
-        require(row_err <= 1e-5, f"fused estep ({name}): rows sum to 1 within {row_err}")
+    fused_logits, fused_probs = estep_logits(*estep_args, softmax=True)
+    fused_errors = {
+        "logits": compare("bench-shape fused estep logits", fused_logits, logits_p, **LOGITS_TOL),
+        "posteriors": compare("bench-shape fused estep posteriors", fused_probs, probs_p, 0.0, POSTERIOR_ATOL),
+    }
+    require(torch.equal(fused_probs.argmax(1), probs_p.argmax(1)), "fused estep: same argmax")
+    row_err = float((fused_probs.sum(dim=1) - 1).abs().max())
+    require(row_err <= 1e-5, f"fused estep: rows sum to 1 within {row_err}")
 
     def plain_em_ms() -> float:
         with plain_versions():
@@ -1267,38 +1249,22 @@ def phase_timing(genotypes, handler, packed, main: dict, card: str) -> dict:
     say("timing", card=card, max_memory_allocated=torch.cuda.max_memory_allocated(),
         estep_max_abs_err=estep_err, estep_posterior_max_abs_err=post_err, mstep_max_abs_err=mstep_err,
         mstep_update_max_abs_err=update_err, mstep_bit_equal_in_order=True, fused_estep_max_abs_err=fused_errors)
-    # the M-step's row reads in flight per warp: every depth, both kernels, in turns (ascending, then back)
-    depths = (1, 2, 4, 8, 16)
-    in_flight = {name: {depth: [] for depth in depths} for name in ("mstep", "mstep_update")}
-    saved = mstep_kernel.IN_FLIGHT
-    try:
-        for depth in (*depths, *depths[::-1]):
-            mstep_kernel.IN_FLIGHT = depth
-            in_flight["mstep"][depth].append(_time_ms(lambda: mstep_addition(*mstep_args)))
-            in_flight["mstep_update"][depth].append(_time_ms(lambda: mstep_update(*update_args)))
-    finally:
-        mstep_kernel.IN_FLIGHT = saved
-    say("timing", step="mstep in flight", card=card, default=saved, ms=in_flight)
-    timings["in_flight_ms"] = {name: {depth: sum(v) / 2 for depth, v in by.items()} for name, by in in_flight.items()}
-    # the index checks (checks.cu's two kernels over var_ptr and cb) now run once, when the operands are
-    # built; before, every M-step launch ran them
-    o, lib = lik.mstep, _cuda.library()
-    checks_ms = [_time_ms(lambda: _cuda.check_launch("mstep checks", lib.demux_mstep_check(
-        o.var_ptr.data_ptr(), o.n_variants, o.cb.shape[0], o.cb.data_ptr(), o.n_barcodes,
-        torch.cuda.current_stream().cuda_stream))) for _ in range(2)]
-    say("timing", step="mstep checks", card=card, ms=checks_ms)
-    timings["checks_ms"] = sum(checks_ms) / 2
+    # the index checks (checks.cu's kernels over each op's indices) run once, when the operands are built;
+    # before, every M-step launch ran the M-step's two and every E-step launch the E-step's three
+    o, e = lik.mstep, lik.estep
+    check_launches = {
+        "mstep": lambda: mstep_kernel._check_on_card(o.var_ptr, o.var_ptr.data_ptr(), o.n_variants, o.cb.shape[0],
+                                                     o.cb.data_ptr(), o.n_barcodes),
+        "estep": lambda: likelihood_kernel._check_on_card(
+            e.vid, e.row_ptr.data_ptr(), e.n_barcodes, e.vid.shape[0], e.vid.data_ptr(), e.n_variants,
+            e.schedule.data_ptr(), e.schedule.shape[0], likelihood_kernel.ENTRY, n_genotypes, lik.n_options)}
+    checks_ms = {name: [_time_ms(launch) for _ in range(2)] for name, launch in check_launches.items()}
+    say("timing", step="index checks", card=card, ms=checks_ms)
+    timings["checks_ms"] = {name: sum(v) / 2 for name, v in checks_ms.items()}
     # the epilogue's library call: torch.softmax alone on the bench logits
     softmax_ms = [_time_ms(lambda: torch.softmax(logits_p, -1)) for _ in range(2)]
-    # the fused E-step's log fold: MUFU log2 (the default) against logf, in turns
-    fold_ms = {"fast_log": [], "logf": []}
-    for fast_log in (True, False, False, True):
-        with _log_fold(likelihood_kernel, fast_log):
-            fold_ms["fast_log" if fast_log else "logf"].append(
-                _time_ms(lambda: estep_logits(*estep_args, softmax=True)))
-    say("timing", step="estep_softmax", card=card, torch_softmax_ms=softmax_ms, log_fold_ms=fold_ms)
+    say("timing", step="estep_softmax", card=card, torch_softmax_ms=softmax_ms)
     timings["torch_softmax_ms"] = sum(softmax_ms) / 2
-    timings["log_fold_ms"] = {name: sum(v) / 2 for name, v in fold_ms.items()}
 
     # the least time the card could take for the same two calls (H100 SXM
     # peaks at 700 W; the card's own limit is printed beside them)
@@ -3297,9 +3263,10 @@ def _host_path_us(GF, cuda) -> dict:
     """Host µs per call of each piece of a launch's host path, at D2's shape (``_host_us``: medians of 5 windows of
     200 calls).
 
-    The old idiom is ``with torch.cuda.device(d)``, ``torch.cuda.current_stream(d).cuda_stream`` and
-    ``_cuda.library().<fn>`` through ctypes, ``old_launch`` the three around the same C entry; the light path
-    (``_cuda.Entry``) keeps the ctypes function, reads the stream's raw handle and passes the device index to C.
+    ``device_guard``, ``current_stream`` and ``library_lookup`` are what a launch without ``_cuda.Entry`` would
+    pay each call (``with torch.cuda.device(d)``, ``torch.cuda.current_stream(d).cuda_stream``,
+    ``_cuda.library().<fn>``); ``Entry`` keeps the ctypes function, reads the stream's raw handle and passes the
+    device index to C.
     ``launch`` is the Entry's call alone (no checks, no allocation), ``launch_empty`` the same on an empty output,
     where the C entry returns before its device guard and the launch; ``wrapper`` the whole call."""
     from demuxalot_tpu_torch.ops import _cuda
@@ -3315,18 +3282,12 @@ def _host_path_us(GF, cuda) -> dict:
         with torch.cuda.device(cuda):
             pass
 
-    def old_launch():
-        with torch.cuda.device(cuda):
-            status = _cuda.library().demux_take_along_axis(*args, index, torch.cuda.current_stream(cuda).cuda_stream)
-        _cuda.check_launch("take_along_axis", status)
-
     return {"device_guard": _host_us(guard),
             "current_stream": _host_us(lambda: torch.cuda.current_stream(cuda).cuda_stream),
             "raw_stream": _host_us(lambda: torch._C._cuda_getCurrentRawStream(index)),
             "library_lookup": _host_us(lambda: _cuda.library().demux_take_along_axis),
             "empty": _host_us(lambda: torch.empty(idx.shape, dtype=torch.float32, device=cuda)),
             "empty_like": _host_us(lambda: torch.empty_like(idx, dtype=torch.float32)),
-            "old_launch": _host_us(old_launch),
             "launch": _host_us(lambda: GF._take_along_axis(table, *args)),
             "launch_empty": _host_us(lambda: GF._take_along_axis(table, *empty)),
             "wrapper": _host_us(lambda: GF.take_along_axis(table, idx, 0))}
@@ -3744,17 +3705,17 @@ def main() -> int:
         {"name": "estep_logits", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/likelihood.cu",
          "replaces": "demuxalot_tpu/ops/pallas_likelihood.py:180", **launches("estep_logits"),
          "max_abs_err": timing["estep_err"],
-         "posterior_max_abs_err": timing["fused_errors"]["fast_log"]["posteriors"],
+         "posterior_max_abs_err": timing["fused_errors"]["posteriors"],
          "ms": fused, "plain_ms": t["estep_softmax"]["plain_ms_mean"], **bound("estep_softmax"),
          "share_of_bound": bound("estep_softmax")["bound_ms"] / fused, "library_ms": None,
-         "logits_only_ms": t["estep"]["kernel_ms_mean"], "logf_ms": t["log_fold_ms"]["logf"],
+         "logits_only_ms": t["estep"]["kernel_ms_mean"], "index_checks_ms": t["checks_ms"]["estep"],
          "softmax_library_ms": t["torch_softmax_ms"], "pool64": pool64["estep_softmax"]},
         {"name": "mstep_addition", "route": "cuda", "source": "demuxalot_tpu_torch/csrc/mstep.cu",
          "replaces": "demuxalot_tpu/ops/pallas_mstep.py:56", **launches("mstep_addition"),
          "max_abs_err": timing["mstep_err"],
          "ms": t["mstep"]["kernel_ms_mean"], "plain_ms": t["mstep"]["plain_ms_mean"], **bound("mstep"),
          "share_of_bound": bound("mstep")["bound_ms"] / t["mstep"]["kernel_ms_mean"], "library_ms": None,
-         "in_flight_ms": t["in_flight_ms"]["mstep"], "index_checks_ms": t["checks_ms"],
+         "index_checks_ms": t["checks_ms"]["mstep"],
          "skewed_pool": skewed["mstep"]},
         # the same kernel source with the next iteration's probs_from_betas in its epilogue; the old chain
         # (addition kernel, then probs_from_betas) beside it
@@ -3765,7 +3726,6 @@ def main() -> int:
          **bound("mstep_update"),
          "share_of_bound": bound("mstep_update")["bound_ms"] / t["mstep_update"]["kernel_ms_mean"],
          "library_ms": None, "old_chain_ms": t["old_chain"]["kernel_ms_mean"],
-         "in_flight_ms": t["in_flight_ms"]["mstep_update"],
          "skewed_pool": {**skewed["mstep_update"], "em_iteration_ms": skewed["em_iteration_ms"],
                          "split_calls": skewed["split_calls"], "split_units": skewed["split_units"],
                          "max_abs_err": skewed["max_abs_err"]},

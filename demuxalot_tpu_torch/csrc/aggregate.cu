@@ -117,13 +117,9 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-#include <vector>
-
+#include "checks.cuh"
 #include "common.cuh"
-
-int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream);
-int demux_check_csr(const int64_t* row_ptr, int64_t n_rows, int64_t n_entries, cudaStream_t stream);
+#include "launch.cuh"
 
 namespace {
 
@@ -944,66 +940,6 @@ Kernel pick(int team, int cols) {
     return nullptr;
 }
 
-// What a launch asks the card once: per device its SMs and the shared memory a block may opt in to; per (device,
-// kernel) the shared-memory attribute, raised to that opt-in once (the attribute is the kernel's, so a launch
-// that set it to its own bytes would refuse a later, larger one); per (device, kernel, threads, shared bytes) the
-// blocks the occupancy calculator places on an SM.
-struct Card {
-    int device, n_sms, optin;
-};
-
-struct Plan {
-    int device;
-    Kernel kernel;
-    int threads;  // 0: the kernel's shared-memory attribute is set
-    size_t shared;
-    int per_sm;
-};
-
-std::mutex plans_lock;
-std::vector<Card> cards;
-std::vector<Plan> plans;
-
-int card_of(int device, Card& card) {
-    std::lock_guard<std::mutex> hold(plans_lock);
-    for (const Card& c : cards) {
-        if (c.device == device) {
-            card = c;
-            return 0;
-        }
-    }
-    int status;
-    card.device = device;
-    if ((status = cudaDeviceGetAttribute(&card.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != 0)
-        return status;
-    if ((status = cudaDeviceGetAttribute(&card.n_sms, cudaDevAttrMultiProcessorCount, device)) != 0) return status;
-    cards.push_back(card);
-    return 0;
-}
-
-int blocks_per_sm(const Card& card, Kernel kernel, int threads, size_t shared, int& per_sm) {
-    std::lock_guard<std::mutex> hold(plans_lock);
-    bool attribute = false;
-    for (const Plan& p : plans) {
-        if (p.device != card.device || p.kernel != kernel) continue;
-        if (p.threads == threads && p.shared == shared) {
-            per_sm = p.per_sm;
-            return 0;
-        }
-        attribute = attribute || p.threads == 0;
-    }
-    int status;
-    if (!attribute) {
-        if ((status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, card.optin)) != 0)
-            return status;
-        plans.push_back(Plan{card.device, kernel, 0, 0, 0});
-    }
-    if ((status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shared)) != 0)
-        return status;
-    plans.push_back(Plan{card.device, kernel, threads, shared, per_sm});
-    return 0;
-}
-
 // the ring's floats a row: n_donors rounded up to 4; for teams of 4, 8 or 16 lanes padded to kTeam mod 32 (else 4
 // mod 32), so that the teams of a round, reading the same column of consecutive rows, hit different banks
 int ring_stride(int n_donors, int team) {
@@ -1052,9 +988,9 @@ extern "C" int demux_aggregated_logits(
         return (int)cudaErrorInvalidValue;
     const demux::DeviceGuard guard(device);
     if (guard.status() != 0) return guard.status();
-    Card card;
+    demux::Card card;
     int status;
-    if ((status = card_of(device, card)) != 0) return status;
+    if ((status = demux::card_of(device, card)) != 0) return status;
     const int stride = ring_stride(n_donors, team);
     const size_t ring_bytes = (size_t)2 * kTileCalls * stride * sizeof(float);
     int warps, x_floats = 0;
@@ -1073,7 +1009,9 @@ extern "C" int demux_aggregated_logits(
         shared = warps * warp_bytes;
     }
     int per_sm = 0;
-    if ((status = blocks_per_sm(card, kernel, warps * kWarpSize, shared, per_sm)) != 0) return status;
+    if ((status = demux::blocks_per_sm(card, reinterpret_cast<const void*>(kernel), warps * kWarpSize, shared,
+                                       per_sm)) != 0)
+        return status;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     const int64_t per_block = team == 0 ? 1 : warps;  // barcodes a block at once
     const int64_t wanted = (n_barcodes + per_block - 1) / per_block;

@@ -1,14 +1,14 @@
 // Bounds checks of the kernels' index inputs, for Hopper (sm_90a).
 //
-// Entry points run these small kernels on the same stream just before their
-// main kernel, so an out-of-range index or a malformed CSR traps before
-// anything reads through it; the M-step's operands, the split, group and
-// folded E-steps' and the banded E-step's and M-step's are checked once
-// instead, when they are built. They are separate
-// kernels because a __trap inside the hot kernels cost the E-step 3-11% of
-// its time on the H100 wherever it sat (the branch keeps the compiler from
-// batching the loads around it); here they cost one read of each index
-// array, which stays in L2 for the main kernel.
+// Every EM op's operands (the E-step's, the M-step's, the aggregate E-step's)
+// and the experiments' (the split, group, folded and banded kernels') are
+// checked once, when they are built, on the stream the launches use, so an
+// out-of-range index or a malformed CSR traps before any kernel reads through
+// it; gather.cu's gather_rows checks its indices at every call. They are
+// separate kernels because a __trap inside the hot kernels cost the E-step
+// 3-11% of its time on the H100 wherever it sat (the branch keeps the compiler
+// from batching the loads around it). checks.cuh declares the host launchers.
+#include "checks.cuh"
 #include "common.cuh"
 
 namespace {
@@ -74,8 +74,8 @@ unsigned int blocks_for(int64_t n) {
 
 }  // namespace
 
-// Host launchers used by likelihood.cu, mstep.cu and gather.cu, and by demux_variant_check and
-// demux_banded_check below; each returns cudaGetLastError().
+// The host launchers of checks.cuh, and the banded index check of demux_banded_check below; each returns
+// cudaGetLastError().
 int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream) {
     if (n > 0) check_index_kernel<<<blocks_for(n), kThreads, 0, stream>>>(idx, n, limit);
     return (int)cudaGetLastError();
@@ -106,22 +106,42 @@ int demux_check_banded_index(const int32_t* idx, const int64_t* band_ptr, const 
     return (int)cudaGetLastError();
 }
 
-// The split and group E-steps' operands, checked once when they are built (experiments/folded_estep.py:
-// variant_operands, group_estep.py:group_layout): row_ptr a CSR over n_calls, every pair in [0, n_donors),
-// and the group kernel's tile schedule (null for split) as demux_check_schedule takes it.
-extern "C" int demux_variant_check(const int64_t* row_ptr, int64_t n_barcodes, int64_t n_calls, const int32_t* pairs,
-                                   int n_pg, int n_donors, const int32_t* schedule, int n_passes, int entry,
-                                   int device, void* stream) {
-    if (n_barcodes < 0 || n_pg <= 0 || n_donors <= 0 || n_passes < 0 || entry <= 4) return (int)cudaErrorInvalidValue;
+// row_ptr a CSR of n_rows over n_calls, every idx [n_idx] in [0, limit), and the tile schedule (or null) of n_passes
+// entries a lane as demux_check_schedule takes it, on `device`
+static int check_rows_ids_schedule(const int64_t* row_ptr, int64_t n_rows, int64_t n_calls, const int32_t* idx,
+                                   int64_t n_idx, int64_t limit, const int32_t* schedule, int n_passes, int entry,
+                                   int n_donors, int n_pg, int device, void* stream) {
     const demux::DeviceGuard guard(device);
     if (guard.status() != 0) return guard.status();
     cudaStream_t s = (cudaStream_t)stream;
     int status;
-    if ((status = demux_check_csr(row_ptr, n_barcodes, n_calls, s)) != 0) return status;
-    if ((status = demux_check_index(pairs, 2 * (int64_t)n_pg, n_donors, s)) != 0) return status;
+    if ((status = demux_check_csr(row_ptr, n_rows, n_calls, s)) != 0) return status;
+    if ((status = demux_check_index(idx, n_idx, limit, s)) != 0) return status;
     if (schedule == nullptr) return 0;
     return demux_check_schedule(schedule, (int64_t)n_passes * demux::kWarpSize * entry, entry, (n_donors + 3) / 4,
                                 n_pg, s);
+}
+
+// The E-step's operands, checked once when they are built (ops/likelihood_kernel.py: estep_operands): row_ptr a
+// CSR over n_calls, every vid in [0, n_variants), and the tile schedule.
+extern "C" int demux_estep_check(const int64_t* row_ptr, int64_t n_barcodes, int64_t n_calls, const int32_t* vid,
+                                 int64_t n_variants, const int32_t* schedule, int n_passes, int entry, int n_donors,
+                                 int n_pg, int device, void* stream) {
+    if (n_barcodes < 0 || n_calls < 0 || n_variants < 0 || n_passes <= 0 || entry <= 4 || n_donors <= 0 || n_pg <= 0)
+        return (int)cudaErrorInvalidValue;
+    return check_rows_ids_schedule(row_ptr, n_barcodes, n_calls, vid, n_calls, n_variants, schedule, n_passes, entry,
+                                   n_donors, n_pg, device, stream);
+}
+
+// The split and group E-steps' operands, checked once when they are built (experiments/folded_estep.py:
+// variant_operands, group_estep.py:group_layout): row_ptr a CSR over n_calls, every pair in [0, n_donors),
+// and the group kernel's tile schedule (null for split).
+extern "C" int demux_variant_check(const int64_t* row_ptr, int64_t n_barcodes, int64_t n_calls, const int32_t* pairs,
+                                   int n_pg, int n_donors, const int32_t* schedule, int n_passes, int entry,
+                                   int device, void* stream) {
+    if (n_barcodes < 0 || n_pg <= 0 || n_donors <= 0 || n_passes < 0 || entry <= 4) return (int)cudaErrorInvalidValue;
+    return check_rows_ids_schedule(row_ptr, n_barcodes, n_calls, pairs, 2 * (int64_t)n_pg, n_donors, schedule,
+                                   n_passes, entry, n_donors, n_pg, device, stream);
 }
 
 // The banded E-step's and M-step's operands, checked once when they are built (experiments/inkernel_gather.py:

@@ -44,9 +44,8 @@
 //   phase 9d).
 #include <type_traits>
 
+#include "checks.cuh"
 #include "common.cuh"
-
-int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream);
 
 namespace {
 
@@ -285,9 +284,11 @@ ChipKernel pick_chip(bool row_vec, bool idx_vec) {
 }  // namespace
 
 extern "C" int demux_gather_rows(const float* table, int64_t n_rows, int width, const int32_t* idx, int64_t n,
-                                 float* out, void* stream) {
+                                 float* out, int device, void* stream) {
     if (n_rows <= 0 || width <= 0 || n < 0) return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
+    const demux::DeviceGuard guard(device);
+    if (guard.status() != 0) return guard.status();
     cudaStream_t s = (cudaStream_t)stream;
     int status;
     if ((status = demux_check_index(idx, n, n_rows, s)) != 0) return status;

@@ -49,10 +49,10 @@
 // No integer division runs in a loop. One column's calls are never split
 // across threads and nothing is summed with atomics, so two runs give the
 // same bits and a barcode's logits do not depend on what else is launched.
-// kFastLog takes log2 on the MUFU unit (lg2.approx) in place of logf and
-// scales each column's sum by ln 2 once.
-// The index inputs are bounds-checked by checks.cu's kernels before the
-// launch, so this kernel carries no trap.
+// The log is log2 on the MUFU unit (lg2.approx; logf took 1.4x as long at the
+// bench shape on an H100, PERF.md), each column's sum scaled by ln 2 once.
+// The indices were checked when the operands were built (demux_estep_check,
+// checks.cu), so the kernel carries no trap and a launch checks nothing.
 //
 // The banded E-step (demux_estep_logits_banded) is the same kernel with
 // kBanded set. It replaces benchmarks/inkernel_gather_kernels.py:
@@ -92,11 +92,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
-
-int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream);
-int demux_check_csr(const int64_t* row_ptr, int64_t n_rows, int64_t n_entries, cudaStream_t stream);
-int demux_check_schedule(const int32_t* schedule, int64_t n_entries, int entry, int n_blocks, int n_pg,
-                         cudaStream_t stream);
+#include "launch.cuh"
 
 namespace {
 
@@ -112,27 +108,14 @@ constexpr int kMaxWarpsPerBlock = 4;
 constexpr int kWindowFloats = kWarp * 5;  // kBanded: 32 segments of (first call i64, calls, first slot, edge)
 constexpr float kLn2 = 0.693147180559945309f;
 
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    if constexpr (kBytes == 16) {
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-    } else {
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-    }
-}
+using demux::cp_async;
 
-// kFastLog: log2 on the MUFU unit (the argument is a normal float, so no
-// denormal handling), the sum scaled by ln 2 once at the end
-template <bool kFastLog>
+// log2 on the MUFU unit (the argument is a normal float, so no denormal
+// handling), the sum scaled by ln 2 once at the end
 __device__ __forceinline__ float log_of(float x) {
-    if constexpr (kFastLog) {
-        float y;
-        asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-        return y;
-    } else {
-        return logf(x);
-    }
+    float y;
+    asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
 // A row-major [rows, per_row] walk spread over the warp: `step` rows per
@@ -226,7 +209,7 @@ __device__ void epilogue(float* row, int n_pg, const float* prior, float* logits
 // kChunk: floats per cp.async of a G row (4 when rows are 16-byte aligned).
 // kBanded: row_ptr is the band-major [n_bands, n_barcodes + 1] CSR, vid is
 // band-local and band k's rows start at G[band_edges[k]].
-template <bool kFastLog, int kChunk, bool kBanded>
+template <int kChunk, bool kBanded>
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
     const float* __restrict__ genotype_prob,  // [n_variants, n_donors]
     int n_donors, int stride,                 // stride: n_donors rounded up to 4
@@ -454,7 +437,7 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
                     }
 #pragma unroll
                     for (int s = 0; s < kSlots; ++s) {
-                        sum[s] += log_of<kFastLog>(prod[s]);
+                        sum[s] += log_of(prod[s]);
                         prod[s] = 1.f;
                     }
                 }
@@ -465,7 +448,7 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
 #pragma unroll
             for (int s = 0; s < kSlots; ++s) {
                 const int g = entry[4 + s];
-                if (g >= 0) row[g] = penalties[g] + (kFastLog ? sum[s] * kLn2 : sum[s]);
+                if (g >= 0) row[g] = penalties[g] + sum[s] * kLn2;
             }
         }
         __syncwarp();
@@ -480,42 +463,37 @@ __global__ void __launch_bounds__(kMaxWarpsPerBlock * kWarp, 4) estep_kernel(
     }
 }
 
-bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-// Sizes and launches estep_kernel<., ., kBanded> after the caller's checks.
+// Sizes and launches estep_kernel<., kBanded> on the current device; the operands were checked when they were built.
 template <bool kBanded>
-int launch_estep(const float* genotype_prob, int n_donors, const int64_t* band_edges, int n_bands,
+int launch_estep(int device, const float* genotype_prob, int n_donors, const int64_t* band_edges, int n_bands,
                  const int64_t* row_ptr, const int32_t* vid, const float* q, int64_t n_barcodes,
                  const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
-                 const float* prior_logits, float* logits, float* probs, int fast_log, cudaStream_t s)
+                 const float* prior_logits, float* logits, float* probs, cudaStream_t s)
 {
-    using Kernel = decltype(&estep_kernel<false, 4, kBanded>);
     const int stride = 4 * ((n_donors + 3) / 4);
     const int row_floats = (n_pg + 3) & ~3;
     const size_t warp_floats = (size_t)2 * kTileCalls * stride + row_floats + (kBanded ? kWindowFloats : 0);
     const size_t warp_bytes = warp_floats * sizeof(float);
-    int device, optin, n_sms, status;
-    if ((status = cudaGetDevice(&device)) != 0) return status;
-    if ((status = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) != 0) return status;
-    if ((status = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, device)) != 0) return status;
-    const size_t fit = (size_t)optin / warp_bytes;  // the ring and the row must fit in shared memory
+    demux::Card card;
+    int status;
+    if ((status = demux::card_of(device, card)) != 0) return status;
+    const size_t fit = (size_t)card.optin / warp_bytes;  // the ring and the row must fit in shared memory
     if (fit < 1) return (int)cudaErrorInvalidValue;
     const int warps = (int)(fit < (size_t)kMaxWarpsPerBlock ? fit : kMaxWarpsPerBlock);
     const size_t shared = warps * warp_bytes;
 
-    const bool rows16 = n_donors % 4 == 0 && aligned16(genotype_prob);
-    const Kernel kernel = fast_log ? (rows16 ? estep_kernel<true, 4, kBanded> : estep_kernel<true, 1, kBanded>)
-                                   : (rows16 ? estep_kernel<false, 4, kBanded> : estep_kernel<false, 1, kBanded>);
-    if ((status = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared)) != 0)
-        return status;
+    const bool rows16 = n_donors % 4 == 0 && demux::aligned16(genotype_prob);
+    const auto kernel = rows16 ? estep_kernel<4, kBanded> : estep_kernel<1, kBanded>;
     int per_sm = 0;
-    if ((status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * kWarp, shared)) != 0)
+    if ((status = demux::blocks_per_sm(card, reinterpret_cast<const void*>(kernel), warps * kWarp, shared,
+                                       per_sm)) != 0)
         return status;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     const int64_t wanted = (n_barcodes + warps - 1) / warps;
-    const int64_t resident = (int64_t)per_sm * n_sms;
+    const int64_t resident = (int64_t)per_sm * card.n_sms;
     const unsigned int grid = (unsigned int)(wanted < resident ? wanted : resident);
-    const bool vec_rows = n_pg % 4 == 0 && aligned16(prior_logits) && aligned16(logits) && aligned16(probs);
+    const bool vec_rows = n_pg % 4 == 0 && demux::aligned16(prior_logits) && demux::aligned16(logits) &&
+                          demux::aligned16(probs);
     kernel<<<grid, warps * kWarp, shared, s>>>(
         genotype_prob, n_donors, stride, band_edges, n_bands, row_ptr, vid, q, n_barcodes, penalties, schedule,
         n_passes, n_pg, row_floats, prior_logits, logits, probs, vec_rows);
@@ -524,23 +502,18 @@ int launch_estep(const float* genotype_prob, int n_donors, const int64_t* band_e
 
 }  // namespace
 
-// prior_logits and probs may be null; fast_log != 0 takes the MUFU log2
+// prior_logits and probs may be null; the operands (row_ptr, vid, schedule) were checked by demux_estep_check when
+// they were built
 extern "C" int demux_estep_logits(
-    const float* genotype_prob, int64_t n_variants, int n_donors,
-    const int64_t* row_ptr, int64_t n_calls, const int32_t* vid, const float* q, int64_t n_barcodes,
-    const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
-    const float* prior_logits, float* logits, float* probs, int fast_log, void* stream)
+    const float* genotype_prob, int n_donors, const int64_t* row_ptr, const int32_t* vid, const float* q,
+    int64_t n_barcodes, const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
+    const float* prior_logits, float* logits, float* probs, int device, void* stream)
 {
     if (n_barcodes <= 0 || n_pg <= 0 || n_donors <= 0 || n_passes <= 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    int status;
-    if ((status = demux_check_csr(row_ptr, n_barcodes, n_calls, s)) != 0) return status;
-    if ((status = demux_check_index(vid, n_calls, n_variants, s)) != 0) return status;
-    if ((status = demux_check_schedule(schedule, (int64_t)n_passes * kWarp * kEntry, kEntry, (n_donors + 3) / 4,
-                                       n_pg, s)) != 0)
-        return status;
-    return launch_estep<false>(genotype_prob, n_donors, nullptr, 1, row_ptr, vid, q, n_barcodes, penalties, schedule,
-                               n_passes, n_pg, prior_logits, logits, probs, fast_log, s);
+    const demux::DeviceGuard guard(device);
+    if (guard.status() != 0) return guard.status();
+    return launch_estep<false>(device, genotype_prob, n_donors, nullptr, 1, row_ptr, vid, q, n_barcodes, penalties,
+                               schedule, n_passes, n_pg, prior_logits, logits, probs, (cudaStream_t)stream);
 }
 
 // The banded E-step: band_edges [n_bands + 1] cut the variants, band_ptr
@@ -552,13 +525,13 @@ extern "C" int demux_estep_logits_banded(
     const int64_t* band_edges, int n_bands, const int64_t* band_ptr,
     const int32_t* vid, const float* q, int64_t n_barcodes,
     const float* penalties, const int32_t* schedule, int n_passes, int n_pg,
-    float* logits, int fast_log, int device, void* stream)
+    float* logits, int device, void* stream)
 {
     // global variant ids are ints inside the kernel
     if (n_barcodes <= 0 || n_pg <= 0 || n_donors <= 0 || n_passes <= 0 || n_bands <= 0 || n_variants > INT32_MAX)
         return (int)cudaErrorInvalidValue;
     const demux::DeviceGuard guard(device);
     if (guard.status() != 0) return guard.status();
-    return launch_estep<true>(genotype_prob, n_donors, band_edges, n_bands, band_ptr, vid, q, n_barcodes, penalties,
-                              schedule, n_passes, n_pg, nullptr, logits, nullptr, fast_log, (cudaStream_t)stream);
+    return launch_estep<true>(device, genotype_prob, n_donors, band_edges, n_bands, band_ptr, vid, q, n_barcodes,
+                              penalties, schedule, n_passes, n_pg, nullptr, logits, nullptr, (cudaStream_t)stream);
 }

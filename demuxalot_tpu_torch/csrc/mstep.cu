@@ -67,10 +67,8 @@
 // Bounds checks: demux_mstep_check runs checks.cu's kernels over var_ptr and
 // cb once, when the operands are built (ops/mstep_kernel.py:mstep_operands);
 // the launches read indices that are already checked, and carry no trap.
+#include "checks.cuh"
 #include "mstep_tiles.cuh"
-
-int demux_check_index(const int32_t* idx, int64_t n, int64_t limit, cudaStream_t stream);
-int demux_check_csr(const int64_t* row_ptr, int64_t n_rows, int64_t n_entries, cudaStream_t stream);
 
 namespace {
 
@@ -280,22 +278,15 @@ void launch(const Calls& a, const Plan& plan, const Epilogue& ep, cudaStream_t s
     mstep_kernel<kPower, kDepth, kUpdate><<<(unsigned int)blocks, kWarpsPerBlock * kWarpSize, 0, stream>>>(a, plan, ep);
 }
 
-// p = 2 (the engine's power) at the asked depth; the other powers at a fixed
-// one, chosen where ptxas spills nothing (powf and the IEEE sqrt are calls)
+// Each power at a fixed depth: 16 for p = 2 (the engine's power; of depths 1 to 16 the fastest on an H100,
+// PERF.md), for the others where ptxas spills nothing (powf and the IEEE sqrt are calls)
 template <bool kUpdate>
-int launch_power(int depth, const Calls& a, const Plan& plan, const Epilogue& ep, cudaStream_t stream) {
+int launch_power(const Calls& a, const Plan& plan, const Epilogue& ep, cudaStream_t stream) {
     if (plan.n_units <= 0 || plan.units == nullptr || a.n_donors <= 0 || a.n_donors > a.n_pg) {
         return (int)cudaErrorInvalidValue;
     }
     if (a.power == 2.f) {
-        switch (depth) {
-            case 1: launch<kPowerTwo, 1, kUpdate>(a, plan, ep, stream); break;
-            case 2: launch<kPowerTwo, 2, kUpdate>(a, plan, ep, stream); break;
-            case 4: launch<kPowerTwo, 4, kUpdate>(a, plan, ep, stream); break;
-            case 8: launch<kPowerTwo, 8, kUpdate>(a, plan, ep, stream); break;
-            case 16: launch<kPowerTwo, 16, kUpdate>(a, plan, ep, stream); break;
-            default: return (int)cudaErrorInvalidValue;
-        }
+        launch<kPowerTwo, 16, kUpdate>(a, plan, ep, stream);
     } else if (a.power == 1.f) {
         launch<kPowerOne, 16, kUpdate>(a, plan, ep, stream);
     } else if (a.power == 0.5f) {
@@ -311,7 +302,9 @@ int launch_power(int depth, const Calls& a, const Plan& plan, const Epilogue& ep
 // var_ptr is a CSR over the calls and every cb lies in [0, n_barcodes):
 // traps otherwise. Run once per dataset, when the operands are built.
 extern "C" int demux_mstep_check(const int64_t* var_ptr, int64_t n_variants, int64_t n_calls, const int32_t* cb,
-                                 int64_t n_barcodes, void* stream) {
+                                 int64_t n_barcodes, int device, void* stream) {
+    const demux::DeviceGuard guard(device);
+    if (guard.status() != 0) return guard.status();
     cudaStream_t s = (cudaStream_t)stream;
     int status;
     if ((status = demux_check_csr(var_ptr, n_variants, n_calls, s)) != 0) return status;
@@ -323,10 +316,12 @@ extern "C" int demux_mstep_check(const int64_t* var_ptr, int64_t n_variants, int
 extern "C" int demux_mstep_addition(const float* posterior, int n_pg, int n_donors, const int64_t* var_ptr,
                                     const int32_t* cb, const float* q, const int64_t* snp_ptr, const int32_t* units,
                                     int64_t n_units, const int32_t* chunks, const int32_t* split, int32_t* tickets,
-                                    float* partials, float power, int depth, float* addition, void* stream) {
+                                    float* partials, float power, float* addition, int device, void* stream) {
     const Calls a{posterior, n_pg, n_donors, var_ptr, cb, q, snp_ptr, power, addition};
     const Plan plan{units, n_units, chunks, split, tickets, partials};
-    return launch_power<false>(depth, a, plan, Epilogue{}, (cudaStream_t)stream);
+    const demux::DeviceGuard guard(device);
+    if (guard.status() != 0) return guard.status();
+    return launch_power<false>(a, plan, Epilogue{}, (cudaStream_t)stream);
 }
 
 // snp_ptr: runs of 1..kMaxRun variants covering [0, n_variants) (checked on the host); the plan as above
@@ -334,11 +329,13 @@ extern "C" int demux_mstep_update(const float* posterior, int n_pg, int n_donors
                                   const int32_t* cb, const float* q, const int64_t* snp_ptr, const int32_t* units,
                                   int64_t n_units, const int32_t* chunks, const int32_t* split, int32_t* tickets,
                                   float* partials, float power, const float* prior, const float* mask, float floor,
-                                  float lo, float hi, int depth, float* addition, float* genotype_prob,
+                                  float lo, float hi, float* addition, float* genotype_prob, int device,
                                   void* stream) {
     if (snp_ptr == nullptr) return (int)cudaErrorInvalidValue;
     const Calls a{posterior, n_pg, n_donors, var_ptr, cb, q, snp_ptr, power, addition};
     const Plan plan{units, n_units, chunks, split, tickets, partials};
     const Epilogue ep{prior, mask, floor, lo, hi, genotype_prob};
-    return launch_power<true>(depth, a, plan, ep, (cudaStream_t)stream);
+    const demux::DeviceGuard guard(device);
+    if (guard.status() != 0) return guard.status();
+    return launch_power<true>(a, plan, ep, (cudaStream_t)stream);
 }

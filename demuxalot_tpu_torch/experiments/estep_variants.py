@@ -71,7 +71,8 @@ def variants_workload(device="cuda", seed: int = SEED, doublet_prior: float = DO
     betas, variant2snp, vid, cb, q, _truth = sim.synthesize_device_workload(
         n_barcodes, n_donors, n_snps, calls_per_barcode, seed=seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    estep = estep_operands(n_donors, doublet_prior, t(csr_row_pointers(cb, n_barcodes)), t(cb), t(vid), t(q))
+    estep = estep_operands(n_donors, doublet_prior, t(csr_row_pointers(cb, n_barcodes)), t(cb), t(vid), t(q),
+                           betas.shape[0])
     gprob = L.probs_from_betas(t(betas), t(variant2snp), n_snps, 0.01)
     return Workload(gprob, estep, variant_operands(estep), {g: group_layout(estep, g) for g in groups})
 

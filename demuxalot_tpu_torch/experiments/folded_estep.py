@@ -62,13 +62,7 @@ class VariantOperands(NamedTuple):
         return self.row_ptr.shape[0] - 1
 
 
-class CheckedOperands(VariantOperands):
-    """Variant operands that :func:`variant_operands` built and checked; ``_replace`` returns unchecked ones."""
-
-    __slots__ = ()
-
-    def _replace(self, **fields) -> VariantOperands:
-        return VariantOperands(*self)._replace(**fields)
+CheckedOperands = _cuda.checked(VariantOperands)
 
 
 def check_on_card(row_ptr: torch.Tensor, n_calls: int, pairs: torch.Tensor, n_donors: int,

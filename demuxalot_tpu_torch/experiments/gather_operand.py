@@ -95,7 +95,7 @@ def pmbc_estep(device="cuda", n_b: int = N_B, n_d: int = N_D, n_s: int = N_S, cp
     device = torch.device(device)
     betas, _v2s, vid, cb, q, _truth = sim.synthesize_device_workload(n_b, n_d, n_s, cpb, seed=seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    operands = estep_operands(n_d, DOUBLET_PRIOR, t(csr_row_pointers(cb, n_b)), t(cb), t(vid), t(q))
+    operands = estep_operands(n_d, DOUBLET_PRIOR, t(csr_row_pointers(cb, n_b)), t(cb), t(vid), t(q), betas.shape[0])
     gp = t(np.random.default_rng(1).random(betas.shape, np.float32))
 
     def estep(s: torch.Tensor) -> torch.Tensor:

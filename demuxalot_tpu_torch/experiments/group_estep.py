@@ -53,9 +53,6 @@ TILE_CALLS = 32  # the kernel's tile of calls; a group must not straddle two
 MAX_WORDS = 2
 
 
-_BUILT = object()  # marks a layout that group_layout built and checked
-
-
 class GroupCalls(NamedTuple):
     """The calls in the group layout (:func:`group_layout`): the variants' operands over the padded calls."""
 
@@ -64,11 +61,13 @@ class GroupCalls(NamedTuple):
     q: torch.Tensor  # f32 [N_pad] (padding: 1)
     group: int  # G
     schedule: Optional[torch.Tensor] = None  # i32 [passes, 32, 24] :func:`group_schedule` (kernel)
-    built: object = None  # _BUILT when group_layout made these
 
     @property
     def n_calls(self) -> int:
         return self.vid.shape[0]
+
+
+CheckedGroupCalls = _cuda.checked(GroupCalls)
 
 
 def group_schedule(pairs: np.ndarray, n_donors: int) -> np.ndarray:
@@ -89,7 +88,7 @@ def group_schedule(pairs: np.ndarray, n_donors: int) -> np.ndarray:
     return table
 
 
-def group_layout(estep: EStepOperands, group: int) -> GroupCalls:
+def group_layout(estep: EStepOperands, group: int) -> CheckedGroupCalls:
     """The mainline's barcode CSR with each barcode's calls padded to a multiple of ``group`` (on its device),
     checked once on a card."""
     if group < 1 or TILE_CALLS % group:
@@ -113,7 +112,7 @@ def group_layout(estep: EStepOperands, group: int) -> GroupCalls:
     operands = VariantOperands(estep.penalties, estep.mixing, torch.from_numpy(pairs).to(device), row_ptr,
                                cb_padded)
     check_on_card(row_ptr, n_calls, operands.pairs, n_donors, schedule)
-    return GroupCalls(operands, vid, q, group, schedule, _BUILT)
+    return CheckedGroupCalls(operands, vid, q, group, schedule)
 
 
 def _check_group(calls: GroupCalls, u: torch.Tensor, n_words: int) -> None:
@@ -148,7 +147,7 @@ def group_logits(u: torch.Tensor, calls: GroupCalls, n_words: int = 2, *, use_lo
     _check_group(calls, u, n_words)
     if u.device.type == "cpu":
         return group_logits_plain(u, calls, n_words, use_log=use_log)
-    if calls.built is not _BUILT:
+    if not isinstance(calls, CheckedGroupCalls):
         raise ValueError("group_logits: calls must come from group_layout")
     o = calls.operands
     n_pg = o.penalties.shape[0]

@@ -55,7 +55,6 @@ import torch
 
 from ..ops import _cuda
 from ..ops import likelihood as L
-from ..ops import likelihood_kernel
 from ..ops.likelihood_kernel import EStepOperands, LANES, ENTRY, _check, estep_logits, estep_operands, estep_schedule
 from ..ops.mstep_kernel import MStepOperands, mstep_addition, mstep_operands
 from ..ops.packing import csr_row_pointers
@@ -130,13 +129,7 @@ class BandedEStepOperands(NamedTuple):
         return self.band_ptr.shape[1] - 1
 
 
-class CheckedBandedEStepOperands(BandedEStepOperands):
-    """Operands :func:`banded_estep_operands` built and checked; ``_replace`` returns unchecked ones."""
-
-    __slots__ = ()
-
-    def _replace(self, **fields) -> BandedEStepOperands:
-        return BandedEStepOperands(*self)._replace(**fields)
+CheckedBandedEStepOperands = _cuda.checked(BandedEStepOperands)
 
 
 def banded_estep_operands(n_donors: int, doublet_prior: float, cb: torch.Tensor, vid: torch.Tensor,
@@ -211,13 +204,7 @@ class BandedMStepOperands(NamedTuple):
         return self.band_ptr.shape[1] - 1
 
 
-class CheckedBandedMStepOperands(BandedMStepOperands):
-    """Operands :func:`banded_mstep_operands` built and checked; ``_replace`` returns unchecked ones."""
-
-    __slots__ = ()
-
-    def _replace(self, **fields) -> BandedMStepOperands:
-        return BandedMStepOperands(*self)._replace(**fields)
+CheckedBandedMStepOperands = _cuda.checked(BandedMStepOperands)
 
 
 def banded_mstep_operands(vid: torch.Tensor, cb: torch.Tensor, q: torch.Tensor, n_variants: int,
@@ -324,8 +311,7 @@ def estep_logits_banded(genotype_prob: torch.Tensor, operands: BandedEStepOperan
     if o.n_barcodes > 0:
         _estep_banded(genotype_prob, genotype_prob.data_ptr(), n_variants, n_donors, o.band_edges.data_ptr(),
                       o.n_bands, o.band_ptr.data_ptr(), o.vid.data_ptr(), o.q.data_ptr(), o.n_barcodes,
-                      o.penalties.data_ptr(), o.schedule.data_ptr(), o.schedule.shape[0], n_pg, logits.data_ptr(),
-                      int(likelihood_kernel.FAST_LOG))
+                      o.penalties.data_ptr(), o.schedule.data_ptr(), o.schedule.shape[0], n_pg, logits.data_ptr())
         estep_logits_banded.launches += 1
     return logits
 
@@ -450,7 +436,8 @@ def bench_workload(n_barcodes: int = BENCH["n_barcodes"], n_donors: int = BENCH[
     n_variants = betas.shape[0]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     cb_t, vid_t, q_t = t(cb), t(vid), t(q)
-    estep = estep_operands(n_donors, doublet_prior, t(csr_row_pointers(cb, n_barcodes)), cb_t, vid_t, q_t)
+    estep = estep_operands(n_donors, doublet_prior, t(csr_row_pointers(cb, n_barcodes)), cb_t, vid_t, q_t,
+                           n_variants)
     order = np.lexsort((cb, vid))
     mstep = mstep_operands(t(csr_row_pointers(vid[order], n_variants)), t(vid[order]), t(cb[order]), t(q[order]),
                            n_barcodes)

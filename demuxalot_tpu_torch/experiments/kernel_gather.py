@@ -83,16 +83,13 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_rows runs on cpu or cuda tensors, not {device}")
     n_rows, width = table.shape
     out = torch.empty((idx.shape[0], width), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        status = _cuda.library().demux_gather_rows(
-            table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _cuda.check_launch("gather_rows", status)
+    _gather_rows(table, table.data_ptr(), n_rows, width, idx.data_ptr(), idx.shape[0], out.data_ptr())
     gather_rows.launches += 1
     return out
 
 
 gather_rows.launches = 0
+_gather_rows = _cuda.Entry("demux_gather_rows")
 
 
 def gather_sum_plain(table: torch.Tensor, idx: torch.Tensor, step: int = STEP) -> torch.Tensor:

@@ -351,7 +351,8 @@ class _Likelihood:
         self.column_names = L.pseudogenotype_names(genotype_names, doublet_prior)
         self.n_barcodes = n_barcodes
         self.calls = c = packed.device_calls(n_barcodes, device)
-        self.estep = estep_operands(len(genotype_names), doublet_prior, c.row_ptr, c.cb_b, c.vid_b, c.q_b)
+        self.estep = estep_operands(len(genotype_names), doublet_prior, c.row_ptr, c.cb_b, c.vid_b, c.q_b,
+                                    packed.n_variants)
         self.mstep = packed.mstep_operands(n_barcodes, device)
         self.mstep.slots(len(genotype_names))  # the M-step's partial sums, made here and not on a launch
         self.snp_groups = (packed.aggregate_operands(n_barcodes, len(genotype_names), doublet_prior, device)
@@ -1025,6 +1026,7 @@ class Demultiplexer:
             _to_device(cb, device),
             _to_device(np.asarray(barcode_calls["variant_id"], dtype=np.int32)[order], device),
             _to_device(np.asarray(barcode_calls["p_base_wrong"], dtype=np.float32)[order], device),
+            len(genotype_prob),
         )
         logits = estep_logits(_to_device(np.asarray(genotype_prob, dtype=np.float32), device), operands)
         return logits.cpu().numpy(), L.pseudogenotype_names(list(genotype_names), doublet_prior)

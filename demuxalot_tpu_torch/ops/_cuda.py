@@ -5,9 +5,12 @@ use one ``nvcc`` per source under ``demuxalot_tpu_torch/csrc``, all started
 together, compiles it for Hopper (``sm_90a``); one more links the objects
 into ``demuxalot_tpu_torch/_build/``, under a file name keyed by a hash of
 the sources, their shared headers (``csrc/*.cuh``) and the flags. The
-library has a plain C interface and is loaded with ``ctypes``;
-:class:`Entry` is the light launch path over it. A missing ``nvcc`` or a
-failed build raises: there is no fallback. :func:`library` is the
+library has a plain C interface and is loaded with ``ctypes``. Every
+launch goes through :class:`Entry`, which passes the device index and the
+stream's raw handle after the kernel's arguments; the two queries
+(``demux_card_limits``, ``demux_cluster_gather_plan``) take a device index
+and go through :func:`library`. A missing ``nvcc`` or a failed build
+raises: there is no fallback. :func:`library` is the
 ``load.kernels`` span of ``utils.tracing`` (the sources' hash, any build,
 the load), and a build adds one to its ``builds`` counter.
 
@@ -44,38 +47,44 @@ _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_int64
 _f32 = ctypes.c_float
-# C signatures of csrc/*.cu's entry points; every one returns a cudaError_t
+# C signatures of csrc/*.cu's entry points; every one returns a cudaError_t. A launch entry's last two arguments
+# are the device index and the stream (Entry passes them), a query's last is the device index
 _SIGNATURES = {
+    "demux_estep_check": (
+        _vp, _i64, _i64, _vp, _i64,  # row_ptr, n_barcodes, n_calls, vid, n_variants
+        _vp, _i32, _i32, _i32, _i32,  # schedule, n_passes, entry, n_donors, n_pg
+        _i32, _vp,  # device, stream
+    ),
     "demux_estep_logits": (
-        _vp, _i64, _i32,  # genotype_prob, n_variants, n_donors
-        _vp, _i64, _vp, _vp, _i64,  # row_ptr, n_calls, vid, q, n_barcodes
+        _vp, _i32, _vp, _vp, _vp, _i64,  # genotype_prob, n_donors, row_ptr, vid, q, n_barcodes
         _vp, _vp, _i32, _i32,  # penalties, schedule, n_passes, n_pg
         _vp, _vp, _vp,  # prior_logits (or null), logits, probs (or null)
-        _i32, _vp,  # fast_log, stream
+        _i32, _vp,  # device, stream
     ),
     "demux_mstep_check": (
-        _vp, _i64, _i64, _vp, _i64, _vp,  # var_ptr, n_variants, n_calls, cb, n_barcodes, stream
+        _vp, _i64, _i64, _vp, _i64,  # var_ptr, n_variants, n_calls, cb, n_barcodes
+        _i32, _vp,  # device, stream
     ),
     "demux_mstep_addition": (
         _vp, _i32, _i32,  # posterior, n_pg, n_donors
         _vp, _vp, _vp, _vp,  # var_ptr, cb, q, snp_ptr (or null)
         _vp, _i64, _vp, _vp, _vp, _vp,  # the plan: units, n_units, chunks, split, tickets, partials
-        _f32, _i32, _vp, _vp,  # power, depth, addition, stream
+        _f32, _vp, _i32, _vp,  # power, addition, device, stream
     ),
     "demux_mstep_update": (
         _vp, _i32, _i32,  # posterior, n_pg, n_donors
         _vp, _vp, _vp, _vp,  # var_ptr, cb, q, snp_ptr
         _vp, _i64, _vp, _vp, _vp, _vp,  # the plan: units, n_units, chunks, split, tickets, partials
         _f32, _vp, _vp,  # power, prior, mask (or null)
-        _f32, _f32, _f32, _i32,  # floor, lo, hi, depth
-        _vp, _vp, _vp,  # addition, genotype_prob, stream
+        _f32, _f32, _f32,  # floor, lo, hi
+        _vp, _vp, _i32, _vp,  # addition, genotype_prob, device, stream
     ),
     "demux_estep_logits_banded": (
         _vp, _i64, _i32,  # genotype_prob, n_variants, n_donors
         _vp, _i32, _vp,  # band_edges, n_bands, band_ptr
         _vp, _vp, _i64,  # vid (band-local), q, n_barcodes
         _vp, _vp, _i32, _i32,  # penalties, schedule, n_passes, n_pg
-        _vp, _i32, _i32, _vp,  # logits, fast_log, device, stream
+        _vp, _i32, _vp,  # logits, device, stream
     ),
     "demux_mstep_addition_banded": (
         _vp, _i32, _i32,  # posterior, n_pg, n_donors
@@ -91,7 +100,7 @@ _SIGNATURES = {
     ),
     "demux_gather_rows": (
         _vp, _i64, _i32, _vp, _i64,  # table, n_rows, width, idx, n
-        _vp, _vp,  # out, stream
+        _vp, _i32, _vp,  # out, device, stream
     ),
     "demux_gather_sum": (
         _vp, _i64, _i32, _vp, _i64, _i64,  # table, n_rows, width, idx, n, step
@@ -239,10 +248,18 @@ def library() -> ctypes.CDLL:
     return _library
 
 
-class Entry:
-    """One entry point of the library, launched on a tensor's card and that card's current stream.
+def checked(base: type) -> type:
+    """``Checked<base>``, the one mark of operands that their builder checked: a subclass of the NamedTuple
+    ``base`` whose ``_replace`` returns an unchecked ``base``, which the wrappers refuse to launch on."""
+    replace = lambda self, **fields: base(*self)._replace(**fields)  # noqa: E731
+    return type(f"Checked{base.__name__}", (base,), {"__slots__": (), "__module__": base.__module__,
+                                                     "_replace": replace})
 
-    The light launch path: the entry's ctypes function is resolved at the
+
+class Entry:
+    """One launch entry point of the library, launched on a tensor's card and that card's current stream.
+
+    The one launch path: the entry's ctypes function is resolved at the
     first launch and kept (no ``library()`` call and no attribute lookup per
     launch), and the C entry takes the device index and the current stream's
     raw handle as its last two arguments. C makes the device current only

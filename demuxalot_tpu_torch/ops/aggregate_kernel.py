@@ -116,14 +116,7 @@ class AggregateOperands(NamedTuple):
         return [self.pairs, self.vid, self.q, self.group_ptr, self.barcode_ptr]
 
 
-class CheckedAggregateOperands(AggregateOperands):
-    """Operands that :func:`aggregate_operands` built and checked; ``_replace`` returns unchecked ones, which a
-    card launch refuses."""
-
-    __slots__ = ()
-
-    def _replace(self, **fields) -> AggregateOperands:
-        return AggregateOperands(*self)._replace(**fields)
+CheckedAggregateOperands = _cuda.checked(AggregateOperands)
 
 
 def aggregate_operands(pairs: np.ndarray, n_donors: int, vid: torch.Tensor, q: torch.Tensor,

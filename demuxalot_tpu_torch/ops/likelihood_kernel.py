@@ -15,9 +15,12 @@ tile of donor pairs (:func:`estep_schedule`), 8 arguments multiplied per
 log, and the row softmax from the warp's staged row of logits. See the
 source for the details.
 
-:func:`estep_logits` launches the kernel for CUDA tensors and runs
-:func:`estep_logits_plain` (``ops.likelihood.barcode_logits``, the prior,
-``torch.softmax``) for CPU tensors; anything else raises.
+:func:`estep_operands` builds what it reads once per dataset, doublet prior
+and device, and checks the indices on a card then (``csrc/checks.cu``'s
+``demux_estep_check``), so a launch checks nothing on the device.
+:func:`estep_logits` launches the kernel for CUDA tensors of operands it
+built and runs :func:`estep_logits_plain` (``ops.likelihood.barcode_logits``,
+the prior, ``torch.softmax``) for CPU tensors; anything else raises.
 ``estep_logits.launches`` counts launches, and ``.host_ns`` and
 ``.host_calls`` its host time (``utils.tracing.timed_op``).
 """
@@ -40,11 +43,6 @@ LANES = 32
 QUAD_SLOTS = 16
 SLOTS = QUAD_SLOTS + 4
 ENTRY = 4 + SLOTS
-# the kernel's log fold takes log2 on the MUFU unit (lg2.approx, the sum
-# scaled by ln 2 once) rather than logf: the same posterior bars, a third
-# less time at the bench shape (chip_smoke.py phase 5 times and checks both;
-# PERF.md)
-FAST_LOG = True
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,22 +116,35 @@ class EStepOperands(NamedTuple):
     cb: torch.Tensor  # i32 [N] barcode of every call (plain)
     vid: torch.Tensor  # i32 [N], sorted by barcode
     q: torch.Tensor  # f32 [N]
+    n_variants: int  # genotype rows the ids were checked against
 
     @property
     def n_barcodes(self) -> int:
         return self.row_ptr.shape[0] - 1
 
 
-def estep_operands(n_donors: int, doublet_prior: float, row_ptr, cb, vid, q) -> EStepOperands:
-    """The doublet model for ``n_donors`` on the calls' device, with the calls."""
+CheckedEStepOperands = _cuda.checked(EStepOperands)
+
+
+def estep_operands(n_donors: int, doublet_prior: float, row_ptr, cb, vid, q,
+                   n_variants: int) -> CheckedEStepOperands:
+    """The doublet model for ``n_donors`` on the calls' device, with the calls, built once per dataset, doublet
+    prior and device. On a card the barcode CSR, every ``vid`` (against ``n_variants`` genotype rows) and the
+    schedule are checked here: ``checks.cu``'s kernels trap on a bad one before any launch reads through it."""
     col_i, col_j = L.pseudogenotype_pairs(n_donors, doublet_prior)
     device = row_ptr.device
-    return EStepOperands(
+    operands = CheckedEStepOperands(
         penalties=torch.from_numpy(L.doublet_penalties(n_donors, doublet_prior)).to(device),
         schedule=torch.from_numpy(estep_schedule(n_donors, doublet_prior).copy()).to(device),
         mixing=torch.from_numpy(L.mixing_from_pairs(col_i, col_j, n_donors)).to(device),
-        row_ptr=row_ptr, cb=cb, vid=vid, q=q,
+        row_ptr=row_ptr, cb=cb, vid=vid, q=q, n_variants=int(n_variants),
     )
+    _check_operands(operands, device)
+    if device.type == "cuda":
+        o = operands
+        _check_on_card(vid, row_ptr.data_ptr(), o.n_barcodes, vid.shape[0], vid.data_ptr(), o.n_variants,
+                       o.schedule.data_ptr(), o.schedule.shape[0], ENTRY, n_donors, o.penalties.shape[0])
+    return operands
 
 
 def estep_logits_plain(genotype_prob: torch.Tensor, operands: EStepOperands, *,
@@ -163,6 +174,17 @@ _OPERAND_TYPES = {
 }
 
 
+def _check_operands(o: EStepOperands, device) -> None:
+    for name, (dtype, ndim) in _OPERAND_TYPES.items():
+        _check(name, getattr(o, name), dtype, ndim, device)
+    if o.mixing.shape[1] != o.penalties.shape[0]:
+        raise ValueError("mixing must have one column per penalty")
+    if o.schedule.shape[0] < 1 or o.schedule.shape[1:] != (LANES, ENTRY):
+        raise ValueError(f"schedule must be [passes >= 1, {LANES}, {ENTRY}], got {tuple(o.schedule.shape)}")
+    if not o.vid.shape == o.q.shape == o.cb.shape or o.n_barcodes < 0:
+        raise ValueError("cb, vid and q must align, row_ptr needs at least one entry")
+
+
 @tracing.timed_op
 def estep_logits(genotype_prob: torch.Tensor, operands: EStepOperands, *,
                  prior_logits: Optional[torch.Tensor] = None, softmax: bool = False):
@@ -174,18 +196,13 @@ def estep_logits(genotype_prob: torch.Tensor, operands: EStepOperands, *,
     """
     device = genotype_prob.device
     _check("genotype_prob", genotype_prob, torch.float32, 2, device)
-    for name, (dtype, ndim) in _OPERAND_TYPES.items():
-        _check(name, getattr(operands, name), dtype, ndim, device)
     o = operands
-    n_variants, n_donors = genotype_prob.shape
+    _check_operands(o, device)
     n_pg = o.penalties.shape[0]
     n_barcodes = o.n_barcodes
-    if o.mixing.shape != (n_donors, n_pg):
-        raise ValueError("mixing must have one row per donor and one column per penalty")
-    if o.schedule.shape[0] < 1 or o.schedule.shape[1:] != (LANES, ENTRY):
-        raise ValueError(f"schedule must be [passes >= 1, {LANES}, {ENTRY}], got {tuple(o.schedule.shape)}")
-    if not o.vid.shape == o.q.shape == o.cb.shape or n_barcodes < 0:
-        raise ValueError("cb, vid and q must align, row_ptr needs at least one entry")
+    if tuple(genotype_prob.shape) != (o.n_variants, o.mixing.shape[0]):
+        raise ValueError(f"genotype_prob must be [{o.n_variants}, {o.mixing.shape[0]}] as the operands were built, "
+                         f"got {tuple(genotype_prob.shape)}")
     if prior_logits is not None:
         _check("prior_logits", prior_logits, torch.float32, 2, device)
         if prior_logits.shape != (n_barcodes, n_pg):
@@ -194,22 +211,19 @@ def estep_logits(genotype_prob: torch.Tensor, operands: EStepOperands, *,
         return estep_logits_plain(genotype_prob, operands, prior_logits=prior_logits, softmax=softmax)
     if device.type != "cuda":
         raise ValueError(f"estep_logits runs on cpu or cuda tensors, not {device}")
+    if not isinstance(o, CheckedEStepOperands):
+        raise ValueError("estep_logits: operands must come from estep_operands")
     logits = torch.empty((n_barcodes, n_pg), dtype=torch.float32, device=device)
     probs = torch.empty_like(logits) if softmax else None
     if n_barcodes > 0:
-        lib = _cuda.library()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            status = lib.demux_estep_logits(
-                genotype_prob.data_ptr(), n_variants, n_donors,
-                o.row_ptr.data_ptr(), o.vid.shape[0], o.vid.data_ptr(), o.q.data_ptr(), n_barcodes,
-                o.penalties.data_ptr(), o.schedule.data_ptr(), o.schedule.shape[0], n_pg,
-                prior_logits.data_ptr() if prior_logits is not None else None, logits.data_ptr(),
-                probs.data_ptr() if softmax else None, int(FAST_LOG), stream,
-            )
-        _cuda.check_launch("estep_logits", status)
+        _estep(genotype_prob, genotype_prob.data_ptr(), genotype_prob.shape[1], o.row_ptr.data_ptr(),
+               o.vid.data_ptr(), o.q.data_ptr(), n_barcodes, o.penalties.data_ptr(), o.schedule.data_ptr(),
+               o.schedule.shape[0], n_pg, prior_logits.data_ptr() if prior_logits is not None else None,
+               logits.data_ptr(), probs.data_ptr() if softmax else None)
         estep_logits.launches += 1
     return (logits, probs) if softmax else logits
 
 
 estep_logits.launches = 0
+_estep = _cuda.Entry("demux_estep_logits")
+_check_on_card = _cuda.Entry("demux_estep_check")

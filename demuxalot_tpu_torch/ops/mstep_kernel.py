@@ -38,7 +38,8 @@ Two entry points, one kernel source:
 Operands come only from :func:`mstep_operands`, which checks the indices
 once per dataset (``csrc/checks.cu``'s kernels, on a card), records the
 posterior row count they were checked against and builds the work plan
-(its tables, one int32 ticket per split run); the chunks' f32 slots for a
+(its tables, one int32 ticket per split run); the wrappers refuse any
+others (:class:`CheckedMStepOperands`). The chunks' f32 slots for a
 donor count come from :meth:`MStepOperands.slots`, which the EM loop and the
 sharded engine call in their set-up. The launches check nothing on the
 device. Launches over one operands' plan must be ordered by their stream
@@ -65,16 +66,10 @@ from .likelihood import DENOMINATOR_FLOOR, genotype_addition_from_posteriors, pr
 from .likelihood_kernel import _check
 from .packing import MAX_WINDOWED_RUN
 
-# posterior row reads in flight per warp at p = 2 (csrc/mstep.cu's kDepth: 1,
-# 2, 4, 8 or 16; other powers run at a fixed depth); other values are set
-# only by chip_smoke's ablation
-IN_FLIGHT = 16
-
 # calls a chunk (csrc/mstep.cu's kChunkCalls): variants of more calls are summed in chunks of this many, across
 # warps. Of 256, 512, 1,024 and 2,048, 1,024 ran the bench pool's EM iteration fastest on an H100 (PERF.md)
 CHUNK_CALLS = 1024
 
-_BUILT = object()  # marks operands that mstep_operands built and checked
 _CALL_TYPES = (("var_ptr", torch.int64), ("vid", torch.int32), ("cb", torch.int32), ("q", torch.float32))
 
 
@@ -158,7 +153,6 @@ class MStepOperands(NamedTuple):
     max_per_snp: int = 0  # longest run
     plan: Optional[MStepPlan] = None  # the kernel's work units
     partials: Optional[dict] = None  # the chunks' f32 [K, D] slots by D (:meth:`slots`)
-    built: object = None  # _BUILT when mstep_operands made these
 
     @property
     def n_variants(self) -> int:
@@ -186,9 +180,12 @@ class MStepOperands(NamedTuple):
                 self.slots(n_genotypes).data_ptr())
 
 
+CheckedMStepOperands = _cuda.checked(MStepOperands)
+
+
 def mstep_operands(var_ptr: torch.Tensor, vid: torch.Tensor, cb: torch.Tensor, q: torch.Tensor, n_barcodes: int,
                    snp_ptr: Optional[torch.Tensor] = None,
-                   host_ptrs: Optional[Tuple[np.ndarray, Optional[np.ndarray]]] = None) -> MStepOperands:
+                   host_ptrs: Optional[Tuple[np.ndarray, Optional[np.ndarray]]] = None) -> CheckedMStepOperands:
     """Checked M-step operands; build them once per dataset.
 
     ``snp_ptr`` (i64 [R + 1]) cuts the variant rows into SNP runs of 1 to
@@ -223,23 +220,19 @@ def mstep_operands(var_ptr: torch.Tensor, vid: torch.Tensor, cb: torch.Tensor, q
         variant_run = torch.from_numpy(np.repeat(np.arange(runs.shape[0], dtype=np.int32), runs)).to(device)
         max_per_snp = int(runs.max()) if runs.shape[0] else 0
     if device.type == "cuda" and n_variants > 0:
-        lib = _cuda.library()
-        with torch.cuda.device(device):
-            status = lib.demux_mstep_check(var_ptr.data_ptr(), n_variants, cb.shape[0], cb.data_ptr(), n_barcodes,
-                                           torch.cuda.current_stream(device).cuda_stream)
-        _cuda.check_launch("mstep_operands", status)
+        _check_on_card(var_ptr, var_ptr.data_ptr(), n_variants, cb.shape[0], cb.data_ptr(), n_barcodes)
     units, chunks, split_runs, split_calls = mstep_plan(host_var_ptr, host_snp_ptr)
     tracing.count("mstep.split_calls", split_calls)
     tracing.count("mstep.split_units", chunks.shape[0])
     upload = lambda array: torch.from_numpy(array).to(device)  # noqa: E731
     plan = MStepPlan(upload(units), upload(chunks), upload(split_runs),
                      torch.zeros(split_runs.shape[0], dtype=torch.int32, device=device), split_calls)
-    return MStepOperands(var_ptr, vid, cb, q, n_barcodes, snp_ptr, variant_run, max_per_snp, plan, {}, _BUILT)
+    return CheckedMStepOperands(var_ptr, vid, cb, q, n_barcodes, snp_ptr, variant_run, max_per_snp, plan, {})
 
 
 def _check_inputs(name: str, posterior: torch.Tensor, operands: MStepOperands, n_genotypes: int) -> None:
     o = operands
-    if not isinstance(o, MStepOperands) or o.built is not _BUILT:
+    if not isinstance(o, CheckedMStepOperands):
         raise ValueError(f"{name}: operands must come from mstep_operands")
     device = posterior.device
     _check("posterior", posterior, torch.float32, 2, device)
@@ -277,19 +270,14 @@ def mstep_addition(
     addition = torch.empty((o.n_variants, n_genotypes), dtype=torch.float32, device=posterior.device)
     if o.n_variants == 0:
         return addition
-    lib = _cuda.library()
-    with torch.cuda.device(posterior.device):
-        status = lib.demux_mstep_addition(
-            posterior.data_ptr(), posterior.shape[1], n_genotypes,
-            o.var_ptr.data_ptr(), o.cb.data_ptr(), o.q.data_ptr(), *o.plan_pointers(n_genotypes),
-            float(power), IN_FLIGHT, addition.data_ptr(), torch.cuda.current_stream(posterior.device).cuda_stream,
-        )
-    _cuda.check_launch("mstep_addition", status)
+    _addition(posterior, posterior.data_ptr(), posterior.shape[1], n_genotypes, o.var_ptr.data_ptr(),
+              o.cb.data_ptr(), o.q.data_ptr(), *o.plan_pointers(n_genotypes), float(power), addition.data_ptr())
     mstep_addition.launches += 1
     return addition
 
 
 mstep_addition.launches = 0
+_addition = _cuda.Entry("demux_mstep_addition")
 
 
 def mstep_update_plain(posterior, operands: MStepOperands, prior_betas: torch.Tensor,
@@ -339,19 +327,14 @@ def mstep_update(
     genotype_prob = torch.empty_like(addition)
     if o.snp_ptr.shape[0] == 1:
         return addition, genotype_prob
-    lib = _cuda.library()
-    with torch.cuda.device(device):
-        status = lib.demux_mstep_update(
-            posterior.data_ptr(), posterior.shape[1], n_genotypes,
-            o.var_ptr.data_ptr(), o.cb.data_ptr(), o.q.data_ptr(), *o.plan_pointers(n_genotypes),
-            float(power), prior_betas.data_ptr(),
-            anchor_mask.data_ptr() if anchor_mask is not None else None,
-            DENOMINATOR_FLOOR, p_genotype_clip, 1 - p_genotype_clip, IN_FLIGHT,
-            addition.data_ptr(), genotype_prob.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-        )
-    _cuda.check_launch("mstep_update", status)
+    _update(posterior, posterior.data_ptr(), posterior.shape[1], n_genotypes, o.var_ptr.data_ptr(), o.cb.data_ptr(),
+            o.q.data_ptr(), *o.plan_pointers(n_genotypes), float(power), prior_betas.data_ptr(),
+            anchor_mask.data_ptr() if anchor_mask is not None else None, DENOMINATOR_FLOOR, p_genotype_clip,
+            1 - p_genotype_clip, addition.data_ptr(), genotype_prob.data_ptr())
     mstep_update.launches += 1
     return addition, genotype_prob
 
 
 mstep_update.launches = 0
+_update = _cuda.Entry("demux_mstep_update")
+_check_on_card = _cuda.Entry("demux_mstep_check")

@@ -194,7 +194,9 @@ class ShardedDemultiplexer:
             n_barcodes, n_variants, n_donors = barcode_handler.n_barcodes, packed.n_variants, genotypes.n_genotypes
             self._agree_on(n_barcodes=n_barcodes, n_variants=n_variants, n_donors=n_donors)
             shards, _ = self._shard_layouts(packed, n_barcodes, n_donors, n_variants, build_mstep=False)
-            operands = [estep_operands(n_donors, doublet_prior, s.row_ptr, s.cb, s.vid, s.q) for s in shards]
+            # the shards' calls hold global variant ids
+            operands = [estep_operands(n_donors, doublet_prior, s.row_ptr, s.cb, s.vid, s.q, n_variants)
+                        for s in shards]
         with _dm._stage("predict.uploads", "layout_s") as timings:
             # logits are invariant to the SNP-sorted renumbering: nothing maps back
             reindex = packed.reindex
@@ -363,8 +365,8 @@ class _ShardedEM:
             engine._agree_on(n_barcodes=n_barcodes, n_variants=self.n_variants, n_donors=self.n_genotypes)
             self.shards, self.mstep = engine._shard_layouts(packed, n_barcodes, self.n_genotypes, self.n_variants,
                                                             build_mstep=True)
-            self.estep = [estep_operands(self.n_genotypes, doublet_prior, s.row_ptr, s.cb, s.vid, s.q)
-                          for s in self.shards]
+            self.estep = [estep_operands(self.n_genotypes, doublet_prior, s.row_ptr, s.cb, s.vid, s.q,
+                                         self.n_variants) for s in self.shards]
         self.column_names = L.pseudogenotype_names(genotypes.genotype_names, doublet_prior)
         self.devices = engine._devices()
         with _dm._stage("em.uploads", "layout_s") as timings:

@@ -131,7 +131,7 @@ def port(harness):
     """The port's operands and folded calls from the same numpy inputs."""
     h = harness
     estep = estep_operands(N_DONORS, PRIOR, t(csr_row_pointers(h["cb"], N_BARCODES)), t(h["cb"]), t(h["vid"]),
-                           t(h["q"]))
+                           t(h["q"]), len(h["gp"]))
     gprob = t(h["gp"])
     return dict(estep=estep, gprob=gprob, operands=FE.variant_operands(estep), u=FE.fold_calls(gprob, estep))
 
@@ -215,7 +215,8 @@ def test_group_layout_puts_each_call_in_the_jax_group(harness, tc):
     theirs = {}
     for g, call in zip(jax_group, lay.vid[slot]):
         theirs.setdefault(int(g), []).append(int(call))
-    estep = estep_operands(N_DONORS, PRIOR, t(csr_row_pointers(h["cb"], N_BARCODES)), t(h["cb"]), t(ids), t(q))
+    estep = estep_operands(N_DONORS, PRIOR, t(csr_row_pointers(h["cb"], N_BARCODES)), t(h["cb"]), t(ids), t(q),
+                           len(ids))
     calls = GE.group_layout(estep, tc // 128)
     ptr = calls.operands.row_ptr.numpy()
     assert (np.diff(ptr) % calls.group == 0).all() and calls.n_calls == ptr[-1]
@@ -255,7 +256,7 @@ def test_padding_leaves_the_plain_logits_bit_equal(harness, port):
     q = np.concatenate([h["q"], np.ones(pad, np.float32)])
     order = np.argsort(cb, kind="stable")
     padded = estep_operands(N_DONORS, PRIOR, t(csr_row_pointers(cb[order], N_BARCODES)), t(cb[order]),
-                            t(vid[order]), t(q[order]))
+                            t(vid[order]), t(q[order]), len(h["gp"]))
     gprob = port["gprob"]
     for estep in (port["estep"], padded):
         estep_u = FE.fold_calls(gprob, estep)

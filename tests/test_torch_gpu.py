@@ -22,7 +22,6 @@ import torch
 from demuxalot_tpu_torch import BarcodeHandler, Demultiplexer, sim
 from demuxalot_tpu_torch.experiments.kernel_gather import H100_SHARED_OPTIN, slice_rows
 from demuxalot_tpu_torch.models import demux
-from demuxalot_tpu_torch.ops import likelihood_kernel
 from demuxalot_tpu_torch.ops.aggregate_kernel import aggregated_logits, aggregated_logits_plain
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
 from demuxalot_tpu_torch.ops import likelihood as L
@@ -99,31 +98,18 @@ def test_gpu_estep_padding_is_bit_exact():
         assert torch.equal(got, want)
 
 
-@contextlib.contextmanager
-def _log(fast: bool):
-    """The kernel's log fold on the MUFU unit (fast) or through logf."""
-    saved = likelihood_kernel.FAST_LOG
-    likelihood_kernel.FAST_LOG = fast
-    try:
-        yield
-    finally:
-        likelihood_kernel.FAST_LOG = saved
-
-
 @pytest.mark.gpu
-@pytest.mark.parametrize("fast_log", [True, False])
 @pytest.mark.parametrize("n_donors", [1, 2, 32, 33, 65])
 @pytest.mark.parametrize("doublet_prior", [0.0, 0.35])
-def test_gpu_fused_estep_matches_plain(n_donors, doublet_prior, fast_log):
+def test_gpu_fused_estep_matches_plain(n_donors, doublet_prior):
     """softmax=True: one launch; logits as the logits-only call's bits, posteriors at 3e-5 from the plain
     version's logits + torch.softmax."""
     _need_card()
     args = estep_args(estep_problem(n_donors=n_donors, doublet_prior=doublet_prior), "cuda")
-    with _log(fast_log):
-        launches = estep_logits.launches
-        logits, probs = estep_logits(*args, softmax=True)
-        assert estep_logits.launches == launches + 1
-        assert torch.equal(logits, estep_logits(*args))
+    launches = estep_logits.launches
+    logits, probs = estep_logits(*args, softmax=True)
+    assert estep_logits.launches == launches + 1
+    assert torch.equal(logits, estep_logits(*args))
     want_logits, want_probs = estep_logits_plain(*args, softmax=True)
     torch.cuda.synchronize()
     np.testing.assert_allclose(logits.cpu().numpy(), want_logits.cpu().numpy(), rtol=1e-4, atol=5e-3)
@@ -132,15 +118,13 @@ def test_gpu_fused_estep_matches_plain(n_donors, doublet_prior, fast_log):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("fast_log", [True, False])
 @pytest.mark.parametrize("n_donors", [32, 65])
-def test_gpu_fused_estep_across_tiles_matches_oracle(n_donors, fast_log):
+def test_gpu_fused_estep_across_tiles_matches_oracle(n_donors):
     """Barcodes of ~375 calls span twelve 32-call tiles: held to the float64 oracle at both bars."""
     _need_card()
     problem = estep_problem(n_donors=n_donors, n_barcodes=16, n_calls=6000)
     gprob, vid, cb, q, n_barcodes, _, prior = problem
-    with _log(fast_log):
-        logits, probs = estep_logits(*estep_args(problem, "cuda"), softmax=True)
+    logits, probs = estep_logits(*estep_args(problem, "cuda"), softmax=True)
     torch.cuda.synchronize()
     ref, _ = oracle_barcode_logits([f"D{i}" for i in range(n_donors)], gprob, vid, cb, q, n_barcodes, prior)
     np.testing.assert_allclose(logits.cpu().numpy(), ref, rtol=1e-4, atol=5e-3)
@@ -269,7 +253,6 @@ _TRAP_SCRIPT = """
 import sys
 import torch
 sys.path[:0] = {paths!r}
-from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits
 from torch_problems import estep_args, estep_problem, mstep_operands, mstep_problem, t
 if {kernel!r}.startswith("take"):
     from demuxalot_tpu_torch.experiments import gather_forms as GF
@@ -308,10 +291,11 @@ elif {kernel!r}.startswith("aggregate"):
     # the operands' constructor checks the CSRs and ids once, so no aggregate kernel ever reads through them
     launch = lambda: layout.operands(p["n_barcodes"], np.stack(pseudogenotype_pairs(4, 0.35)), 4, n_variants)
 elif {kernel!r} == "estep":
-    gprob, operands = estep_args(estep_problem(n_donors=4), "cuda")
-    bad = operands.vid.clone()
-    bad[len(bad) // 2] = gprob.shape[0]  # one past the last variant
-    launch = lambda: estep_logits(gprob, operands._replace(vid=bad))
+    problem = estep_problem(n_donors=4)
+    gprob, vid = problem[:2]
+    vid[len(vid) // 2] = gprob.shape[0]  # one past the last variant
+    # the operands' constructor checks the ids once, so no E-step kernel ever reads through them
+    launch = lambda: estep_args(problem, "cuda")
 else:
     post, vid, cb, q, n_variants, n_donors = mstep_problem()
     cb[len(cb) // 2] = post.shape[0]  # one past the last barcode
@@ -330,9 +314,9 @@ except Exception as error:
 @pytest.mark.parametrize("kernel", ["estep", "mstep", "variants", "take_axis0", "take_axis1", "cluster_past",
                                     "cluster_negative", "aggregate_groups", "aggregate_vid"])
 def test_gpu_out_of_range_index_traps(kernel):
-    """An index past its table traps in checks.cu before the main kernel reads it: the E-step's at each
-    launch, the M-step's, the split and group E-steps' and the aggregate E-step's (a group's calls past the
-    last call, a variant id past the table) when their operands are built. take_along_axis
+    """An index past its table traps in checks.cu before the main kernel reads it: the E-step's, the
+    M-step's, the split and group E-steps' and the aggregate E-step's (a group's calls past the last call, a
+    variant id past the table) when their operands are built. take_along_axis
     and the cluster gather-sum test each index inside the kernel and trap there.
 
     A trap ends the process's CUDA context, so the launch runs in a child process.
@@ -1166,7 +1150,7 @@ def _variant_args(n_donors, pad=0, device="cuda"):
 
     gprob, vid, cb, q, n_barcodes = _variant_problem(n_donors, pad)
     estep = estep_operands(n_donors, 0.25, t(csr_row_pointers(cb, n_barcodes), device), t(cb, device),
-                           t(vid, device), t(q, device))
+                           t(vid, device), t(q, device), len(gprob))
     return t(gprob, device), estep
 
 
@@ -1211,7 +1195,7 @@ def test_gpu_folded_at_the_fold_edges(calls, n_donors, use_log):
     gprob, vid, _, q, _, _, _ = estep_problem(seed=calls, n_donors=n_donors, n_barcodes=40, n_calls=40 * calls)
     cb = np.repeat(np.arange(40, dtype=np.int32), calls)
     estep = estep_operands(n_donors, 0.25, t(csr_row_pointers(cb, 40), "cuda"), t(cb, "cuda"), t(vid, "cuda"),
-                           t(q, "cuda"))
+                           t(q, "cuda"), len(gprob))
     gprob = t(gprob, "cuda")
     u, ops = FE.fold_calls(gprob, estep), FE.variant_operands(estep)
     _held_to_plain(FE.folded_logits, FE.folded_logits_plain, u, ops, use_log=use_log, argmax=use_log)
@@ -1282,7 +1266,7 @@ def test_gpu_variant_kernels_refuse_unchecked_operands():
             FE.folded_logits(u, unchecked)
     calls = GE.group_layout(estep, 4)
     with pytest.raises(ValueError, match="group_layout"):
-        GE.group_logits(FE.fold_calls(gprob, calls), calls._replace(built=None), 2)
+        GE.group_logits(FE.fold_calls(gprob, calls), GE.GroupCalls(*calls), 2)
 
 
 @pytest.mark.gpu

@@ -92,7 +92,8 @@ def test_estep_banded_plain_matches_mainline_plain(problem, n_bands, prior):
     """Band by band (250 bands over 180 variants: empty bands) the same logits as the main path's plain E-step."""
     p = problem
     mainline = estep_logits_plain(t(p["gprob"]), estep_operands(
-        N_DONORS, prior, t(csr_row_pointers(p["cb"], N_BARCODES)), t(p["cb"]), t(p["vid"]), t(p["q"])))
+        N_DONORS, prior, t(csr_row_pointers(p["cb"], N_BARCODES)), t(p["cb"]), t(p["vid"]), t(p["q"]),
+        len(p["gprob"])))
     banded = IG.estep_logits_banded(t(p["gprob"]), _banded_estep(p, n_bands, prior))
     np.testing.assert_allclose(banded.numpy(), mainline.numpy(), rtol=1e-5, atol=1e-4)
 

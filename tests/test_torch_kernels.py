@@ -20,9 +20,9 @@ from demuxalot_tpu.ops.pallas_mstep import TiledMstepCalls
 from demuxalot_tpu.ops.tiling import tile_barcode_calls
 from demuxalot_tpu_torch.ops import likelihood as TL
 from demuxalot_tpu_torch.ops.likelihood_kernel import estep_logits, estep_logits_plain
-from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain
+from demuxalot_tpu_torch.ops.mstep_kernel import mstep_addition, mstep_addition_plain, mstep_update
 from oracle import oracle_barcode_logits, oracle_mstep
-from torch_problems import estep_args, estep_problem, mstep_operands, mstep_problem, t
+from torch_problems import estep_args, estep_problem, mstep_operands, mstep_problem, t, update_problem
 
 torch.set_num_threads(1)
 
@@ -163,7 +163,7 @@ def test_plain_versions_are_the_likelihood_ops():
     assert torch.equal(plain, direct)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "contiguity", "device", "length"])
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "device", "length", "rows"])
 def test_estep_wrapper_rejects_bad_inputs(bad):
     gprob, operands = estep_args(estep_problem(n_donors=2))
     if bad == "dtype":
@@ -171,7 +171,10 @@ def test_estep_wrapper_rejects_bad_inputs(bad):
     elif bad == "contiguity":
         gprob = gprob.t().contiguous().t()
     elif bad == "device":
-        gprob, operands = gprob.to("meta"), type(operands)(*(a.to("meta") for a in operands))
+        gprob = gprob.to("meta")
+        operands = type(operands)(*(a.to("meta") if isinstance(a, torch.Tensor) else a for a in operands))
+    elif bad == "rows":  # a genotype row more than the ids were checked against
+        gprob = torch.cat([gprob, gprob[:1]])
     else:
         operands = operands._replace(q=operands.q[:-1])
     with pytest.raises((TypeError, ValueError)):
@@ -192,6 +195,21 @@ def test_mstep_wrapper_rejects_bad_inputs(bad):
             **{name: getattr(operands, name).to("meta") for name in ("var_ptr", "vid", "cb", "q")})]
     with pytest.raises((TypeError, ValueError)):
         mstep_addition(*args)
+
+
+@pytest.mark.parametrize("entry", ["addition", "update"])
+def test_mstep_wrappers_refuse_replaced_operands(entry):
+    """``_replace`` drops the builder's check, so both wrappers refuse its result on any device, though each field
+    is as good as the built one's."""
+    p = update_problem(n_calls=500)
+    operands = mstep_operands(p["vid"], p["cb"], p["q"], p["n_variants"], len(p["post"]), snp_ptr=p["snp_ptr"])
+    if entry == "addition":
+        run = lambda o: mstep_addition(t(p["post"]), o, p["n_donors"], 2.0)  # noqa: E731
+    else:
+        run = lambda o: mstep_update(t(p["post"]), o, t(p["prior"]), t(p["mask"]), 0.01, p["n_donors"], 2.0)  # noqa
+    run(operands)
+    with pytest.raises(ValueError, match="mstep_operands"):
+        run(operands._replace(cb=operands.cb.clone()))
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

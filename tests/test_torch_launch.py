@@ -1,4 +1,4 @@
-"""The ctypes bindings of csrc/*.cu and the light launch path (``ops._cuda.Entry``), on the CPU.
+"""The ctypes bindings of csrc/*.cu and the launch path (``ops._cuda.Entry``), on the CPU.
 
 Each ``_SIGNATURES`` entry is held to its ``extern "C"`` declaration, parsed
 from the source: a slip in the argument count or in a pointer's width shows
@@ -73,7 +73,7 @@ torch.cuda.init = refuse
 from demuxalot_tpu_torch.ops import _cuda
 from demuxalot_tpu_torch.experiments import dma_pattern, folded_estep, gather_forms, gather_operand, inkernel_gather
 from demuxalot_tpu_torch.experiments import kernel_gather
-from demuxalot_tpu_torch.ops import aggregate_kernel
+from demuxalot_tpu_torch.ops import aggregate_kernel, likelihood_kernel, mstep_kernel
 assert not torch.cuda.is_initialized()
 assert _cuda._library is None and _cuda._build is None
 assert gather_forms._take_along_axis._fn is None and gather_operand._tiny._fn is None
@@ -82,6 +82,9 @@ assert inkernel_gather._estep_banded._fn is None and inkernel_gather._mstep_band
 assert inkernel_gather._check_banded._fn is None and gather_forms._cluster_gather_sum._fn is None
 assert not gather_forms._CARD_PLANS and dma_pattern._stream_sum._fn is None
 assert aggregate_kernel._aggregate._fn is None and aggregate_kernel._check_on_card._fn is None
+assert likelihood_kernel._estep._fn is None and likelihood_kernel._check_on_card._fn is None
+assert mstep_kernel._addition._fn is None and mstep_kernel._update._fn is None
+assert mstep_kernel._check_on_card._fn is None and kernel_gather._gather_rows._fn is None
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True, timeout=300)
@@ -135,8 +138,7 @@ def _stand_in(monkeypatch, status: int = 0) -> _Library:
                                         ("demux_estep_logits_banded", (0x7F12_3456_7000, 131_072, 32, 0x7F12_0000_1230,
                                                                        12, 0x7F11_0000_0000, 0x7F10_0000_0000,
                                                                        0x7F0F_0000_0000, 65_536, 0x7F0E_0000_0000,
-                                                                       0x7F0D_0000_0000, 1, 528, 0x7E00_0000_0040,
-                                                                       1)),
+                                                                       0x7F0D_0000_0000, 1, 528, 0x7E00_0000_0040)),
                                         ("demux_mstep_addition_banded", (0x7F12_3456_7000, 528, 32, 0x7F12_0000_1230,
                                                                          82, 0x7F11_0000_0000, 0x7F10_0000_0000,
                                                                          0x7F0F_0000_0000, 131_072, 2.0,
@@ -148,7 +150,27 @@ def _stand_in(monkeypatch, status: int = 0) -> _Library:
                                                                       4_194_304, 8192, 5, 16, 0x7E00_0000_0040,
                                                                       0x7E00_0080_0040)),
                                         ("demux_stream_sum", (0x7F12_3456_7000, 32, 4_456_448, 1, 512, 128, 1, 256,
-                                                              6, 0x7E00_0000_0040, 8704, 0x7E00_0000_8840))])
+                                                              6, 0x7E00_0000_0040, 8704, 0x7E00_0000_8840)),
+                                        ("demux_estep_logits", (0x7F12_3456_7000, 32, 0x7F12_0000_1230,
+                                                                0x7F11_0000_0000, 0x7F10_0000_0000, 65_536,
+                                                                0x7F0F_0000_0000, 0x7F0E_0000_0000, 1, 528, None,
+                                                                0x7E00_0000_0040, 0x7E00_0210_0040)),
+                                        ("demux_mstep_check", (0x7F12_0000_1230, 131_072, 4_194_304,
+                                                               0x7F11_0000_0000, 65_536)),
+                                        ("demux_mstep_addition", (0x7F12_3456_7000, 528, 32, 0x7F12_0000_1230,
+                                                                  0x7F11_0000_0000, 0x7F10_0000_0000,
+                                                                  0x7F0F_0000_0000, 0x7F0E_0000_0000, 100_000,
+                                                                  0x7F0D_0000_0000, 0x7F0C_0000_0000,
+                                                                  0x7F0B_0000_0000, 0x7F0A_0000_0000, 2.0,
+                                                                  0x7E00_0000_0040)),
+                                        ("demux_mstep_update", (0x7F12_3456_7000, 528, 32, 0x7F12_0000_1230,
+                                                                0x7F11_0000_0000, 0x7F10_0000_0000, 0x7F0F_0000_0000,
+                                                                0x7F0E_0000_0000, 100_000, 0x7F0D_0000_0000,
+                                                                0x7F0C_0000_0000, 0x7F0B_0000_0000, 0x7F0A_0000_0000,
+                                                                2.0, 0x7F09_0000_0000, None, 1e-10, 0.01, 0.99,
+                                                                0x7E00_0000_0040, 0x7E00_0080_0040)),
+                                        ("demux_gather_rows", (0x7F12_3456_7000, 8192, 64, 0x7F12_0000_1230, 1 << 20,
+                                                               0x7E00_0000_0040))])
 def test_entry_passes_its_arguments_then_the_device_and_the_stream(monkeypatch, name, args, index):
     lib = _stand_in(monkeypatch)
     entry = _cuda.Entry(name)

@@ -241,7 +241,7 @@ def _estep_inputs():
     vid = torch.randint(0, n_variants, (n_calls,), generator=generator, dtype=torch.int32)
     q = torch.rand(n_calls, generator=generator) * 0.1
     row_ptr = torch.from_numpy(np.searchsorted(cb.numpy(), np.arange(n_barcodes + 1)).astype(np.int64))
-    operands = estep_operands(n_donors, 0.25, row_ptr, cb, vid, q)
+    operands = estep_operands(n_donors, 0.25, row_ptr, cb, vid, q, n_variants)
     return torch.rand(n_variants, n_donors, generator=generator), operands
 
 

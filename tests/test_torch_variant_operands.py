@@ -138,7 +138,7 @@ def _even_barcodes(n_donors: int, calls_per_barcode: int, n_barcodes: int = 30, 
     vid = rng.randint(0, n_variants, len(cb)).astype(np.int32)
     q = (rng.rand(len(cb)) * 0.5).astype(np.float32)
     q[::11] = 1.0
-    estep = estep_operands(n_donors, 0.25, t(csr_row_pointers(cb, n_barcodes)), t(cb), t(vid), t(q))
+    estep = estep_operands(n_donors, 0.25, t(csr_row_pointers(cb, n_barcodes)), t(cb), t(vid), t(q), n_variants)
     return t(gprob), estep
 
 

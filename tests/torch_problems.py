@@ -57,7 +57,7 @@ def estep_args(problem, device="cpu"):
     gprob, vid, cb, q, n_barcodes, n_donors, doublet_prior = problem
     operands = estep_operands(
         n_donors, doublet_prior, t(csr_row_pointers(cb, n_barcodes), device),
-        t(cb, device), t(vid, device), t(q, device),
+        t(cb, device), t(vid, device), t(q, device), len(gprob),
     )
     return t(gprob, device), operands
 
